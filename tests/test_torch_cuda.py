@@ -1,0 +1,105 @@
+"""The CUDA band kernel on the card (``-m cuda``): it needs an NVIDIA GPU
+and the CUDA toolkit, and skips without them. Run on the GPU machine with
+``python -m pytest tests/test_torch_cuda.py -q``.
+
+Gate, as in chip_smoke.py and the JAX package's bench: max|d| / max|ref|
+<= 1e-4 between the kernel and its plain torch version on the same card
+(the kernel sums its FP32 products in its own order)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+GATE = 1e-4
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the band kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _model(n_spec, thermal=False):
+    from vsmartmom_tpu_torch import flagship_model
+    model = flagship_model(n_spec=n_spec, nstreams=4)
+    if thermal:
+        model.bands[0].thermal_b = np.random.default_rng(5).uniform(
+            0.05, 0.5, (model.profile.nz, n_spec))
+    return model
+
+
+@pytest.mark.parametrize("thermal", [False, True], ids=["K1", "K2"])
+def test_kernel_matches_plain_version(cuda, thermal):
+    from vsmartmom_tpu_torch.core.solver import band_moment_args
+    from vsmartmom_tpu_torch.ops.fused_band import (fused_moment,
+                                                    moment_reference)
+    inputs, config = _model(37, thermal).build_band(0, device=cuda)
+    assert config.fused and config.n_sources == (2 if thermal else 1)
+    for m in range(config.m_scat + 1):
+        args, kw = band_moment_args(inputs, config, m, cuda)
+        out = fused_moment(*args, **kw)
+        torch.cuda.synchronize()
+        ref = moment_reference(*args, **kw)
+        for a, b in zip(out, ref):
+            assert torch.isfinite(a).all() and _rel(a, b) <= GATE
+
+
+@pytest.mark.parametrize("pol,nstreams,N", [("STOKES_I", 4, 10),
+                                             ("STOKES_IQU", 4, 30),
+                                             ("STOKES_IQUV", 11, 64)])
+def test_kernel_takes_any_width(cuda, pol, nstreams, N):
+    """Stream counts that are no multiple of 4 (the kernel's float4 rows
+    pad only its shared-memory stride) and the largest N it takes."""
+    from vsmartmom_tpu_torch import (Parameters, SurfaceDescriptor,
+                                     model_from_parameters)
+    from vsmartmom_tpu_torch.core.solver import band_moment_args
+    from vsmartmom_tpu_torch.flagship import FLAGSHIP_P, FLAGSHIP_T
+    from vsmartmom_tpu_torch.ops.fused_band import (fused_moment,
+                                                    moment_reference)
+    from vsmartmom_tpu_torch.scattering import stokes
+    model = model_from_parameters(Parameters(
+        spec_bands=[19417.0 + 0.05 * np.arange(21)],
+        surfaces=[SurfaceDescriptor("LambertianSurfaceScalar", [0.05])],
+        nstreams=nstreams, polarization=getattr(stokes, pol), sza=30.0,
+        vza=[75.0, 60.0, 45.0, 30.0, 15.0, 0.0], vaz=[0.0] * 6,
+        obs_alt=1000.0,
+        T=FLAGSHIP_T, p=FLAGSHIP_P, float_type=np.float32))
+    inputs, config = model.build_band(0, device=cuda)
+    assert config.N == N and config.fused
+    for m in range(config.m_scat + 1):
+        args, kw = band_moment_args(inputs, config, m, cuda)
+        out = fused_moment(*args, **kw)
+        torch.cuda.synchronize()
+        ref = moment_reference(*args, **kw)
+        for a, b in zip(out, ref):
+            assert torch.isfinite(a).all() and _rel(a, b) <= GATE
+
+
+def test_kernel_path_matches_plain_path(cuda):
+    from vsmartmom_tpu_torch.core.solver import rt_solve
+    from vsmartmom_tpu_torch.ops.fused_band import fused_moment
+    inputs, config = _model(16).build_band(0, device=cuda)
+    before = fused_moment.launches
+    out = rt_solve(inputs, config, cuda)
+    assert fused_moment.launches - before == config.m_scat + 1
+    plain = rt_solve(inputs, dataclasses.replace(config, fused=False), cuda)
+    for k in ("R", "T", "hdr", "bhr_uw", "bhr_dw"):
+        assert _rel(out[k], plain[k]) <= GATE, k
+
+
+def test_kernel_refuses_f64(cuda):
+    from vsmartmom_tpu_torch.core.solver import band_moment_args
+    from vsmartmom_tpu_torch.ops.fused_band import fused_moment
+    inputs, config = _model(4).build_band(0, device=cuda)
+    args, kw = band_moment_args(
+        inputs, dataclasses.replace(config, dtype=np.float64), 0, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fused_moment(*args, **kw)

@@ -1,0 +1,81 @@
+"""Boundaries of the port: it imports neither JAX nor the JAX package, its
+entry points never fall back to the CPU quietly, and its CUDA wrapper
+refuses what the kernel does not take before anything is built."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "vsmartmom_tpu")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_or_reference_imports():
+    files = sorted((ROOT / "vsmartmom_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    bad = [(f.relative_to(ROOT).as_posix(), mod) for f in files
+           for mod in _imported_roots(f) if mod in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):
+    from vsmartmom_tpu_torch import flagship_model, rt_run
+    from vsmartmom_tpu_torch.core.types import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = flagship_model(n_spec=2, nstreams=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rt_run(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.build_band(0)
+    assert resolve_device("cpu") == torch.device("cpu")
+    R, T = rt_run(model, device="cpu")
+    assert R.shape == T.shape == (9, 4, 2) and np.isfinite(R).all()
+
+
+@pytest.fixture(scope="module")
+def cpu_operands():
+    from vsmartmom_tpu_torch import flagship_model
+    from vsmartmom_tpu_torch.core.solver import band_moment_args
+    from vsmartmom_tpu_torch.ops.fused_band import band_operands
+    inputs, config = flagship_model(n_spec=3, nstreams=2).build_band(
+        0, device="cpu")
+    args, kw = band_moment_args(inputs, config, 0, "cpu")
+    kw = {k: v for k, v in kw.items() if k not in ("ns_sched", "ns_inter")}
+    return band_operands(*args, **kw), config
+
+
+def test_kernel_wrapper_refuses_wrong_dtype(cpu_operands):
+    from vsmartmom_tpu_torch.ops.fused_band import _launch_kernel
+    ops, config = cpu_operands
+    ops64 = type(ops)(*(x.double() for x in ops))
+    with pytest.raises(ValueError, match="float32"):
+        _launch_kernel(ops64, (0,) * config.ndoubl, 3)
+
+
+def test_kernel_wrapper_refuses_wrong_shape(cpu_operands):
+    from vsmartmom_tpu_torch.ops.fused_band import _launch_kernel
+    ops, config = cpu_operands
+    bad = ops._replace(ek=ops.ek[:, :, :0].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        _launch_kernel(bad, (0,) * config.ndoubl, 3)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors(cpu_operands):
+    from vsmartmom_tpu_torch.ops.fused_band import _launch_kernel
+    ops, config = cpu_operands
+    with pytest.raises(ValueError, match="CUDA"):
+        _launch_kernel(ops, (0,) * config.ndoubl, 3)

@@ -1,0 +1,31 @@
+"""Polarization (Stokes-vector) types.
+
+Reference: vSmartMOM.jl src/Scattering/types.jl:129-197.
+Each type carries the number of Stokes components ``n``, the D-matrix
+diagonal used by the polarization symmetry relations (Sanghavi 2014,
+Eqs. 29-32), and the incident (unpolarized) Stokes vector I0.
+"""
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+
+@dataclass(frozen=True)
+class Polarization:
+    name: str
+    n: int
+    D: np.ndarray = field(repr=False)
+    I0: np.ndarray = field(repr=False)
+
+
+def _pol(name, d, i0):
+    return Polarization(name=name, n=len(d),
+                        D=np.asarray(d, dtype=np.float64),
+                        I0=np.asarray(i0, dtype=np.float64))
+
+
+STOKES_I = _pol("Stokes_I", [1.0], [1.0])
+STOKES_IQ = _pol("Stokes_IQ", [1.0, 1.0], [1.0, 0.0])
+STOKES_IQU = _pol("Stokes_IQU", [1.0, 1.0, -1.0], [1.0, 0.0, 0.0])
+STOKES_IQUV = _pol("Stokes_IQUV", [1.0, 1.0, -1.0, -1.0], [1.0, 0.0, 0.0, 0.0])
