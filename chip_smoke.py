@@ -1,24 +1,42 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Phases, each of
+Run from the root of a checkout: ``python3 chip_smoke.py``. Two main paths
+are driven: the flagship forward ``rt_run`` (band kernel K1) and the
+rotational-Raman forward ``rt_run_inelastic`` (K1 for the elastic half, the
+block-bichromatic RRS kernel K3 for the inelastic one). Phases, each of
 which fails the run (non-zero exit) on a miss:
 
 1. setup — the card's name and power limit; every CUDA kernel of the port
    built from ``vsmartmom_tpu_torch/csrc`` (one nvcc per source, in parallel);
 2. kernel vs plain — each kernel's wrapper against its plain PyTorch version
-   on the card at the main path's shapes (flagship: N = 52, nz = 33,
-   ndoubl = 8, the probed Newton-Schulz schedule, nSpec = 1024, moments
-   m = 0..2) and a small K = 2 (thermal source) case; gate
-   max|d| / max|ref| <= 1e-4 on every output;
-3. main path — ``rt_run`` of the flagship scene (nSpec = 4096, f32, solved in
-   4 chunks of 1024) with every launch counter set to 0 just before and read
-   just after; R and T finite; the kernel path against the port's plain path
-   on the first chunk (<= 1e-4 of max|R|); launches = chunks x (m_scat + 1);
-   the flagship at nSpec = 16 against the stored JAX CPU f64 reference
-   (``vsmartmom_tpu_torch/data/flagship_ref_f64.npz``, <= 1e-4 of max|R|);
-4. timing — the flagship forward's points/s (best of 3 after warm-up, synced
-   with ``torch.cuda.synchronize``), and per kernel launch its time, its plain
-   version's time and its bound: max(FLOPs / FP32 peak, bytes / HBM rate).
+   on the card at its main path's shapes, gate max|d| / max|ref| <= 1e-4 on
+   every output: K1 at the flagship's (N = 52, nz = 33, ndoubl = 8, the
+   probed Newton-Schulz schedule, nSpec = 1024, moments m = 0..2) and a
+   small K = 2 (thermal source) case; K3 at the RRS+SIF scene's (N = 36,
+   nz = 8, 58 Raman shifts x nSpec 256 = 14,848 pairs, the coarse ie
+   ladder, m = 0..2) and a small I-only case (N = 6) whose shifts run off
+   the band edge for most pairs, which must come out exactly zero;
+3. main paths, each with every launch counter set to 0 just before and read
+   just after:
+   * ``rt_run`` of the flagship (nSpec = 4096, f32, 4 chunks of 1024): R and
+     T finite; the kernel path against the port's plain path on the first
+     chunk (<= 1e-4 of max|R|); launches = chunks x (m_scat + 1); the
+     flagship at nSpec = 16 against the stored JAX CPU f64 reference
+     (``vsmartmom_tpu_torch/data/flagship_ref_f64.npz``, <= 1e-4);
+   * ``rt_run_inelastic`` of the RRS+SIF scene (nSpec = 256): K1 and K3
+     launched once per moment; R, T, ieR, ieT finite; the kernel path
+     against the port's plain ``rt_solve_rrs``, R <= 1e-4 and ieR <= 5e-3
+     of max (the JAX bench's gate: the coarse ie ladder is by design), the
+     total R + ieR <= 1e-4 of max|R|, and with ``ie_fullres=True``
+     ieR <= 1e-4; a small RRS scene against the
+     stored JAX CPU f64 reference (``data/rrs_ref_f64.npz``), R and ieR
+     <= 1e-4 with ``ie_fullres=True``;
+4. timing — the flagship's and the RRS+SIF solve's points/s (best of 3
+   after a warm-up, synced with ``torch.cuda.synchronize``), and per kernel
+   launch its time, its plain version's time and its bound:
+   max(FLOPs / FP32 peak, bytes / HBM rate), K3's at the least work that
+   gives its outputs (``rrs_flops``), with the kernel's own count and the
+   dense one printed beside it.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel. Without CUDA it exits non-zero and prints no result.
@@ -39,8 +57,10 @@ import torch
 FP32_PEAK_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 GATE = 1e-4
+IE_GATE = 5e-3
 N_CHUNK, N_CHUNKS = 1024, 4
 N_SPEC_TOTAL = N_CHUNK * N_CHUNKS
+RRS_N_SPEC = 256
 
 
 def fail(msg):
@@ -80,6 +100,31 @@ def moment_flops(config, n_spec):
     return 2.0 * N * N * cols * config.nz * n_spec
 
 
+def rrs_flops(ops, n_points, ns_sched, ns_inter, count="least"):
+    """FP32 operations (an FMA is two) of one fused_moment_rrs launch over
+    P = nR x n_points (shift, point) pairs: the matrix and vector products
+    of the ladder and the adding (the moment_flops count) on the (2N, 2N)
+    block-lower-triangular pair operators, counted three ways:
+
+    * "least", the bound's: the least work giving the same outputs. Only
+      the (2,1) block is a pair's own, 2 N^3 FMAs per product and 2 N^2
+      per product column. The diagonal blocks are elastic ladders and
+      composites of one grid point (l1 = i, l0 = i + shift), so they are
+      needed once per point: N^3 and N^2 per point;
+    * "block", the kernel's: every pair's three blocks, 4 N^3 and 3 N^2;
+    * "dense": 8 N^3 and 4 N^2 per pair."""
+    nz, P, Np = ops.Em1.shape
+    N = Np // 2
+    mat, vec = {
+        "least": (2 * N ** 3 * P + N ** 3 * n_points,
+                  2 * N ** 2 * P + N ** 2 * n_points),
+        "block": (4 * N ** 3 * P, 3 * N ** 2 * P),
+        "dense": (Np ** 3 * P, Np ** 2 * P)}[count]
+    n_mat = sum(2 * k + 5 for k in ns_sched) + 2 * ns_inter + 11
+    n_vec = 4 * len(ns_sched) + 4
+    return 2.0 * (n_mat * mat + n_vec * vec) * nz
+
+
 def moment_bytes(args, out):
     """Bytes one launch must move: its operands read once (the plain prep's
     compact row tables) and the composite written once."""
@@ -100,10 +145,17 @@ def main():
     kind = torch.cuda.get_device_name(0)
     dev = torch.device("cuda")
 
-    from vsmartmom_tpu_torch import flagship_model, rt_run
+    from vsmartmom_tpu_torch import (flagship_model, rrs_sif_model, rt_run,
+                                     rt_run_inelastic)
+    from vsmartmom_tpu_torch.core.inelastic import (inelastic_setup,
+                                                    rrs_moment_args,
+                                                    rt_solve_rrs,
+                                                    rt_solve_rrs_fused)
     from vsmartmom_tpu_torch.core.solver import (band_moment_args, rt_solve,
                                                  spectral_slice)
-    from vsmartmom_tpu_torch.ops import cuda_build, fused_band
+    from vsmartmom_tpu_torch.flagship import rrs_ref_model
+    from vsmartmom_tpu_torch.ops import cuda_build, fused_band, fused_rrs
+    from vsmartmom_tpu_torch.scattering.stokes import STOKES_I
 
     # ---- 1. setup: build every kernel (one nvcc per source, together) ----
     sources = sorted(p.stem for p in cuda_build.SRC_DIR.glob("*.cu"))
@@ -155,6 +207,46 @@ def main():
         if not all(np.isfinite(e) and e <= GATE for e in errs.values()):
             fail(f"K=2 fused_moment vs moment_reference at m={m}: {errs}")
 
+    rrs_model = rrs_sif_model(n_spec=RRS_N_SPEC)
+    rrs_inputs, rrs_config, *rrs = inelastic_setup(rrs_model, device=dev)
+    if not rrs_config.fused:
+        fail("the RRS f32 model on CUDA did not pick the kernel path")
+    n_shifts = len(rrs[0])
+    rrs_args = [rrs_moment_args(rrs_inputs, rrs_config, *rrs, m, dev)
+                for m in range(rrs_config.m_max + 1)]
+    kw0 = rrs_args[0][1]
+    print(f"RRS config: N={rrs_config.N} nz={rrs_config.nz} "
+          f"ndoubl={rrs_config.ndoubl} ns_sched={rrs_config.ns_sched} "
+          f"ns_inter={rrs_config.ns_inter} shifts={n_shifts} "
+          f"pairs={n_shifts * RRS_N_SPEC}; ie ladder ndoubl={kw0['ndoubl']} "
+          f"ns_sched={kw0['ns_sched']} ns_inter={kw0['ns_inter']}",
+          flush=True)
+    names_ie = ("ieR_mp", "ieR_pm", "ieT_pp", "ieT_mm", "ieJ_p", "ieJ_m")
+    rrs_abs_err = 0.0
+    edge_model = rrs_sif_model(n_spec=64, nstreams=3, polarization=STOKES_I)
+    edge_inputs, edge_config, *edge = inelastic_setup(edge_model, device=dev)
+    off = torch.as_tensor([[not 0 <= i + sh < 64 for i in range(64)]
+                           for sh in edge[0]], device=dev)
+    cases = [("RRS", m, a) for m, a in enumerate(rrs_args)] + [
+        ("edge N=6", m, rrs_moment_args(edge_inputs, edge_config, *edge, m,
+                                        dev))
+        for m in range(edge_config.m_max + 1)]
+    for label, m, (args, kw) in cases:
+        out = fused_rrs.fused_moment_rrs(*args, **kw)
+        torch.cuda.synchronize()
+        ref = fused_rrs.moment_rrs_reference(*args, **kw)
+        errs = {n: rel(a, b) for n, a, b in zip(names_ie, out, ref)}
+        rrs_abs_err = max([rrs_abs_err] + [float((a - b).abs().max())
+                                           for a, b in zip(out, ref)])
+        print(f"K3 vs plain {label} m={m}: " + " ".join(
+            f"{n}={e:.2e}" for n, e in errs.items()), flush=True)
+        if not all(np.isfinite(e) and e <= GATE for e in errs.values()):
+            fail(f"fused_moment_rrs vs moment_rrs_reference {label} m={m}: "
+                 f"{errs}")
+        if label.startswith("edge") and not all(
+                bool((a[off] == 0).all()) for a in out):
+            fail("off-grid RRS pairs did not come out exactly zero")
+
     # ---- 3. the main path, counted ----
     fused_band.fused_moment.launches = 0
     R, T = rt_run(model, device=dev, spectral_chunk=N_CHUNK)
@@ -186,6 +278,56 @@ def main():
           f"R={e_ref['R']:.2e} T={e_ref['T']:.2e}", flush=True)
     if not all(e <= GATE for e in e_ref.values()):
         fail(f"port vs stored JAX reference: {e_ref}")
+
+    fused_band.fused_moment.launches = 0
+    fused_rrs.fused_moment_rrs.launches = 0
+    ie_out = dict(zip(("R", "T", "ieR", "ieT"),
+                      rt_run_inelastic(rrs_model, device=dev)))
+    torch.cuda.synchronize()
+    rrs_launches = {"fused_moment": fused_band.fused_moment.launches,
+                    "fused_moment_rrs": fused_rrs.fused_moment_rrs.launches}
+    n_rc = min(n_shifts, 32768 // RRS_N_SPEC)
+    want_rrs = {"fused_moment": rrs_config.m_max + 1,
+                "fused_moment_rrs": (rrs_config.m_max + 1)
+                * -(-n_shifts // n_rc)}
+    print(f"main path: rt_run_inelastic nSpec={RRS_N_SPEC}, launches "
+          f"{rrs_launches} (want {want_rrs})", flush=True)
+    if rrs_launches != want_rrs:
+        fail(f"RRS path launches {rrs_launches}, want {want_rrs}")
+    for k, v in ie_out.items():
+        if v.shape != (3, 3, RRS_N_SPEC) or not np.isfinite(v).all():
+            fail(f"RRS {k} not finite or of the wrong shape {v.shape}")
+    if not np.abs(ie_out["ieR"]).max() > 0:
+        fail("the RRS path returned no inelastic signal")
+    plain = rt_solve_rrs(rrs_inputs, dataclasses.replace(rrs_config,
+                                                         fused=False),
+                         *rrs, device=dev)
+    plain = {k: v.cpu().numpy() for k, v in plain.items()}
+    full = rt_solve_rrs_fused(rrs_inputs, rrs_config, *rrs, device=dev,
+                              ie_fullres=True)
+    e_rrs = {k: rel(ie_out[k], plain[k]) for k in ie_out}
+    # Total radiance R + ieR against max|R|, the signal a retrieval reads.
+    e_rrs["R+ieR"] = float(np.abs(ie_out["R"] + ie_out["ieR"] - plain["R"]
+                                  - plain["ieR"]).max()
+                           / np.abs(plain["R"]).max())
+    e_full = {k: rel(full[k].cpu(), plain[k]) for k in ie_out}
+    print("RRS kernel path vs plain path: " + " ".join(
+        f"{k}={e:.2e}" for k, e in e_rrs.items()) + "; ie_fullres: " +
+        " ".join(f"{k}={e:.2e}" for k, e in e_full.items()), flush=True)
+    if not (e_rrs["R"] <= GATE and e_rrs["ieR"] <= IE_GATE
+            and e_rrs["R+ieR"] <= GATE
+            and e_full["R"] <= GATE and e_full["ieR"] <= GATE):
+        fail(f"RRS kernel path vs plain path: {e_rrs}, fullres {e_full}")
+    ref = np.load(Path(__file__).resolve().parent / "vsmartmom_tpu_torch"
+                  / "data" / "rrs_ref_f64.npz")
+    small = rrs_ref_model(ref["R"].shape[-1])
+    e_sref = {k: rel(v, ref[k]) for k, v in zip(
+        ("R", "T", "ieR", "ieT"),
+        rt_run_inelastic(small, device=dev, ie_fullres=True))}
+    print("RRS kernel path (ie_fullres) vs JAX f64 reference (nSpec=16): "
+          + " ".join(f"{k}={e:.2e}" for k, e in e_sref.items()), flush=True)
+    if not (e_sref["R"] <= GATE and e_sref["ieR"] <= GATE):
+        fail(f"RRS port vs stored JAX reference: {e_sref}")
 
     # ---- 4. timing ----
     chunks = [spectral_slice(inputs, config, a, a + N_CHUNK)
@@ -222,6 +364,52 @@ def main():
                           "flops": flops, "bytes": nbytes,
                           "achieved_tflops": flops / k_ms / 1e9}}),
         flush=True)
+
+    times = []
+    for _ in range(4):                           # 1 warm-up + best of 3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = rt_solve_rrs_fused(rrs_inputs, rrs_config, *rrs, device=dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(o["ieR"]).all()):
+            fail("non-finite ieR in the timed RRS solve")
+    rrs_pts_per_s = RRS_N_SPEC / min(times[1:])
+    t0 = time.perf_counter()
+    rt_run_inelastic(rrs_model, device=dev)
+    rrs_e2e_s = time.perf_counter() - t0
+
+    args, kw = rrs_args[0]
+    ops = fused_rrs.rrs_operands(*args, **{k: v for k, v in kw.items()
+                                          if k not in ("ns_sched",
+                                                       "ns_inter")})
+    sched = fused_rrs.norm_sched(kw["ns_sched"], kw["ndoubl"])
+    k3_ms = cuda_time_ms(lambda: fused_rrs._launch_kernel(
+        ops, sched, kw["ns_inter"]), reps=3)
+    k3_plain_ms = cuda_time_ms(lambda: fused_rrs.moment_rrs_body_reference(
+        ops, sched, kw["ns_inter"]), reps=3)
+    out = fused_rrs._launch_kernel(ops, sched, kw["ns_inter"])
+    k3_flops = {c: rrs_flops(ops, RRS_N_SPEC, sched, kw["ns_inter"], c)
+                for c in ("least", "block", "dense")}
+    k3_bytes = sum(x.numel() * x.element_size() for x in (*ops, *out))
+    k3_ops, k3_mem = k3_flops["least"] / FP32_PEAK_FLOPS * 1e3, \
+        k3_bytes / HBM_BYTES_PER_S * 1e3
+    k3_bound = max(k3_ops, k3_mem)
+    print(json.dumps({
+        "card": smi, "rrs_pts_per_s": rrs_pts_per_s,
+        "rrs_solve_s": min(times[1:]), "rrs_solve_all_s": times,
+        "rt_run_inelastic_e2e_s": rrs_e2e_s, "n_spec": RRS_N_SPEC,
+        "n_shifts": n_shifts, "launches": rrs_launches,
+        "rrs_launch": {"pairs": n_shifts * RRS_N_SPEC, "kernel_ms": k3_ms,
+                       "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+                       "bound_share": k3_bound / k3_ms,
+                       "flops": k3_flops["least"],
+                       "flops_block": k3_flops["block"],
+                       "flops_dense": k3_flops["dense"],
+                       "bytes": k3_bytes,
+                       "achieved_tflops_block": k3_flops["block"] / k3_ms
+                       / 1e9}}),
+        flush=True)
     print(json.dumps({"kernels": [{
         "name": "fused_moment", "route": "cuda",
         "source": "vsmartmom_tpu_torch/csrc/fused_band.cu",
@@ -229,6 +417,14 @@ def main():
         "launches": launches, "max_abs_err": max_abs_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None}, {
+        "name": "fused_moment_rrs", "route": "cuda",
+        "source": "vsmartmom_tpu_torch/csrc/fused_rrs.cu",
+        "replaces": "vsmartmom_tpu/ops/fused_rrs.py:366",
+        "launches": rrs_launches["fused_moment_rrs"],
+        "max_abs_err": rrs_abs_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
+        "bound_ms": k3_bound,
+        "bound_by": "operations" if k3_ops >= k3_mem else "bytes",
         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

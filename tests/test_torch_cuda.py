@@ -1,10 +1,12 @@
-"""The CUDA band kernel on the card (``-m cuda``): it needs an NVIDIA GPU
-and the CUDA toolkit, and skips without them. Run on the GPU machine with
-``python -m pytest tests/test_torch_cuda.py -q``.
+"""The CUDA kernels on the card (``-m cuda``): they need an NVIDIA GPU and
+the CUDA toolkit, and skip without them. Run on the GPU machine with
+``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 
 Gate, as in chip_smoke.py and the JAX package's bench: max|d| / max|ref|
-<= 1e-4 between the kernel and its plain torch version on the same card
-(the kernel sums its FP32 products in its own order)."""
+<= 1e-4 between a kernel and its plain torch version on the same card
+(the kernel sums its FP32 products in its own order); the RRS kernel path
+against the plain RRS path 1e-4 on R and, with the coarse production ie
+ladder, 5e-3 on ieR (the JAX bench's gate, scripts/bench_rrs.py:90)."""
 
 import dataclasses
 
@@ -103,3 +105,77 @@ def test_kernel_refuses_f64(cuda):
         inputs, dataclasses.replace(config, dtype=np.float64), 0, cuda)
     with pytest.raises(ValueError, match="float32"):
         fused_moment(*args, **kw)
+
+
+def _rrs_setup(cuda, n_spec, pol="STOKES_IQU", nstreams=8):
+    from vsmartmom_tpu_torch import rrs_sif_model
+    from vsmartmom_tpu_torch.core.inelastic import inelastic_setup
+    from vsmartmom_tpu_torch.scattering import stokes
+    return inelastic_setup(rrs_sif_model(
+        n_spec, nstreams=nstreams, polarization=getattr(stokes, pol)),
+        device=cuda)
+
+
+@pytest.mark.parametrize("pol,nstreams,n_spec,N", [
+    ("STOKES_IQU", 8, 64, 36), ("STOKES_I", 3, 96, 6)], ids=["IQU", "I"])
+def test_rrs_kernel_matches_plain_version(cuda, pol, nstreams, n_spec, N):
+    """K3 at the widest N it takes and at a narrow I-only one, every moment;
+    the shifts reach off the band edge for many pairs, whose ie blocks must
+    come out exactly zero."""
+    from vsmartmom_tpu_torch.core.inelastic import rrs_moment_args
+    from vsmartmom_tpu_torch.ops.fused_rrs import (fused_moment_rrs,
+                                                   moment_rrs_reference)
+    inputs, config, *rrs = _rrs_setup(cuda, n_spec, pol, nstreams)
+    assert config.N == N and config.fused
+    shifts = rrs[0]
+    off = np.array([[not 0 <= i + sh < n_spec for i in range(n_spec)]
+                    for sh in shifts])
+    assert off.any() and not off.all()
+    for m in range(config.m_max + 1):
+        for full in (False, True):
+            args, kw = rrs_moment_args(inputs, config, *rrs, m, cuda, full)
+            out = fused_moment_rrs(*args, **kw)
+            torch.cuda.synchronize()
+            ref = moment_rrs_reference(*args, **kw)
+            for a, b in zip(out, ref):
+                assert torch.isfinite(a).all() and _rel(a, b) <= GATE
+                assert (a[torch.as_tensor(off, device=cuda)] == 0).all()
+
+
+def test_rrs_kernel_path_matches_plain_path(cuda):
+    from vsmartmom_tpu_torch.core.inelastic import (rt_solve_rrs,
+                                                    rt_solve_rrs_fused)
+    from vsmartmom_tpu_torch.ops.fused_band import fused_moment
+    from vsmartmom_tpu_torch.ops.fused_rrs import fused_moment_rrs
+    inputs, config, *rrs = _rrs_setup(cuda, 64)
+    plain = rt_solve_rrs(inputs, dataclasses.replace(config, fused=False),
+                         *rrs, device=cuda)
+    for full, ie_gate in ((False, 5e-3), (True, GATE)):
+        k1, k3 = fused_moment.launches, fused_moment_rrs.launches
+        out = rt_solve_rrs_fused(inputs, config, *rrs, device=cuda,
+                                 ie_fullres=full)
+        assert fused_moment.launches - k1 == config.m_max + 1
+        assert fused_moment_rrs.launches - k3 == config.m_max + 1
+        for k, gate in (("R", GATE), ("T", GATE), ("ieR", ie_gate),
+                        ("ieT", ie_gate)):
+            assert torch.isfinite(out[k]).all()
+            assert _rel(out[k], plain[k]) <= gate, (k, full)
+
+
+def test_rrs_wrapper_refuses_wide_streams_before_building(cuda, monkeypatch):
+    """N = 52 (the flagship's width) is above the RRS kernel's shared-memory
+    limit: the wrapper raises before any nvcc run or launch."""
+    from vsmartmom_tpu_torch.core.inelastic import rrs_moment_args
+    from vsmartmom_tpu_torch.ops import cuda_build, fused_rrs
+    inputs, config, *rrs = _rrs_setup(cuda, 64, "STOKES_I", 3)
+    ops = fused_rrs.rrs_operands(*rrs_moment_args(
+        inputs, config, *rrs, 0, cuda)[0], ndoubl=config.ndoubl, n_stokes=1,
+        i_mu0_start=config.i_mu0_start)
+    wide = ops._replace(Em1=torch.zeros((config.nz, ops.Em1.shape[1], 104),
+                                        device=cuda))
+
+    def no_build(name):
+        raise AssertionError("the wrapper tried to build a kernel")
+    monkeypatch.setattr(cuda_build, "load", no_build)
+    with pytest.raises(ValueError, match="N <= 36"):
+        fused_rrs._launch_kernel(wide, (1,) * config.ndoubl, 2)

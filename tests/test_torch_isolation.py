@@ -79,3 +79,32 @@ def test_kernel_wrapper_refuses_cpu_tensors(cpu_operands):
     ops, config = cpu_operands
     with pytest.raises(ValueError, match="CUDA"):
         _launch_kernel(ops, (0,) * config.ndoubl, 3)
+
+
+@pytest.fixture(scope="module")
+def rrs_cpu_operands():
+    from vsmartmom_tpu_torch import rrs_sif_model
+    from vsmartmom_tpu_torch.core.inelastic import (inelastic_setup,
+                                                    rrs_moment_args)
+    from vsmartmom_tpu_torch.ops.fused_rrs import rrs_operands
+    from vsmartmom_tpu_torch.scattering.stokes import STOKES_I
+    inputs, config, *rrs = inelastic_setup(
+        rrs_sif_model(64, nstreams=3, polarization=STOKES_I), device="cpu")
+    args, kw = rrs_moment_args(inputs, config, *rrs, 0, "cpu")
+    kw = {k: v for k, v in kw.items() if k not in ("ns_sched", "ns_inter")}
+    return rrs_operands(*args, **kw), kw["ndoubl"]
+
+
+@pytest.mark.parametrize("case,match", [
+    ("wide", "N <= 36"), ("f64", "float32"), ("cpu", "CUDA")])
+def test_rrs_kernel_wrapper_refuses(rrs_cpu_operands, case, match):
+    """The RRS kernel takes N <= 36 f32 tensors on one CUDA device; the
+    wrapper refuses anything else before it builds or launches."""
+    from vsmartmom_tpu_torch.ops.fused_rrs import _launch_kernel
+    ops, ndoubl = rrs_cpu_operands
+    if case == "wide":
+        ops = ops._replace(Em1=torch.zeros(ops.Em1.shape[:2] + (104,)))
+    elif case == "f64":
+        ops = type(ops)(*(x.double() for x in ops))
+    with pytest.raises(ValueError, match=match):
+        _launch_kernel(ops, (0,) * ndoubl, 1)

@@ -80,6 +80,8 @@ class BandData:
     surface: SurfaceDescriptor = None
     # optional per-layer Planck radiance (Nz, nSpec): a second source slot
     thermal_b: Optional[np.ndarray] = None
+    # optional surface SIF emission (nSpec,), isotropic, m = 0 only
+    sif_spec: Optional[np.ndarray] = None
 
     @property
     def n_spec(self) -> int:
@@ -141,12 +143,16 @@ class RTModel:
                     _surface_m_support(band.surface, cap)]
         return min(max(supports), cap)
 
-    def build_band(self, i_band: int, device=None):
+    def build_band(self, i_band: int, device=None, rrs: bool = False):
         """(SolverInputs on ``device`` as float64, SolverConfig) for one band.
 
         ``device`` also picks the strategy when ``params.fused`` is None:
         the band kernel for an f32 model on CUDA, the plain path otherwise
-        (an f64 model stays on the plain path, as in the JAX package)."""
+        (an f64 model stays on the plain path, as in the JAX package).
+        ``rrs=True`` builds the elastic half of a rotational-Raman run: the
+        Cabannes Greek coefficients and scattering weight
+        tau_rayl * pi_cabannes (compEffectiveLayerProperties.jl:8-9,36-41);
+        the Raman part is transported by ``core/inelastic.py``."""
         dev = resolve_device(device)
         params, quad = self.params, self.quad
         pol = params.polarization
@@ -162,15 +168,19 @@ class RTModel:
         surf_r, surf_j, surf_spec, surf_direct_m = _surface_arrays(
             band.surface, quad, ns, n_m, n_spec)
 
-        # Phase supermatrices per Fourier moment (one component: Rayleigh).
+        # Phase supermatrices per Fourier moment (one component: Rayleigh,
+        # or its Cabannes line for RRS runs).
+        greek0 = greek_rayleigh(band.depol_cabannes) if rrs \
+            else band.greek_rayleigh
         Z_pp = np.zeros((n_m, 1, N, N))
         Z_mp = np.zeros((n_m, 1, N, N))
         for m in range(n_m):
             Z_pp[m, 0], Z_mp[m, 0] = compute_Z_moments(
-                pol, quad.qp_mu, band.greek_rayleigh, m)
+                pol, quad.qp_mu, greek0, m)
 
         # Layer mixing weight tau_c * ssa_c (Rayleigh ssa = 1).
-        scat_w = band.tau_rayl.T[:, None, :].copy()            # (Nz, 1, s)
+        scat_w = band.tau_rayl.T[:, None, :] \
+            * (band.pi_cabannes if rrs else 1.0)               # (Nz, 1, s)
         tau = band.tau_rayl.T + band.tau_abs.T                 # (Nz, nSpec)
 
         # Uniform doubling count: max of the per-layer rule
@@ -237,7 +247,9 @@ class RTModel:
             tau=tau, scat_w=scat_w, Z_pp=Z_pp, Z_mp=Z_mp, F0=F0,
             surf_r=surf_r, surf_j_m=surf_j, surf_spec=surf_spec,
             surf_direct_m=surf_direct_m, vza_w=vza_w,
-            thermal_b=thermal_b, sif_spec=np.zeros(n_spec))
+            thermal_b=thermal_b,
+            sif_spec=band.sif_spec if band.sif_spec is not None
+            else np.zeros(n_spec))
         return solver_inputs_from_numpy(fields, dev, torch.float64), config
 
 

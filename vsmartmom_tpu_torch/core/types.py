@@ -11,9 +11,10 @@ Operators are ``(nSpec, N, N)`` with ``N = Nquad * n_stokes``, source stacks
 ``(nSpec, N, K)``, the layout of the JAX package, so both packages can be
 compared array for array.
 
-``solver_inputs_from_numpy`` and ``solver_config_from_dict`` carry state
-across: they take the JAX package's ``build_band`` output as plain numpy
-arrays and a field dict, so the two packages run on identical inputs.
+``solver_inputs_from_numpy``, ``solver_config_from_dict`` and
+``rrs_setup_from_numpy`` carry state across: they take the JAX package's
+``build_band`` and ``inelastic_setup`` outputs as plain numpy arrays and a
+field dict, so the two packages run on identical inputs.
 """
 
 import dataclasses
@@ -121,6 +122,18 @@ def solver_config_from_dict(d: dict) -> SolverConfig:
     kw["ns_sched"] = tuple(int(v) for v in kw.get("ns_sched", ()))
     kw["dtype"] = np.dtype(kw["dtype"]).type
     return SolverConfig(**kw)
+
+
+def rrs_setup_from_numpy(shifts, w_shifts, Z_r_pp, Z_r_mp, fscatt, device,
+                         dtype=torch.float64):
+    """The Raman part of an RRS setup (e.g. the JAX package's
+    ``inelastic_setup`` outputs as numpy): (shifts as a tuple of ints,
+    w_shifts (nR,), Z_r_pp / Z_r_mp (n_m, N, N), fscatt (Nz, nSpec)) with
+    the arrays copied to ``device`` as ``dtype``."""
+    dev = torch.device(device)
+    return (tuple(int(v) for v in np.asarray(shifts)),
+            *(torch.as_tensor(np.array(x), dtype=dtype, device=dev)
+              for x in (w_shifts, Z_r_pp, Z_r_mp, fscatt)))
 
 
 def stokes_d_vector(n_stokes: int, nquad: int, dtype=np.float64) -> np.ndarray:

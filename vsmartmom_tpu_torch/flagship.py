@@ -1,12 +1,20 @@
-"""The flagship scene of the port: a polarized IQUV Rayleigh column (33
-layers) over a wind-roughened Cox-Munk ocean, with a parameterizable
-spectral width — the same profile and arguments as the JAX package's
-``__graft_entry__._flagship_model``, built by the port's own host code."""
+"""The scenes the port is driven at, built by its own host code.
+
+* The flagship: a polarized IQUV Rayleigh column (33 layers) over a
+  wind-roughened Cox-Munk ocean, with a parameterizable spectral width —
+  the same profile and arguments as the JAX package's
+  ``__graft_entry__._flagship_model``.
+* The RRS+SIF scene of the JAX package's RRS bench
+  (``scripts/bench_rrs.py:23-36``): an 8-layer Rayleigh column over a
+  Lambertian floor with surface SIF, IQU, 0.6 cm^-1 spacing.
+* The small RRS scene of the stored JAX reference ``data/rrs_ref_f64.npz``,
+  which the CPU tests and the chip smoke test both build from here.
+"""
 
 import numpy as np
 
 from .core.model import Parameters, SurfaceDescriptor, model_from_parameters
-from .scattering.stokes import STOKES_IQUV
+from .scattering.stokes import STOKES_IQU, STOKES_IQUV
 
 # ocean_coxmunk profile: layer temperatures [K] and half-level pressures [hPa]
 FLAGSHIP_T = np.array([
@@ -46,3 +54,49 @@ def flagship_model(n_spec=256, dtype=np.float32, nstreams=8,
         float_type=dtype,
         fused=fused)
     return model_from_parameters(params)
+
+
+def rrs_sif_model(n_spec=256, dtype=np.float32, nstreams=8,
+                  polarization=STOKES_IQU, fused=None):
+    """RTModel of the RRS+SIF scene: 8 Rayleigh layers (230-290 K, 50-1013
+    hPa) over a 0.05-albedo Lambertian floor emitting SIF of 1e-3, sza 45,
+    vza 0/30/60; at nSpec = 256 the rotational-Raman redistribution has
+    58 shifts."""
+    params = Parameters(
+        spec_bands=[12950.0 + 0.6 * np.arange(n_spec)],
+        surfaces=[SurfaceDescriptor("LambertianSurfaceScalar", [0.05])],
+        nstreams=nstreams, polarization=polarization,
+        sza=45.0, vza=[0.0, 30.0, 60.0], vaz=[0.0, 0.0, 0.0], obs_alt=0.0,
+        T=np.linspace(230.0, 290.0, 8), p=np.linspace(50.0, 1013.0, 9),
+        depol=-1.0, float_type=dtype, fused=fused)
+    model = model_from_parameters(params)
+    model.bands[0].sif_spec = 1e-3 * np.ones(n_spec)
+    return model
+
+
+#: The small RRS scene of ``data/rrs_ref_f64.npz`` (the scene of the JAX
+#: package's tests/test_fused_rrs.py cut to nSpec = 16): floor albedo,
+#: surface SIF and width.
+RRS_REF_ALBEDO, RRS_REF_SIF, RRS_REF_N_SPEC = 0.1, 2e-3, 16
+
+
+def rrs_ref_params(n_spec=RRS_REF_N_SPEC):
+    """``Parameters`` keywords of the small RRS scene, less ``surfaces`` and
+    ``polarization``: 3 Rayleigh layers, nstreams 4, 2.4 cm^-1 spacing, f32
+    (plain data, so the JAX package's ``Parameters`` takes them too)."""
+    return dict(spec_bands=[12950.0 + 2.4 * np.arange(n_spec)], nstreams=4,
+                sza=42.0, vza=[15.0, 45.0], vaz=[0.0, 30.0], obs_alt=0.0,
+                T=np.array([240.0, 260.0, 280.0]),
+                p=np.array([200.0, 500.0, 800.0, 1013.0]), depol=-1.0,
+                float_type=np.float32)
+
+
+def rrs_ref_model(n_spec=RRS_REF_N_SPEC, polarization=STOKES_IQU):
+    """RTModel of the small RRS scene: ``rrs_ref_params`` over a
+    ``RRS_REF_ALBEDO`` Lambertian floor emitting SIF of ``RRS_REF_SIF``."""
+    model = model_from_parameters(Parameters(
+        surfaces=[SurfaceDescriptor("LambertianSurfaceScalar",
+                                    [RRS_REF_ALBEDO])],
+        polarization=polarization, **rrs_ref_params(n_spec)))
+    model.bands[0].sif_spec = RRS_REF_SIF * np.ones(n_spec)
+    return model

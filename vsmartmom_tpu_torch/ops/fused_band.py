@@ -126,19 +126,18 @@ def band_operands(Z_pp_m, Z_mp_m, tau, scat_w, Em1, Em1_0, att, ek_sol,
                         c(jm_star), c(ek))
 
 
-def assemble_elemental(ops: BandOperands, z: int):
-    """Elemental (r-+, t++) of layer z for every point, (s, N, N)."""
-    Em1 = ops.Em1[z]
+def assemble_elemental(Z_pp, Z_mp, geom, w, Em1, dtau):
+    """Elemental (r-+, t++), (s, N, N), from phase matrices (C, N, N), the
+    geometry tables, weights w (C, s), Em1 (s, N) and dtau (s,)."""
     E_j = 1.0 + Em1[:, None, :]
     E_i = 1.0 + Em1[:, :, None]
-    w = ops.w_over[z]                                        # (C, s)
-    wZ_pp = torch.einsum("cs,cij->sij", w, ops.Z_pp)
-    wZ_mp = torch.einsum("cs,cij->sij", w, ops.Z_mp)
-    RG, A, TO, TS = ops.geom
+    wZ_pp = torch.einsum("cs,cij->sij", w, Z_pp)
+    wZ_mp = torch.einsum("cs,cij->sij", w, Z_mp)
+    RG, A, TO, TS = geom
     one_m_EE = -(Em1[:, :, None] + Em1[:, None, :]
                  + Em1[:, :, None] * Em1[:, None, :])
     r_mp = wZ_mp * RG * one_m_EE
-    dt = ops.dtau[z][:, None, None]
+    dt = dtau[:, None, None]
     eye = torch.eye(Em1.shape[-1], dtype=Em1.dtype, device=Em1.device)
     t_pp = wZ_pp * (torch.expm1(dt * A) * E_j * TO + (dt * TS) * E_j) \
         + E_i * eye
@@ -160,7 +159,9 @@ def moment_body_reference(ops: BandOperands, ns_sched, ns_inter: int):
     zero_v = torch.zeros((s, N, K), dtype=dtype, device=dev)
     comp = (zero_m, zero_m, eye, eye, zero_v, zero_v)
     for z in range(ops.Em1.shape[0]):
-        r_mp, t_pp = assemble_elemental(ops, z)
+        r_mp, t_pp = assemble_elemental(ops.Z_pp, ops.Z_mp, ops.geom,
+                                        ops.w_over[z], ops.Em1[z],
+                                        ops.dtau[z])
         r, t, jp, jm = doubling_math(r_mp * d[:, None], t_pp, ops.j0_p[z],
                                      ops.jm_star[z], ops.ek[z][:, None, :],
                                      ns_sched)
