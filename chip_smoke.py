@@ -1,9 +1,10 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Two main paths
-are driven: the flagship forward ``rt_run`` (band kernel K1) and the
+Run from the root of a checkout: ``python3 chip_smoke.py``. Three main paths
+are driven: the flagship forward ``rt_run`` (band kernel K1), the
 rotational-Raman forward ``rt_run_inelastic`` (K1 for the elastic half, the
-block-bichromatic RRS kernel K3 for the inelastic one). Phases, each of
+block-bichromatic RRS kernel K3 for the inelastic one) and the aerosol
+Jacobian run ``rt_run_lin`` (the multitangent kernel K2). Phases, each of
 which fails the run (non-zero exit) on a miss:
 
 1. setup — the card's name and power limit; every CUDA kernel of the port
@@ -15,7 +16,11 @@ which fails the run (non-zero exit) on a miss:
    small K = 2 (thermal source) case; K3 at the RRS+SIF scene's (N = 36,
    nz = 8, 58 Raman shifts x nSpec 256 = 14,848 pairs, the coarse ie
    ladder, m = 0..2) and a small I-only case (N = 6) whose shifts run off
-   the band edge for most pairs, which must come out exactly zero;
+   the band edge for most pairs, which must come out exactly zero; K2 at
+   the aerosol flagship's (N = 52, nz = 33, C = 2, ndoubl = 11, the probed
+   schedule, all P = 8 tangents, a 64-point slice, m = 0, 1, 15): primal
+   <= 1e-4 of max|ref| per output, each parameter's tangent outputs
+   <= 2e-4 of that parameter's max|ref| over the three moments;
 3. main paths, each with every launch counter set to 0 just before and read
    just after:
    * ``rt_run`` of the flagship (nSpec = 4096, f32, 4 chunks of 1024): R and
@@ -31,12 +36,27 @@ which fails the run (non-zero exit) on a miss:
      ieR <= 1e-4; a small RRS scene against the
      stored JAX CPU f64 reference (``data/rrs_ref_f64.npz``), R and ieR
      <= 1e-4 with ``ie_fullres=True``;
+   * ``rt_run_lin`` of the aerosol flagship (nSpec = 1024, f32, 7 aerosol
+     parameters + wind): K2 launched m_scat + 1 = 16 times (one per moment
+     for all 8 tangents), K1 and K3 not at all; R, T, dR, dT finite, dR
+     (9, 4, 1024, 8); on a 64-point slice the K2 route against the plain
+     jvp route, R <= 1e-4 and each parameter's dR <= 2e-4 of its max;
+     ``rt_run`` of the same scene (16 K1 launches) equal to rt_run_lin's R
+     within 1e-4; the small aerosol scene against the stored JAX CPU f64
+     reference (``data/lin_ref_f64.npz``), R <= 1e-4 and each parameter's
+     dR <= 2e-4 of its own max, the aerosol height's (p0, sigma_p)
+     <= ``HEIGHT_GATE`` = 5e-3, with a control: those two Jacobians
+     scaled by 1.01 must exceed it;
 4. timing — the flagship's and the RRS+SIF solve's points/s (best of 3
    after a warm-up, synced with ``torch.cuda.synchronize``), and per kernel
    launch its time, its plain version's time and its bound:
    max(FLOPs / FP32 peak, bytes / HBM rate), K3's at the least work that
    gives its outputs (``rrs_flops``), with the kernel's own count and the
-   dense one printed beside it.
+   dense one printed beside it; the Jacobian solve's points/s and tangent
+   points/s (best of 2 after a warm-up, tangents prebuilt), the host
+   seconds of the scene and tangent builds, and K2's time against its bound
+   at the least work (the primal once, two products per tangent product),
+   with the kernel's own count (the primal again per tangent) beside it.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel. Without CUDA it exits non-zero and prints no result.
@@ -58,9 +78,16 @@ FP32_PEAK_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 GATE = 1e-4
 IE_GATE = 5e-3
+TAN_GATE = 2e-4
+#: The aerosol-height parameters of the small Jacobian scene: their f32 dR
+#: is ~1e-6 of the others' and lands within ~1.3e-3 of its own scale of
+#: the f64 reference on every route; HEIGHT_GATE still fails a 1% error.
+HEIGHT_PARAMS = ("_p0", "_sigma_p")
+HEIGHT_GATE = 5e-3
 N_CHUNK, N_CHUNKS = 1024, 4
 N_SPEC_TOTAL = N_CHUNK * N_CHUNKS
 RRS_N_SPEC = 256
+LIN_N_SPEC, LIN_SLICE = 1024, 64
 
 
 def fail(msg):
@@ -125,6 +152,24 @@ def rrs_flops(ops, n_points, ns_sched, ns_inter, count="least"):
     return 2.0 * (n_mat * mat + n_vec * vec) * nz
 
 
+def mt_errors(outs, refs):
+    """K2 against its plain version over several moments: (the primal's
+    max|d| / max|ref| over outputs, [per parameter: max|d| over every
+    tangent output and moment / that parameter's max|ref| over the same],
+    max|d| of all)."""
+    e_prim = max(rel(a, b) for (p, _), (r, _) in zip(outs, refs)
+                 for a, b in zip(p, r))
+    e_tan = []
+    for q in range(refs[0][1][0].shape[0]):
+        d = max(float((a[q] - b[q]).abs().max())
+                for (_, t), (_, r) in zip(outs, refs) for a, b in zip(t, r))
+        scale = max(float(b[q].abs().max()) for _, r in refs for b in r)
+        e_tan.append(d / scale if scale > 0 else d)
+    e_abs = max(float((a - b).abs().max()) for o, r in zip(outs, refs)
+                for a, b in zip((*o[0], *o[1]), (*r[0], *r[1])))
+    return e_prim, e_tan, e_abs
+
+
 def moment_bytes(args, out):
     """Bytes one launch must move: its operands read once (the plain prep's
     compact row tables) and the composite written once."""
@@ -153,8 +198,9 @@ def main():
                                                     rt_solve_rrs_fused)
     from vsmartmom_tpu_torch.core.solver import (band_moment_args, rt_solve,
                                                  spectral_slice)
-    from vsmartmom_tpu_torch.flagship import rrs_ref_model
-    from vsmartmom_tpu_torch.ops import cuda_build, fused_band, fused_rrs
+    from vsmartmom_tpu_torch.flagship import lin_ref_model, rrs_ref_model
+    from vsmartmom_tpu_torch.ops import (cuda_build, fused_band, fused_lin,
+                                         fused_rrs)
     from vsmartmom_tpu_torch.scattering.stokes import STOKES_I
 
     # ---- 1. setup: build every kernel (one nvcc per source, together) ----
@@ -247,6 +293,47 @@ def main():
                 bool((a[off] == 0).all()) for a in out):
             fail("off-grid RRS pairs did not come out exactly zero")
 
+    from vsmartmom_tpu_torch import default_layout, rt_run_lin
+    from vsmartmom_tpu_torch.core.linearization import (build_tangent_inputs,
+                                                        rt_solve_jvp)
+    t0 = time.perf_counter()
+    lin_model = flagship_model(n_spec=LIN_N_SPEC, aerosol=True)
+    lin_scene_s = time.perf_counter() - t0
+    layout = default_layout(lin_model)
+    t0 = time.perf_counter()
+    lin_inputs, lin_config, lin_tans = build_tangent_inputs(
+        lin_model, 0, layout, device=dev)
+    torch.cuda.synchronize()
+    lin_tangent_s = time.perf_counter() - t0
+    n_par = len(lin_tans)
+    if not lin_config.fused or n_par != 8:
+        fail("the aerosol flagship on CUDA did not pick the kernel path "
+             "with 8 Jacobian parameters")
+    print(f"Jacobian config: N={lin_config.N} nz={lin_config.nz} "
+          f"C={lin_inputs.Z_pp.shape[1]} ndoubl={lin_config.ndoubl} "
+          f"ns_sched={lin_config.ns_sched} ns_inter={lin_config.ns_inter} "
+          f"m_max={lin_config.m_max} m_scat={lin_config.m_scat} "
+          f"params={layout.names()}; host build {lin_scene_s:.1f} s, "
+          f"tangents {lin_tangent_s:.1f} s", flush=True)
+    lin_slice = spectral_slice(lin_inputs, lin_config, 0, LIN_SLICE)
+    slice_tans = [spectral_slice(t, lin_config, 0, LIN_SLICE)[0]
+                  for t in lin_tans]
+    outs, refs = [], []
+    for m in (0, 1, lin_config.m_max):
+        args = fused_lin.multitangent_args(lin_slice[0], slice_tans,
+                                           lin_slice[1], m, dev)
+        outs.append(fused_lin.fused_moment_multitangent(*args))
+        torch.cuda.synchronize()
+        refs.append(fused_lin.moment_multitangent_reference(*args))
+    k2_prim, k2_tan, k2_abs_err = mt_errors(outs, refs)
+    print(f"K2 vs plain (nSpec={LIN_SLICE}, m=0,1,{lin_config.m_max}): "
+          f"primal={k2_prim:.2e} tangents per parameter "
+          + " ".join(f"{e:.2e}" for e in k2_tan), flush=True)
+    if not (np.isfinite(k2_prim) and k2_prim <= GATE
+            and all(np.isfinite(e) and e <= TAN_GATE for e in k2_tan)):
+        fail(f"fused_moment_multitangent vs moment_multitangent_reference: "
+             f"primal {k2_prim}, tangents {k2_tan}")
+
     # ---- 3. the main path, counted ----
     fused_band.fused_moment.launches = 0
     R, T = rt_run(model, device=dev, spectral_chunk=N_CHUNK)
@@ -329,6 +416,75 @@ def main():
     if not (e_sref["R"] <= GATE and e_sref["ieR"] <= GATE):
         fail(f"RRS port vs stored JAX reference: {e_sref}")
 
+    counted = {"fused_moment": fused_band.fused_moment,
+               "fused_moment_rrs": fused_rrs.fused_moment_rrs,
+               "fused_moment_multitangent":
+                   fused_lin.fused_moment_multitangent}
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    R, T, dR, dT = rt_run_lin(lin_model, layout=layout, device=dev)
+    torch.cuda.synchronize()
+    lin_e2e_s = time.perf_counter() - t0
+    lin_launches = {k: fn.launches for k, fn in counted.items()}
+    want_lin = {"fused_moment": 0, "fused_moment_rrs": 0,
+                "fused_moment_multitangent": lin_config.m_scat + 1}
+    print(f"main path: rt_run_lin nSpec={LIN_N_SPEC}, {n_par} parameters, "
+          f"launches {lin_launches} (want {want_lin}), {lin_e2e_s:.1f} s",
+          flush=True)
+    if lin_launches != want_lin:
+        fail(f"Jacobian path launches {lin_launches}, want {want_lin}")
+    if dR.shape != (9, 4, LIN_N_SPEC, n_par) or not all(
+            np.isfinite(x).all() for x in (R, T, dR, dT)):
+        fail(f"rt_run_lin outputs not finite or dR of shape {dR.shape}")
+    kern = fused_lin.rt_solve_multitangent(*lin_slice[:1], slice_tans,
+                                           lin_slice[1], dev)
+    plain = rt_solve_jvp(lin_slice[0], slice_tans,
+                         dataclasses.replace(lin_slice[1], fused=False), dev)
+    e_route = [rel(kern[0], plain[0])] + [rel(kern[2][q], plain[2][q])
+                                          for q in range(n_par)]
+    print(f"Jacobian kernel route vs plain jvp route (nSpec={LIN_SLICE}): "
+          f"R={e_route[0]:.2e} dR per parameter "
+          + " ".join(f"{e:.2e}" for e in e_route[1:])
+          + f"; dT={rel(kern[3], plain[3]):.2e}", flush=True)
+    if not (e_route[0] <= GATE and all(e <= TAN_GATE for e in e_route[1:])):
+        fail(f"Jacobian kernel route vs plain route: {e_route}")
+    fused_band.fused_moment.launches = 0
+    R_fwd, _ = rt_run(lin_model, device=dev, spectral_chunk=LIN_N_SPEC)
+    e_fwd = rel(R, R_fwd)
+    print(f"rt_run of the aerosol flagship: fused_moment launches="
+          f"{fused_band.fused_moment.launches} (want "
+          f"{lin_config.m_scat + 1}), R vs rt_run_lin's R {e_fwd:.2e}",
+          flush=True)
+    if fused_band.fused_moment.launches != lin_config.m_scat + 1 \
+            or not e_fwd <= GATE:
+        fail(f"rt_run vs rt_run_lin on the aerosol flagship: {e_fwd}")
+    ref = np.load(Path(__file__).resolve().parent / "vsmartmom_tpu_torch"
+                  / "data" / "lin_ref_f64.npz")
+    small_model = lin_ref_model()
+    small = dict(zip(("R", "T", "dR", "dT"),
+                     rt_run_lin(small_model, device=dev)))
+    e_lref = {k: rel(small[k], ref[k]) for k in ("R", "T", "dR", "dT")}
+    names = default_layout(small_model).names()
+    own = [rel(small["dR"][..., q], ref["dR"][..., q])
+           for q in range(len(names))]
+    gates = [HEIGHT_GATE if n.endswith(HEIGHT_PARAMS) else TAN_GATE
+             for n in names]
+    # Control: the height Jacobians 1% off must fail their gate.
+    control = [rel(1.01 * small["dR"][..., q], ref["dR"][..., q])
+               for q, n in enumerate(names) if n.endswith(HEIGHT_PARAMS)]
+    print("Jacobian kernel path vs JAX f64 reference (small aerosol scene): "
+          + " ".join(f"{k}={e:.2e}" for k, e in e_lref.items())
+          + "; dR per parameter on its own scale "
+          + " ".join(f"{n}={e:.2e}" for n, e in zip(names, own))
+          + "; height dR 1% off " + " ".join(f"{e:.2e}" for e in control),
+          flush=True)
+    if not (e_lref["R"] <= GATE
+            and all(e <= g for e, g in zip(own, gates))
+            and all(e > HEIGHT_GATE for e in control)):
+        fail(f"Jacobian port vs stored JAX reference: {e_lref}, per "
+             f"parameter {own}, control {control}")
+
     # ---- 4. timing ----
     chunks = [spectral_slice(inputs, config, a, a + N_CHUNK)
               for a in range(0, N_SPEC_TOTAL, N_CHUNK)]
@@ -410,6 +566,44 @@ def main():
                        "achieved_tflops_block": k3_flops["block"] / k3_ms
                        / 1e9}}),
         flush=True)
+    times = []
+    for _ in range(3):                           # 1 warm-up + best of 2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = fused_lin.rt_solve_multitangent(lin_inputs, lin_tans, lin_config,
+                                            dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(o[2]).all()):
+            fail("non-finite dR in the timed Jacobian solve")
+    lin_solve_s = min(times[1:])
+    args = fused_lin.multitangent_args(lin_inputs, lin_tans, lin_config, 0,
+                                       dev)
+    k2_ms = cuda_time_ms(lambda: fused_lin._launch_kernel(*args), reps=3)
+    k2_plain_ms = cuda_time_ms(
+        lambda: fused_lin.moment_multitangent_reference(*args), reps=2)
+    out = fused_lin._launch_kernel(*args)
+    primal_flops = moment_flops(lin_config, LIN_N_SPEC)
+    k2_flops = (1 + 2 * n_par) * primal_flops
+    k2_bytes = sum(x.numel() * x.element_size()
+                   for x in (*args[0], *args[1], *out[0], *out[1]))
+    k2_ops, k2_mem = k2_flops / FP32_PEAK_FLOPS * 1e3, \
+        k2_bytes / HBM_BYTES_PER_S * 1e3
+    k2_bound = max(k2_ops, k2_mem)
+    print(json.dumps({
+        "card": smi, "lin_pts_per_s": LIN_N_SPEC / lin_solve_s,
+        "lin_tangent_pts_per_s": LIN_N_SPEC * n_par / lin_solve_s,
+        "lin_solve_s": lin_solve_s, "lin_solve_all_s": times,
+        "rt_run_lin_e2e_s": lin_e2e_s, "scene_build_s": lin_scene_s,
+        "tangent_build_s": lin_tangent_s, "n_spec": LIN_N_SPEC,
+        "n_params": n_par, "launches": lin_launches,
+        "mt_launch": {"n_spec": LIN_N_SPEC, "kernel_ms": k2_ms,
+                      "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+                      "bound_share": k2_bound / k2_ms, "flops": k2_flops,
+                      "flops_kernel": 3 * n_par * primal_flops,
+                      "bytes": k2_bytes,
+                      "achieved_tflops_kernel": 3 * n_par * primal_flops
+                      / k2_ms / 1e9}}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "fused_moment", "route": "cuda",
         "source": "vsmartmom_tpu_torch/csrc/fused_band.cu",
@@ -425,6 +619,14 @@ def main():
         "max_abs_err": rrs_abs_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
         "bound_ms": k3_bound,
         "bound_by": "operations" if k3_ops >= k3_mem else "bytes",
+        "library_ms": None}, {
+        "name": "fused_moment_multitangent", "route": "cuda",
+        "source": "vsmartmom_tpu_torch/csrc/fused_lin.cu",
+        "replaces": "vsmartmom_tpu/ops/fused_lin.py:214",
+        "launches": lin_launches["fused_moment_multitangent"],
+        "max_abs_err": k2_abs_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound,
+        "bound_by": "operations" if k2_ops >= k2_mem else "bytes",
         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -179,3 +179,110 @@ def test_rrs_wrapper_refuses_wide_streams_before_building(cuda, monkeypatch):
     monkeypatch.setattr(cuda_build, "load", no_build)
     with pytest.raises(ValueError, match="N <= 36"):
         fused_rrs._launch_kernel(wide, (1,) * config.ndoubl, 2)
+
+
+def _lin_setup(cuda, scene):
+    """(inputs, config, tangents) of a Jacobian scene on the card: the small
+    aerosol scene (N = 21, 2 points) or the aerosol flagship (N = 52) at 16
+    points; 7 aerosol parameters and wind speed."""
+    from vsmartmom_tpu_torch.core.linearization import (build_tangent_inputs,
+                                                        default_layout)
+    from vsmartmom_tpu_torch.flagship import flagship_model, lin_ref_model
+    model = lin_ref_model() if scene == "small" else \
+        flagship_model(n_spec=16, aerosol=True)
+    return build_tangent_inputs(model, 0, default_layout(model), device=cuda)
+
+
+def _mt_errors(outs, refs):
+    """K2 against its plain version over several moments: the primal's
+    max|d| / max|ref| per output, and each parameter's tangent max|d| over
+    every output and moment against that parameter's max|ref| over the same
+    (an output whose tangent cancels to rounding noise at one moment, as
+    the profile-shape parameters' transmission does above m_scat, is judged
+    on the parameter's scale)."""
+    e_prim = max(_rel(a, b) for (p, _), (r, _) in zip(outs, refs)
+                 for a, b in zip(p, r))
+    e_tan = []
+    for q in range(refs[0][1][0].shape[0]):
+        d = max(float((a[q] - b[q]).abs().max())
+                for (_, t), (_, r) in zip(outs, refs) for a, b in zip(t, r))
+        scale = max(float(b[q].abs().max()) for _, r in refs for b in r)
+        e_tan.append(d / scale if scale > 0 else d)
+    return e_prim, e_tan
+
+
+@pytest.mark.parametrize("scene,N", [("small", 21), ("flagship", 52)])
+def test_mt_kernel_matches_plain_version(cuda, scene, N):
+    """K2 against its plain version (forward-mode AD of the plain moment
+    body) at moments 0, 1 and m_max, all 8 tangents: primal <= 1e-4 and each
+    parameter's tangent outputs <= 2e-4 of that parameter's max|ref|."""
+    from vsmartmom_tpu_torch.ops.fused_lin import (
+        fused_moment_multitangent, moment_multitangent_reference,
+        multitangent_args)
+    inputs, config, tangents = _lin_setup(cuda, scene)
+    assert config.fused and config.N == N and len(tangents) == 8
+    outs, refs = [], []
+    for m in (0, 1, config.m_max):
+        args = multitangent_args(inputs, tangents, config, m, cuda)
+        before = fused_moment_multitangent.launches
+        outs.append(fused_moment_multitangent(*args))
+        torch.cuda.synchronize()
+        assert fused_moment_multitangent.launches == before + 1
+        refs.append(moment_multitangent_reference(*args))
+        assert all(torch.isfinite(x).all() for x in (*outs[-1][0],
+                                                      *outs[-1][1]))
+    e_prim, e_tan = _mt_errors(outs, refs)
+    assert e_prim <= GATE and max(e_tan) <= 2e-4, (e_prim, e_tan)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("shape", "shape"), ("K2", "K = 1"), ("wide", "N <= 52")])
+def test_mt_wrapper_refuses_before_building(cuda, monkeypatch, case, match):
+    from vsmartmom_tpu_torch.ops import cuda_build, fused_lin
+    inputs, config, tangents = _lin_setup(cuda, "small")
+    ops, dops, sched, ns_inter = fused_lin.multitangent_args(
+        inputs, tangents, config, 0, cuda)
+    if case == "shape":
+        dops = dops._replace(Em1=dops.Em1[:, :, :1].contiguous())
+    elif case == "K2":
+        ops = ops._replace(j0_p=torch.cat([ops.j0_p] * 2, dim=-1))
+    else:
+        ops = ops._replace(Em1=torch.zeros(ops.Em1.shape[:2] + (56,),
+                                           device=cuda))
+
+    def no_build(name):
+        raise AssertionError("the wrapper tried to build a kernel")
+    monkeypatch.setattr(cuda_build, "load", no_build)
+    with pytest.raises(ValueError, match=match):
+        fused_lin.fused_moment_multitangent(ops, dops, sched, ns_inter)
+
+
+def test_mt_kernel_path_matches_jvp_path(cuda):
+    """rt_run_lin through K2 against the plain jvp route on the card: R
+    1e-4, each parameter's dR 2e-4 of its max, dT 2e-4 of the stack's max
+    (the profile-shape parameters' dT is ~1e-7 of the others' here, below
+    what f32 resolves on its own scale)."""
+    from vsmartmom_tpu_torch.core.linearization import rt_run_lin
+    from vsmartmom_tpu_torch.flagship import lin_ref_model
+    from vsmartmom_tpu_torch.ops.fused_lin import fused_moment_multitangent
+    model = lin_ref_model()
+    before = fused_moment_multitangent.launches
+    R, _, dR, dT = rt_run_lin(model, device=cuda)
+    # m = 0..m_scat = 6; m = 7 takes the Beer-law shortcut.
+    assert fused_moment_multitangent.launches - before == 7
+    model.params.fused = False
+    R0, _, dR0, dT0 = rt_run_lin(model, device=cuda)
+    assert np.abs(R - R0).max() <= GATE * np.abs(R0).max()
+    assert np.abs(dT - dT0).max() <= 2e-4 * np.abs(dT0).max()
+    for q in range(dR.shape[-1]):
+        assert np.abs(dR[..., q] - dR0[..., q]).max() <= \
+            2e-4 * np.abs(dR0[..., q]).max(), q
+
+
+def test_fused_thermal_rt_run_lin_raises(cuda):
+    from vsmartmom_tpu_torch.core.linearization import rt_run_lin
+    from vsmartmom_tpu_torch.flagship import lin_ref_model
+    model = lin_ref_model()
+    model.bands[0].thermal_b = np.full((model.profile.nz, 2), 0.1)
+    with pytest.raises(NotImplementedError, match="thermal"):
+        rt_run_lin(model, device=cuda)

@@ -108,3 +108,54 @@ def test_rrs_kernel_wrapper_refuses(rrs_cpu_operands, case, match):
         ops = type(ops)(*(x.double() for x in ops))
     with pytest.raises(ValueError, match=match):
         _launch_kernel(ops, (0,) * ndoubl, 1)
+
+
+def test_rt_run_lin_needs_cuda_or_an_explicit_device(monkeypatch):
+    from vsmartmom_tpu_torch import flagship_model, rt_run_lin
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rt_run_lin(flagship_model(n_spec=2, nstreams=2))
+
+
+@pytest.fixture(scope="module")
+def mt_cpu_operands():
+    """K2's operands for a tiny band and two tangents (CPU, f32)."""
+    from vsmartmom_tpu_torch import flagship_model
+    from vsmartmom_tpu_torch.ops.fused_lin import multitangent_args
+    inputs, config = flagship_model(n_spec=3, nstreams=2).build_band(
+        0, device="cpu")
+    tangents = [inputs._replace(tau=0.1 * inputs.tau),
+                inputs._replace(scat_w=0.2 * inputs.scat_w)]
+    return multitangent_args(inputs, tangents, config, 0, "cpu")
+
+
+@pytest.mark.parametrize("case,match", [
+    ("K2", "K = 1"), ("wide", "N <= 52"), ("shape", "shape"),
+    ("f64", "float32"), ("cpu", "CUDA")])
+def test_mt_kernel_wrapper_refuses(mt_cpu_operands, case, match):
+    """K2 takes K = 1, N <= 52, f32 tensors of matching shapes on one CUDA
+    device; its launcher refuses anything else before it builds."""
+    from vsmartmom_tpu_torch.ops.fused_lin import _launch_kernel
+    ops, dops, sched, ns_inter = mt_cpu_operands
+    if case == "K2":
+        ops = ops._replace(j0_p=torch.cat([ops.j0_p] * 2, dim=-1))
+    elif case == "wide":
+        ops = ops._replace(Em1=torch.zeros(ops.Em1.shape[:2] + (56,)))
+    elif case == "shape":
+        dops = dops._replace(ek=dops.ek[:1].contiguous())
+    elif case == "f64":
+        dops = type(dops)(*(x.double() for x in dops))
+    with pytest.raises(ValueError, match=match):
+        _launch_kernel(ops, dops, sched, ns_inter)
+
+
+def test_mt_wrapper_runs_the_plain_version_on_the_cpu(mt_cpu_operands):
+    from vsmartmom_tpu_torch.ops.fused_lin import (
+        fused_moment_multitangent, moment_multitangent_reference)
+    before = fused_moment_multitangent.launches
+    out = fused_moment_multitangent(*mt_cpu_operands)
+    ref = moment_multitangent_reference(*mt_cpu_operands)
+    assert fused_moment_multitangent.launches == before
+    for a, b in zip((*out[0], *out[1]), (*ref[0], *ref[1])):
+        assert torch.equal(a, b)
+    assert out[1][0].shape[0] == 2

@@ -6,19 +6,22 @@ profiles, depolarization, Greek coefficients, Z supermatrices, surfaces, the
 Newton-Schulz schedule probe) is the port's own float64 NumPy copy. The
 solver runs on torch tensors; the whole-moment band path launches the
 hand-written Hopper kernel ``csrc/fused_band.cu`` and the rotational-Raman
-path also ``csrc/fused_rrs.cu``, each built by ``nvcc`` at first use into
+path also ``csrc/fused_rrs.cu`` and the Jacobian path ``csrc/fused_lin.cu``,
+each built by ``nvcc`` at first use into
 ``vsmartmom_tpu_torch/_build/``.
 
 Entry points (``rt_run``, ``rt_run_full``, ``rt_run_streams``, ``rt_solve``,
-``rt_run_inelastic``) run on CUDA unless the caller passes ``device`` (e.g.
+``rt_run_inelastic``, ``rt_run_lin``) run on CUDA unless the caller passes ``device`` (e.g.
 ``device="cpu"``); without CUDA and without a device they raise.
 """
 
 from .core.inelastic import rt_run_inelastic
+from .core.linearization import ParameterLayout, default_layout, rt_run_lin
 from .core.model import Parameters, SurfaceDescriptor, model_from_parameters
 from .core.solver import rt_run, rt_run_full, rt_run_streams, rt_solve
 from .flagship import flagship_model, rrs_sif_model
 
 __all__ = ["Parameters", "SurfaceDescriptor", "model_from_parameters",
            "rt_run", "rt_run_full", "rt_run_streams", "rt_solve",
-           "rt_run_inelastic", "flagship_model", "rrs_sif_model"]
+           "rt_run_inelastic", "rt_run_lin", "default_layout",
+           "ParameterLayout", "flagship_model", "rrs_sif_model"]

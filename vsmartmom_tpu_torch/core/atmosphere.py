@@ -2,7 +2,8 @@
 
 Behavioral reference: vSmartMOM.jl src/CoreRT/tools/atmo_prof.jl
 (compute_atmos_profile_fields:36-91, reduce_profile:110-167,
-getRayleighLayerOptProp:238-262, getAerosolLayerOptProp:269-298).
+getRayleighLayerOptProp:238-262, getAerosolLayerOptProp:269-298) and the
+altitude-form aerosol profile of the JAX package.
 """
 
 from dataclasses import dataclass
@@ -119,6 +120,63 @@ def rayleigh_layer_tau(psurf_hpa: float, lambda_um, depol: float,
                  / ((6.0 + 3.0 * rho0) * (6.0 - 7.0 * depol)))
     k = tau / vcd_dry.sum()
     return k[:, None] * vcd_dry[None, :]
+
+
+def aerosol_layer_tau_gauss(total_tau: float, p0: float, sigma_p: float,
+                            p_half) -> np.ndarray:
+    """Gaussian-in-pressure aerosol profile (atmo_prof.jl:269-286)."""
+    p_half = np.asarray(p_half, dtype=np.float64)
+    dp = np.diff(p_half)
+    p = 0.5 * (p_half[1:] + p_half[:-1])
+    rho = (1.0 / (sigma_p * np.sqrt(2 * np.pi))) * \
+        np.exp(-(p - p0) ** 2 / (2 * sigma_p ** 2)) * dp
+    return (total_tau / rho.sum()) * rho
+
+
+def layer_z_bounds(profile: AtmosphericProfile) -> np.ndarray:
+    """Altitude at layer boundaries [m], TOA -> BOA, surface = 0
+    (cumulated hydrostatic thicknesses profile.dz)."""
+    dz = np.asarray(profile.dz, dtype=np.float64)
+    z_half = np.zeros(len(dz) + 1)
+    z_half[:-1] = np.cumsum(dz[::-1])[::-1]     # height of each layer TOP
+    return z_half
+
+
+def aerosol_layer_tau_gauss_z(total_tau: float, z0_km: float,
+                              sigma0: float,
+                              profile: AtmosphericProfile) -> np.ndarray:
+    """Altitude-form aerosol profile LogNormal(log z0, sigma0) in height,
+    integrated EXACTLY over each layer's altitude span (log-normal CDF
+    difference), normalized to ``total_tau``.
+
+    The reference documents this (z0, sigma0) form as the PREFERRED input
+    and stores the distribution (IO/Parameters.jl:495-556:
+    ``LogNormal(log(z0), sigma0)``) but stubs the altitude ->
+    pressure-grid integration as a no-op; here it integrates properly on
+    the hydrostatic z grid (profile.dz). z0 in km, sigma0 the
+    dimensionless log-width."""
+    from scipy.special import erf
+    z_half = layer_z_bounds(profile) / 1e3      # (Nz+1,) [km], TOA -> BOA
+    lnz = np.log(np.maximum(z_half, 1e-12))
+    cdf = 0.5 * (1.0 + erf((lnz - np.log(z0_km))
+                           / (np.sqrt(2.0) * sigma0)))
+    cdf = np.where(z_half <= 0, 0.0, cdf)
+    rho = cdf[:-1] - cdf[1:]                    # mass in [z_bot, z_top]
+    s = rho.sum()
+    if s <= 0:
+        raise ValueError(
+            f"altitude-form aerosol profile (z0={z0_km} km, sigma0={sigma0})"
+            f" has no mass inside the column [0, {z_half[0]:.1f} km]")
+    return (total_tau / s) * rho
+
+
+def aerosol_profile_shape(aer, profile: AtmosphericProfile) -> np.ndarray:
+    """Unit-total vertical profile for an RTAerosol in either form:
+    Gaussian-in-pressure (p0, sigma_p) or Gaussian-in-altitude
+    (z0, sigma_z)."""
+    if getattr(aer, "z0", None) is not None:
+        return aerosol_layer_tau_gauss_z(1.0, aer.z0, aer.sigma_z, profile)
+    return aerosol_layer_tau_gauss(1.0, aer.p0, aer.sigma_p, profile.p_half)
 
 
 def doubling_number(dtau_max: float, tau_end: float):

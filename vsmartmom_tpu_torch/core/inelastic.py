@@ -505,7 +505,7 @@ def inelastic_setup(model, i_band: int = 0, mode: str = "RRS", device=None):
     if mode != "RRS":
         raise ValueError(f"unknown inelastic mode {mode!r}")
     from ..inelastic.rrs_setup import greek_raman, rrs_redistribution
-    from ..scattering.zmatrix import compute_Z_moments
+    from .model import z_moment_stack
 
     dev = resolve_device(device)
     band = model.bands[i_band]
@@ -521,13 +521,9 @@ def inelastic_setup(model, i_band: int = 0, mode: str = "RRS", device=None):
     # inelastic split matches the elastic path.
     w_shifts = w_shifts * (1.0 - band.pi_cabannes) / w_shifts.sum()
 
-    gk_r = greek_raman()
-    n_m, N = config.m_max + 1, config.N
-    Z_r_pp = np.zeros((n_m, N, N))
-    Z_r_mp = np.zeros((n_m, N, N))
-    for m in range(n_m):
-        Z_r_pp[m], Z_r_mp[m] = compute_Z_moments(
-            model.params.polarization, model.quad.qp_mu, gk_r, m)
+    Z_r_pp, Z_r_mp = (z[:, 0] for z in z_moment_stack(
+        model.params.polarization, model.quad.qp_mu, [greek_raman()],
+        config.m_max + 1))
     # Rayleigh fraction of layer scattering (fScattRayleigh,
     # compEffectiveLayerProperties.jl:56); no aerosols in the port yet.
     tau_rayl = band.tau_rayl.T

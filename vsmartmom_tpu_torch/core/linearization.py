@@ -1,0 +1,317 @@
+"""Linearized RT: Jacobians dR/dx, dT/dx with respect to aerosol and surface
+parameters.
+
+Counterpart of ``vsmartmom_tpu/core/linearization.py``. The solver is
+differentiated in forward mode and chained with host-side tangents of the
+model build:
+
+* linear inputs (tau_ref, Lambertian albedo): analytic;
+* the vertical profile (p0, sigma_p): central differences of the cheap
+  profile function;
+* Mie microphysics (n_r, n_i, r_mode, sigma_g): exact forward-mode tangents
+  of the NAI-2 -> delta-BGE -> delta-M pipeline (``scattering/mie_lin.py``;
+  ``_aerosol_tangents(..., mie_method="fd")`` keeps central differences of
+  the host build, which the tests hold the exact route against);
+* Cox-Munk wind speed: the analytic sigma^2-chain tangent of the surface
+  operators and of the TMS correction.
+
+``rt_run_lin`` routes by configuration: the band path with one source
+(``config.fused``, K = 1) runs the multitangent kernel K2
+(``ops/fused_lin.py``); the plain path runs ``torch.func.jvp`` through
+``rt_solve``, vmapped over the tangents, which is the Jacobian baseline. The band path with a thermal source (K = 2) is not ported yet.
+
+The band is built once per call and its inputs are handed to every tangent
+build; nothing is cached on the model. Gas absorption and its VMR
+tangent are not ported yet.
+
+Parameter layout mirrors the reference ParameterLayout
+(CoreRT/parameter_layout.jl:20-66): 7 per aerosol [tau_ref, n_r, n_i,
+r_mode, sigma_g, p0, sigma_p], one per gas (VMR scale), then surface
+parameters (albedo | wind speed).
+"""
+
+from dataclasses import dataclass, replace as dc_replace
+
+import numpy as np
+import torch
+
+from .solver import rt_solve
+from .types import SolverInputs, resolve_device
+
+AEROSOL_PARAMS = ("tau_ref", "n_r", "n_i", "r_mode", "sigma_g", "p0",
+                  "sigma_p")
+GREEK_FIELDS = ("alpha", "beta", "gamma", "delta", "epsilon", "zeta")
+
+
+@dataclass(frozen=True)
+class ParameterLayout:
+    """Jacobian index arithmetic (reference parameter_layout.jl:20-66)."""
+    n_aer: int
+    gas_names: tuple
+    surface_params: tuple      # e.g. ("albedo",) or ("wind_speed",)
+
+    @property
+    def n_total(self) -> int:
+        return 7 * self.n_aer + len(self.gas_names) + len(self.surface_params)
+
+    def aerosol_slice(self, i):
+        return slice(7 * i, 7 * (i + 1))
+
+    def gas_index(self, j):
+        return 7 * self.n_aer + j
+
+    def surface_index(self, j=0):
+        return 7 * self.n_aer + len(self.gas_names) + j
+
+    def names(self):
+        out = []
+        for i in range(self.n_aer):
+            out += [f"aer{i}_{p}" for p in AEROSOL_PARAMS]
+        out += [f"vmr_{g}" for g in self.gas_names]
+        out += list(self.surface_params)
+        return out
+
+
+def default_layout(model, i_band: int = 0) -> ParameterLayout:
+    """Every aerosol's 7 parameters and the surface's (no gases: gas
+    absorption is not ported yet)."""
+    band = model.bands[i_band]
+    kind = band.surface.kind
+    if kind == "CoxMunkSurface":
+        surf = ("wind_speed",)
+    elif kind == "LambertianSurfaceScalar":
+        surf = ("albedo",)
+    else:
+        surf = ()
+    return ParameterLayout(n_aer=len(band.aerosols), gas_names=(),
+                           surface_params=surf)
+
+
+def _zero_like(inputs: SolverInputs) -> SolverInputs:
+    return SolverInputs(*(torch.zeros_like(x) for x in inputs))
+
+
+def _like(x, ref):
+    return torch.as_tensor(np.array(x), dtype=ref.dtype, device=ref.device)
+
+
+def _component_tangent_inputs(model, i_band, inputs: SolverInputs,
+                              comp_index, d_comp, tables):
+    """SolverInputs tangent from a ScatteringComponent tangent (d_greek,
+    d_tau_profile, d_ssa) of aerosol ``comp_index``, holding everything
+    else of the band's ``inputs`` fixed; the Z moments are linear in the
+    Greek coefficients and come from the build's Legendre ``tables``."""
+    from ..scattering.zmatrix import compute_Z_moments
+    comp = model.bands[i_band].aerosols[comp_index]
+    c = comp_index + 1                 # component axis: 0 = Rayleigh
+    nz, _, n_spec = inputs.scat_w.shape
+    d_tau_prof = np.asarray(d_comp["tau_profile"])          # (Nz,)
+    d_ssa = float(d_comp.get("ssa", 0.0))
+    d_scat = torch.zeros_like(inputs.scat_w)
+    d_scat[:, c, :] = _like(d_tau_prof[:, None] * comp.ssa
+                            + comp.tau_profile[:, None] * d_ssa,
+                            inputs.scat_w)
+    d_tau = _like(np.broadcast_to(d_tau_prof[:, None], (nz, n_spec)),
+                  inputs.tau)
+    d_inputs = _zero_like(inputs)._replace(scat_w=d_scat, tau=d_tau)
+    d_greek = d_comp.get("greek")
+    if d_greek is not None:
+        pol = model.params.polarization
+        dZ_pp = torch.zeros_like(inputs.Z_pp)
+        dZ_mp = torch.zeros_like(inputs.Z_mp)
+        for m in range(inputs.Z_pp.shape[0]):
+            zp, zm = compute_Z_moments(pol, model.quad.qp_mu, d_greek, m,
+                                       tables)
+            dZ_pp[m, c] = _like(zp, dZ_pp)
+            dZ_mp[m, c] = _like(zm, dZ_mp)
+        d_inputs = d_inputs._replace(Z_pp=dZ_pp, Z_mp=dZ_mp)
+    return d_inputs
+
+
+def _aerosol_tangents(model, i_band, i_aer, fd_rel=1e-3,
+                      mie_method: str = "exact"):
+    """Tangents of aerosol ``i_aer``'s ScatteringComponent for its 7
+    parameters: dicts of tau_profile, ssa and (Mie parameters) greek."""
+    from ..scattering.greek import GreekCoefs
+    from .atmosphere import aerosol_profile_shape
+    from .model import band_lambda_um, build_one_aerosol, uses_delta_bge
+
+    band = model.bands[i_band]
+    comp = band.aerosols[i_aer]
+    aer = comp.aer
+    params = model.params
+    lam_band = band_lambda_um(band.nu_grid)
+    tangents = {"tau_ref": {"tau_profile": comp.tau_profile / aer.tau_ref,
+                            "ssa": 0.0}}
+
+    # Profile-shape parameters (p0/sigma_p or z0/sigma_z): only the
+    # normalized vertical profile changes — central differences of the
+    # cheap profile function. Slots 5/6 carry whichever form the aerosol uses.
+    scale = comp.tau_profile.sum() / max(
+        aerosol_profile_shape(aer, model.profile).sum(), 1e-300)
+    prof_attrs = ("p0", "sigma_p") if aer.p0 is not None else ("z0", "sigma_z")
+    for name, attr in zip(("p0", "sigma_p"), prof_attrs):
+        x = getattr(aer, attr)
+        h = max(abs(x) * fd_rel, 1e-6)
+        hi = aerosol_profile_shape(dc_replace(aer, **{attr: x + h}),
+                                   model.profile)
+        lo = aerosol_profile_shape(dc_replace(aer, **{attr: x - h}),
+                                   model.profile)
+        tangents[name] = {"tau_profile": scale * (hi - lo) / (2 * h),
+                          "ssa": 0.0}
+
+    mie_params = {"n_r": 0, "n_i": 1, "r_mode": 2, "sigma_g": 3}
+    if aer.phase_function_g is not None:
+        for pname in mie_params:
+            tangents[pname] = {"tau_profile": np.zeros_like(comp.tau_profile),
+                               "ssa": 0.0}
+        return tangents
+
+    if mie_method == "exact":
+        from ..scattering.mie_lin import (exact_aerosol_mie_tangents,
+                                          greek_tangent_as_coefs)
+        _, jac = exact_aerosol_mie_tangents(
+            aer, params.scattering_params, lam_band,
+            aerosol_profile_shape(aer, model.profile), uses_delta_bge(params),
+            params.stream_l_cap)
+        for pname, ip in mie_params.items():
+            tangents[pname] = {
+                "tau_profile": np.asarray(jac["tau_profile"][:, ip]),
+                "ssa": float(jac["ssa"][ip]),
+                "greek": greek_tangent_as_coefs(jac["greek"], ip)}
+        return tangents
+    if mie_method != "fd":
+        raise ValueError(f"mie_method must be 'exact' or 'fd', got "
+                         f"{mie_method!r}")
+
+    fd_attr = {"n_r": "n_r", "n_i": "n_i", "r_mode": "mu_log",
+               "sigma_g": "sigma_log"}
+    for pname, attr in fd_attr.items():
+        x = getattr(aer, attr)
+        h = max(abs(x) * fd_rel, 1e-5)
+        hi = build_one_aerosol(params, model.profile,
+                               dc_replace(aer, **{attr: x + h}), lam_band)
+        lo = build_one_aerosol(params, model.profile,
+                               dc_replace(aer, **{attr: x - h}), lam_band)
+        inv2h = 1.0 / (2 * h)
+        tangents[pname] = {
+            "tau_profile": (hi.tau_profile - lo.tau_profile) * inv2h,
+            "ssa": (hi.ssa - lo.ssa) * inv2h,
+            "greek": GreekCoefs(*[
+                (getattr(hi.greek, f) - getattr(lo.greek, f)) * inv2h
+                for f in GREEK_FIELDS])}
+    return tangents
+
+
+def build_tangent_inputs(model, i_band, layout: ParameterLayout, fd_rel=1e-3,
+                         device=None):
+    """(inputs, config, tangents): the band's SolverInputs and SolverConfig
+    from one ``build_band`` on ``device``, and one SolverInputs-shaped
+    tangent per layout parameter (float64 tensors on ``device``)."""
+    from ..scattering.zmatrix import legendre_tables
+    dev = resolve_device(device)
+    band = model.bands[i_band]
+    inputs, config = model.build_band(i_band, device=dev)
+    zero = _zero_like(inputs)
+    tangents = []
+
+    if layout.n_aer:
+        n_m = inputs.Z_pp.shape[0]
+        tables = legendre_tables(model.quad.qp_mu,
+                                 max(a.greek.l_max for a in band.aerosols),
+                                 n_m)
+    for i in range(layout.n_aer):
+        per_aer = _aerosol_tangents(model, i_band, i, fd_rel)
+        for pname in AEROSOL_PARAMS:
+            tangents.append(_component_tangent_inputs(
+                model, i_band, inputs, i, per_aer[pname], tables))
+
+    if layout.gas_names:
+        raise NotImplementedError("gas absorption and its VMR tangent are "
+                                  "not ported yet (ROADMAP.md)")
+
+    for sp in layout.surface_params:
+        if sp == "albedo":
+            albedo = band.surface.args[0]
+            d_spec = inputs.surf_spec / albedo if albedo != 0 \
+                else torch.ones_like(inputs.surf_spec)
+            tangents.append(zero._replace(surf_spec=d_spec))
+        elif sp == "wind_speed":
+            from ..surfaces.coxmunk import (CoxMunkSurface,
+                                            coxmunk_surface_operator_arrays)
+            surf = CoxMunkSurface(**{k: v for k, v in
+                                     band.surface.kwargs.items()
+                                     if not k.startswith("_")})
+            _, _, d_r, d_j = coxmunk_surface_operator_arrays(
+                surf, model.quad, config.n_stokes, inputs.surf_r.shape[0],
+                wind_tangent=True)
+            tangents.append(zero._replace(
+                surf_r=_like(d_r, inputs.surf_r),
+                surf_j_m=_like(d_j, inputs.surf_j_m)))
+        else:
+            raise NotImplementedError(sp)
+    return inputs, config, tangents
+
+
+def rt_solve_jvp(inputs, tangents, config, device=None):
+    """(R, T, dR, dT) tensors by forward-mode AD through ``rt_solve`` (the
+    Jacobian baseline), vmapped over all P tangents at once; dR/dT
+    (P, nVZA, ns, s)."""
+    dev = resolve_device(device)
+    dtype = config.torch_dtype
+    inp = SolverInputs(*(x.to(dtype) for x in inputs))
+
+    def fn(x):
+        out = rt_solve(x, config, dev)
+        return out["R"], out["T"]
+
+    def one(*d):
+        return torch.func.jvp(fn, (inp,), (SolverInputs(*d),))[1]
+    R, T = fn(inp)
+    stack = [torch.stack([getattr(t, f).to(dtype) for t in tangents])
+             for f in SolverInputs._fields]
+    dR, dT = torch.func.vmap(one)(*stack)
+    return R, T, dR, dT
+
+
+def rt_run_lin(model, i_band: int = 0, layout: ParameterLayout = None,
+               fd_rel: float = 1e-3, device=None):
+    """Forward + Jacobian run (reference rt_run(model, lin_model, ...),
+    rt_run_lin.jl:102-326) on ``device`` (CUDA unless given).
+
+    Returns numpy (R, T, dR, dT): R/T (nVZA, nStokes, nSpec), dR/dT
+    (nVZA, nStokes, nSpec, Nparams). The wind-speed Jacobian includes the
+    TMS glint-correction derivative."""
+    dev = resolve_device(device)
+    if layout is None:
+        layout = default_layout(model, i_band)
+    inputs, config, tangents = build_tangent_inputs(
+        model, i_band, layout, fd_rel, dev)
+    if config.fused:
+        if config.n_sources != 1:
+            raise NotImplementedError(
+                "the thermal (K = 2) Jacobian route through the band kernel "
+                "is not ported yet (ROADMAP.md); run with fused=False")
+        from ..ops.fused_lin import rt_solve_multitangent
+        R, T, dR, dT = rt_solve_multitangent(inputs, tangents, config, dev)
+    else:
+        R, T, dR, dT = rt_solve_jvp(inputs, tangents, config, dev)
+    R, T = R.cpu().numpy(), T.cpu().numpy()
+    dR = np.moveaxis(dR.cpu().numpy(), 0, -1)    # (nVZA, ns, nSpec, Nparams)
+    dT = np.moveaxis(dT.cpu().numpy(), 0, -1)
+
+    band = model.bands[i_band]
+    if band.surface.kind == "CoxMunkSurface":
+        # TMS correction and its analytic wind derivative (the correction
+        # is linear in the Mueller grid).
+        from ..surfaces.coxmunk import CoxMunkSurface, tms_correction
+        surf = CoxMunkSurface(**{k: v for k, v in band.surface.kwargs.items()
+                                 if not k.startswith("_")})
+        tau_total = inputs.tau.sum(dim=0).cpu().numpy()
+        base, d_tms = tms_correction(
+            surf, config.n_stokes, model.params.vza, model.params.vaz,
+            model.quad.mu0, tau_total, config.m_max, wind_tangent=True)
+        R = R + base
+        if "wind_speed" in layout.surface_params:
+            dR[..., layout.surface_index()] += d_tms
+    return R, T, dR, dT

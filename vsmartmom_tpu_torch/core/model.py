@@ -1,13 +1,16 @@
 """Model build: user parameters -> RTModel (host setup + solver inputs).
 
-Counterpart of ``vsmartmom_tpu/core/model.py`` for the scenes this slice of
-the port covers: Rayleigh-only columns over a Cox-Munk ocean or a
-Lambertian surface, with optional per-layer thermal emission. All setup
-physics runs on the host in float64 NumPy, as in the JAX package;
-``build_band`` hands the arrays to the device as float64 tensors and the
-solver casts them to ``config.dtype``.
+Counterpart of ``vsmartmom_tpu/core/model.py`` for the scenes the port
+covers: Rayleigh columns with optional Mie or analytic (Henyey-Greenstein)
+aerosols over a Cox-Munk ocean or a Lambertian surface, with optional
+per-layer thermal emission. All setup physics runs on the host in float64
+NumPy, as in the JAX package; ``build_band`` hands the arrays to the device
+as float64 tensors and the solver casts them to ``config.dtype``. The
+generalized spherical functions behind the Z moments are computed once per
+build for every moment and component (``zmatrix.legendre_tables``), not
+once per moment as in the JAX package: the numbers are the same.
 
-Aerosols, gas absorption, the Radau quadrature and the other surfaces raise
+Gas absorption, the Radau quadrature and the other surfaces raise
 ``NotImplementedError``; they are queued in ROADMAP.md.
 """
 
@@ -20,12 +23,13 @@ import torch
 from ..inelastic.molecular import air_depolarization
 from ..scattering.greek import GreekCoefs, greek_rayleigh
 from ..scattering.stokes import Polarization
-from ..scattering.zmatrix import compute_Z_moments
+from ..scattering.zmatrix import compute_Z_moments, legendre_tables
 from ..surfaces.lambertian import (lambertian_spectral_scale,
                                    lambertian_surface_arrays)
 from ..utils.quadrature import QuadPoints, nearest_index, rt_set_streams
-from .atmosphere import (AtmosphericProfile, compute_atmos_profile_fields,
-                         compute_ndoubl, rayleigh_layer_tau, reduce_profile)
+from .atmosphere import (AtmosphericProfile, aerosol_profile_shape,
+                         compute_atmos_profile_fields, compute_ndoubl,
+                         rayleigh_layer_tau, reduce_profile)
 from .types import (SolverConfig, resolve_device, solver_inputs_from_numpy,
                     stokes_d_vector)
 
@@ -48,8 +52,9 @@ class Parameters:
     profile_reduction: int = -1
     depol: float = -1.0                 # < 0 -> auto from N2/O2 constants
     float_type: Any = np.float64
+    truncation: str = "NoTruncation"    # or "deltaBGE" (aerosol phase)
     absorption_params: Optional[Any] = None   # not ported yet: must be None
-    scattering_params: Optional[Any] = None   # not ported yet: must be None
+    scattering_params: Optional["ScatteringParams"] = None
     dtau_max_threshold: float = 1e-3
     quadrature: str = "GaussLegQuad"
     # Execution strategy (None = auto: the band kernel for f32 on CUDA).
@@ -68,12 +73,70 @@ class SurfaceDescriptor:
 
 
 @dataclass
+class RTAerosol:
+    """One aerosol species (reference RT_Aerosol, types.jl:83-103):
+    microphysics (log-normal + refractive index) or an analytic phase
+    function, a reference optical depth, and a vertical profile in EITHER
+    Gaussian-in-pressure (p0, sigma_p [hPa]) or log-normal-in-altitude
+    (z0 [km], sigma_z = sigma0 log-width) form."""
+    tau_ref: float
+    p0: Optional[float] = None         # profile center [hPa]
+    sigma_p: Optional[float] = None    # profile width [hPa]
+    z0: Optional[float] = None         # profile median altitude [km]
+    sigma_z: Optional[float] = None    # log-normal sigma0 (dimensionless)
+    mu_log: Optional[float] = None     # log-normal median radius [um], log
+    sigma_log: Optional[float] = None  # log-normal geometric sigma, log
+    n_r: float = 1.0
+    n_i: float = 0.0
+    phase_function_g: Optional[float] = None   # HG asymmetry (analytic path)
+    ssa: Optional[float] = None                # analytic-path SSA
+
+    def __post_init__(self):
+        has_p = self.p0 is not None
+        has_z = self.z0 is not None
+        if has_p == has_z:
+            raise ValueError("RTAerosol needs exactly one vertical-profile "
+                             "form: (p0, sigma_p) or (z0, sigma_z)")
+        if has_p and self.sigma_p is None:
+            raise ValueError("pressure-form profile needs sigma_p")
+        if has_z and self.sigma_z is None:
+            raise ValueError("altitude-form profile needs sigma_z")
+
+
+@dataclass
+class ScatteringParams:
+    """Reference ScatteringParameters (types.jl:687-700)."""
+    rt_aerosols: list
+    r_max: float = 50.0
+    nquad_radius: int = 2500
+    lambda_ref: float = 0.55
+    n_ref: Optional[complex] = None
+    decomp_type: str = "NAI2"
+
+
+@dataclass
+class ScatteringComponent:
+    """One aerosol of a layer mix: its Greek coefficients, its (Nz,) optical
+    depth profile at the band value and its single-scattering albedo, both
+    after delta-M scaling (createAero, compEffectiveLayerProperties.jl:67-72),
+    plus the raw optics the Jacobian build reads."""
+    greek: GreekCoefs
+    tau_profile: np.ndarray
+    ssa: float
+    aer: Optional[RTAerosol] = None     # source aerosol
+    k_over_kref: float = 1.0            # band-to-reference extinction ratio
+    f_trunc: float = 0.0                # delta-M truncation factor
+    ssa_raw: float = 1.0                # pre-truncation single-scatter albedo
+
+
+@dataclass
 class BandData:
     """Mutable per-band optics for one spectral band."""
     nu_grid: np.ndarray                 # (nSpec,)
     tau_rayl: np.ndarray                # (nSpec, Nz), mutable for overrides
     tau_abs: np.ndarray                 # (nSpec, Nz)
     greek_rayleigh: GreekCoefs
+    aerosols: list = field(default_factory=list)   # ScatteringComponent
     depol_rayleigh: float = 0.0
     depol_cabannes: float = 0.0
     pi_cabannes: float = 1.0
@@ -141,6 +204,7 @@ class RTModel:
         cap = self.params.stream_l_cap
         supports = [band.greek_rayleigh.l_max - 1,
                     _surface_m_support(band.surface, cap)]
+        supports += [a.greek.l_max - 1 for a in band.aerosols]
         return min(max(supports), cap)
 
     def build_band(self, i_band: int, device=None, rrs: bool = False):
@@ -164,24 +228,28 @@ class RTModel:
 
         m_max = self._band_m_max(band)
         n_m = m_max + 1
-        N = quad.Nquad * ns
         surf_r, surf_j, surf_spec, surf_direct_m = _surface_arrays(
             band.surface, quad, ns, n_m, n_spec)
 
-        # Phase supermatrices per Fourier moment (one component: Rayleigh,
-        # or its Cabannes line for RRS runs).
+        # Phase supermatrices per Fourier moment per scattering component:
+        # Rayleigh (or its Cabannes line for RRS runs), then each aerosol.
         greek0 = greek_rayleigh(band.depol_cabannes) if rrs \
             else band.greek_rayleigh
-        Z_pp = np.zeros((n_m, 1, N, N))
-        Z_mp = np.zeros((n_m, 1, N, N))
-        for m in range(n_m):
-            Z_pp[m, 0], Z_mp[m, 0] = compute_Z_moments(
-                pol, quad.qp_mu, greek0, m)
+        Z_pp, Z_mp = z_moment_stack(
+            pol, quad.qp_mu, [greek0] + [a.greek for a in band.aerosols],
+            n_m)
 
-        # Layer mixing weight tau_c * ssa_c (Rayleigh ssa = 1).
-        scat_w = band.tau_rayl.T[:, None, :] \
-            * (band.pi_cabannes if rrs else 1.0)               # (Nz, 1, s)
+        # Layer mixing weights: scattering weight tau_c * ssa_c per component
+        # (Rayleigh ssa = 1; compEffectiveLayerProperties.jl:40).
+        n_comp = 1 + len(band.aerosols)
+        scat_w = np.zeros((nz, n_comp, n_spec))
+        scat_w[:, 0, :] = band.tau_rayl.T * (band.pi_cabannes if rrs else 1.0)
         tau = band.tau_rayl.T + band.tau_abs.T                 # (Nz, nSpec)
+        for c, aer in enumerate(band.aerosols, start=1):
+            prof = np.asarray(aer.tau_profile, dtype=np.float64)
+            tau_aer = prof[:, None] if prof.ndim == 1 else prof.T
+            scat_w[:, c, :] = tau_aer * aer.ssa
+            tau = tau + tau_aer
 
         # Uniform doubling count: max of the per-layer rule
         # (rt_kernel.jl:266-287).
@@ -233,8 +301,9 @@ class RTModel:
         # Highest moment with atmospheric scattering: beyond it the column
         # is purely absorbing and the solver's exact Beer-law shortcut
         # applies (Cox-Munk pushes m_max to the stream cap, Rayleigh
-        # scatters only to m = 2).
-        m_scat = min(m_max, band.greek_rayleigh.l_max - 1)
+        # scatters only to m = 2, an aerosol to its l_max - 1).
+        m_scat = min(m_max, max([band.greek_rayleigh.l_max - 1]
+                                + [a.greek.l_max - 1 for a in band.aerosols]))
 
         config = SolverConfig(n_stokes=ns, nquad=quad.Nquad, n_spec=n_spec,
                               nz=nz, m_max=m_max, ndoubl=int(ndoubl),
@@ -253,12 +322,86 @@ class RTModel:
         return solver_inputs_from_numpy(fields, dev, torch.float64), config
 
 
+def z_moment_stack(pol, mu, greeks, n_m: int):
+    """(Z_pp, Z_mp), each (n_m, len(greeks), N, N): the Z moments m < n_m of
+    each Greek expansion, from one set of Legendre tables."""
+    N = len(mu) * pol.n
+    Z_pp = np.zeros((n_m, len(greeks), N, N))
+    Z_mp = np.zeros((n_m, len(greeks), N, N))
+    if not greeks:
+        return Z_pp, Z_mp
+    tables = legendre_tables(mu, max(g.l_max for g in greeks), n_m)
+    for m in range(n_m):
+        for c, gk in enumerate(greeks):
+            Z_pp[m, c], Z_mp[m, c] = compute_Z_moments(pol, mu, gk, m,
+                                                       tables)
+    return Z_pp, Z_mp
+
+
+def uses_delta_bge(params: Parameters) -> bool:
+    return params.truncation in ("AutoTruncation", "auto", "deltaBGE",
+                                 "dBGE", "\u03b4BGE")
+
+
+def band_lambda_um(nu) -> float:
+    """Band-mean wavelength [um] at which the aerosol optics are taken."""
+    return 1e4 * (1.0 / nu.min() + 1.0 / nu.max()) / 2.0
+
+
+def build_one_aerosol(params: Parameters, profile: AtmosphericProfile,
+                      aer: RTAerosol, lam_band: float) -> ScatteringComponent:
+    """Mie (NAI-2) or analytic optics of one aerosol, optionally delta-BGE
+    truncated, with its delta-M-scaled layer profile
+    (model_from_parameters.jl:376-476 + createAero,
+    compEffectiveLayerProperties.jl:67-72)."""
+    from ..scattering.mie import (Aerosol, SizeDistribution,
+                                  analytic_aerosol_optics,
+                                  compute_aerosol_optical_properties,
+                                  compute_ref_aerosol_extinction,
+                                  truncate_phase_delta_bge,
+                                  truncate_phase_none)
+    scat = params.scattering_params
+    l_cap = params.stream_l_cap
+    profile_shape = aerosol_profile_shape(aer, profile)
+    if aer.phase_function_g is not None:
+        optics = analytic_aerosol_optics(aer.phase_function_g,
+                                         ssa=aer.ssa or 1.0,
+                                         l_max=min(l_cap + 1, 64))
+        tau_prof = aer.tau_ref * profile_shape
+        k_scale = 1.0
+    else:
+        mie_aero = Aerosol(SizeDistribution(aer.mu_log, aer.sigma_log),
+                           aer.n_r, aer.n_i)
+        n_ref = scat.n_ref if scat.n_ref is not None else \
+            complex(aer.n_r, -aer.n_i)
+        ref_aero = Aerosol(mie_aero.size_distribution,
+                           n_ref.real, -n_ref.imag)
+        k_ref = compute_ref_aerosol_extinction(
+            ref_aero, scat.lambda_ref, scat.r_max, scat.nquad_radius)
+        raw = compute_aerosol_optical_properties(
+            mie_aero, lam_band, scat.r_max, scat.nquad_radius)
+        if uses_delta_bge(params) and raw.greek_coefs.l_max > l_cap:
+            optics = truncate_phase_delta_bge(raw, l_cap)
+        else:
+            optics = truncate_phase_none(raw)
+        k_scale = raw.k / k_ref
+        tau_prof = aer.tau_ref * k_scale * profile_shape
+
+    # delta-M scaling (createAero): tau* = (1 - f_t w) tau,
+    # w* = (1 - f_t) w / (1 - f_t w)
+    ft, w = optics.f_trunc, optics.ssa
+    tau_mod = (1.0 - ft * w) * tau_prof
+    ssa_mod = (1.0 - ft) * w / (1.0 - ft * w)
+    return ScatteringComponent(greek=optics.greek_coefs,
+                               tau_profile=tau_mod, ssa=float(ssa_mod),
+                               aer=aer, k_over_kref=float(k_scale),
+                               f_trunc=float(ft), ssa_raw=float(w))
+
+
 def model_from_parameters(params: Parameters) -> RTModel:
     if params.quadrature != "GaussLegQuad":
         raise NotImplementedError(
             f"quadrature {params.quadrature} is not ported yet")
-    if params.scattering_params is not None:
-        raise NotImplementedError("aerosols are not ported yet")
     if params.absorption_params is not None:
         raise NotImplementedError("gas absorption is not ported yet")
     pol = params.polarization
@@ -285,9 +428,14 @@ def model_from_parameters(params: Parameters) -> RTModel:
         tau_rayl = rayleigh_layer_tau(profile.p_half[-1], lam_um, depol_ray,
                                       profile.vcd_dry)        # (nSpec, Nz)
         surface = params.surfaces[min(len(bands), len(params.surfaces) - 1)]
+        scat = params.scattering_params
+        aerosols = [build_one_aerosol(params, profile, aer,
+                                      band_lambda_um(nu))
+                    for aer in (scat.rt_aerosols if scat else [])]
         bands.append(BandData(nu_grid=nu, tau_rayl=tau_rayl,
                               tau_abs=np.zeros((len(nu), nz)),
                               greek_rayleigh=greek_rayleigh(depol_ray),
+                              aerosols=aerosols,
                               depol_rayleigh=depol_ray,
                               depol_cabannes=depol_cab,
                               pi_cabannes=pi_cab, surface=surface))

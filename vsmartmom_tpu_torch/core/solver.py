@@ -64,6 +64,30 @@ def _elemental_and_sources(tau_z, scat_w_z, tau_sum_z, thermal_b_z, *,
     return r_mp, t_pp, j0_p, j0_m, expk
 
 
+def _solar_block(x, N: int, i_mu0_start: int):
+    """(s, N) zeros with ``x`` (s, n_stokes) in the solar stream's columns;
+    out of place, so forward-mode AD and vmap pass through it."""
+    return torch.nn.functional.pad(
+        x, (i_mu0_start, N - i_mu0_start - x.shape[-1]))
+
+
+def beer_moment(tau_boa, F0, surf_spec, surf_j_m_m, surf_direct_m_m, qp_mu_N,
+                config: SolverConfig):
+    """One moment above ``m_scat``, where the layer chain reduces exactly to
+    diagonal Beer-law transmission (ScatteringInterface_00,
+    interaction.jl:52-120), from the column's optical depth tau_boa (s,):
+    (j0m, Jtoa, j0p), each (s, N): the surface's upwelling source, that
+    source at TOA, and the direct beam reaching the surface."""
+    mu0 = qp_mu_N[config.i_mu0_start]
+    att = _exp(-tau_boa / mu0)
+    Tdiag = _exp(-tau_boa[:, None] / qp_mu_N[None, :])       # (s, N)
+    j0m = torch.einsum("ik,ks->si", surf_j_m_m, F0) \
+        * (att * surf_spec)[:, None]
+    j0p = _solar_block((F0 * att[None, :]).T, config.N,
+                       config.i_mu0_start) * surf_direct_m_m
+    return j0m, Tdiag * j0m, j0p
+
+
 def _surface_layer(surf_r_m, surf_j_m, surf_direct_m, surf_spec, F0,
                    tau_sum_boa, mu0, sif_spec, is_m0,
                    config: SolverConfig) -> AddedLayer:
@@ -77,9 +101,8 @@ def _surface_layer(surf_r_m, surf_j_m, surf_direct_m, surf_spec, F0,
     r_mp = surf_r_m[None] * surf_spec[:, None, None]
     eye = torch.eye(N, dtype=dtype, device=dev).expand(n_spec, N, N)
     zero_m = torch.zeros((n_spec, N, N), dtype=dtype, device=dev)
-    j0_p = torch.zeros((n_spec, N), dtype=dtype, device=dev)
-    j0_p[:, config.i_mu0_start:config.i_mu0_start + ns] = \
-        (F0 * att[None, :]).T * surf_direct_m
+    j0_p = _solar_block((F0 * att[None, :]).T * surf_direct_m, N,
+                        config.i_mu0_start)
     j0_m = torch.einsum("ik,ks->si", surf_j_m, F0) * (att * surf_spec)[:, None]
     # Surface SIF: isotropic Lambertian emission into the upwelling source,
     # m = 0 only (surface_sif.jl:24-34,177).
@@ -102,16 +125,24 @@ def band_moment_args(inputs: SolverInputs, config: SolverConfig, m: int,
     dtype = config.torch_dtype
     inp = SolverInputs(*(torch.as_tensor(x).to(device=dev, dtype=dtype)
                          for x in inputs))
-    N, nz, ns = config.N, config.nz, config.n_stokes
-    qp_mu_N, tau, scat_w = inp.qp_mu_N, inp.tau, inp.scat_w
+    return moment_args(inp.Z_pp[m], inp.Z_mp[m], inp.tau, inp.scat_w, inp.F0,
+                       inp.thermal_b, inp.qp_mu_N, inp.wt_mu_N, config, m)
+
+
+def moment_args(Z_pp_m, Z_mp_m, tau, scat_w, F0, thermal_b, qp_mu_N, wt_mu_N,
+                config: SolverConfig, m: int):
+    """``band_moment_args`` on tensors already on their device: a pure
+    function of its tensor arguments, so forward-mode AD passes through it
+    (``ops/fused_lin.py`` takes the operands' tangents this way)."""
+    N, ns = config.N, config.n_stokes
+    dtype, dev = tau.dtype, tau.device
     mu0 = qp_mu_N[config.i_mu0_start]
     fw = 0.5 if m == 0 else 0.25
     dtau_z = tau / (2.0 ** config.ndoubl)
     tau_sum = torch.cat([torch.zeros_like(tau[:1]),          # above each layer
                          torch.cumsum(tau, dim=0)[:-1]], dim=0)
     safe_tau = torch.where(tau > 0, tau, torch.ones_like(tau))
-    th_base = 2.0 * np.pi * (1.0 - scat_w.sum(dim=1) / safe_tau) \
-        * inp.thermal_b
+    th_base = 2.0 * np.pi * (1.0 - scat_w.sum(dim=1) / safe_tau) * thermal_b
     idx = torch.arange(N, device=dev)
     is_I = ((idx % ns) == 0).to(dtype)
     in_blk = (((idx >= config.i_mu0_start)
@@ -119,11 +150,11 @@ def band_moment_args(inputs: SolverInputs, config: SolverConfig, m: int,
               | (torch.abs(qp_mu_N - mu0) <= 1e-9 * mu0)).to(dtype)
     d_vec = torch.as_tensor(stokes_d_vector(ns, config.nquad), dtype=dtype,
                             device=dev)
-    args = (inp.Z_pp[m], inp.Z_mp[m], tau, scat_w,
+    args = (Z_pp_m, Z_mp_m, tau, scat_w,
             _expm1(-dtau_z[:, :, None] / qp_mu_N[None, None, :]),
-            _expm1(-dtau_z / mu0), _exp(-tau_sum[:nz] / mu0),
-            _exp(-dtau_z / mu0), th_base * float(m == 0), inp.F0 * fw,
-            qp_mu_N, fw * inp.wt_mu_N, d_vec, is_I, in_blk)
+            _expm1(-dtau_z / mu0), _exp(-tau_sum / mu0),
+            _exp(-dtau_z / mu0), th_base * float(m == 0), F0 * fw,
+            qp_mu_N, fw * wt_mu_N, d_vec, is_I, in_blk)
     kw = dict(ndoubl=config.ndoubl, ns_sched=config.ns_sched or None,
               ns_inter=config.ns_inter, n_stokes=ns,
               i_mu0_start=config.i_mu0_start, n_sources=config.n_sources)
@@ -217,28 +248,19 @@ def rt_solve(inputs: SolverInputs, config: SolverConfig, device=None):
             J_up.append(J0_m)
             J_dn.append(J0_p)
 
-    # Moments above m_scat: the layer chain reduces exactly to diagonal
-    # Beer-law transmission (ScatteringInterface_00, interaction.jl:52-120).
-    if n_full < n_m:
-        tau_tot = tau_sum[nz]
-        att = _exp(-tau_tot / mu0)
-        Tdiag = _exp(-tau_tot[:, None] / qp_mu_N[None, :])   # (s, N)
-        j0p_vec = torch.zeros((n_spec, N), dtype=dtype, device=dev)
-        j0p_vec[:, config.i_mu0_start:config.i_mu0_start + ns] = \
-            (F0 * att[None, :]).T
-        for m in range(n_full, n_m):
-            j0m = torch.einsum("ik,ks->si", inp.surf_j_m[m], F0) \
-                * (att * surf_spec)[:, None]                 # (s, N)
-            Jtoa = Tdiag * j0m
-            j0p_m = j0p_vec * inp.surf_direct_m[m]
-            R = R + weigh(Jtoa, m)
-            T = T + weigh(j0p_m, m)
-            hdr_J = torch.matmul(j0p_m, inp.surf_r[m].T) \
-                * surf_spec[:, None] + j0m
-            hdr = hdr + weigh(hdr_J, m)
-            if config.save_streams:
-                J_up.append(Jtoa)
-                J_dn.append(j0p_m)
+    # Moments above m_scat: the exact Beer-law shortcut.
+    for m in range(n_full, n_m):
+        j0m, Jtoa, j0p_m = beer_moment(tau_sum[nz], F0, surf_spec,
+                                       inp.surf_j_m[m], inp.surf_direct_m[m],
+                                       qp_mu_N, config)
+        R = R + weigh(Jtoa, m)
+        T = T + weigh(j0p_m, m)
+        hdr_J = torch.matmul(j0p_m, inp.surf_r[m].T) \
+            * surf_spec[:, None] + j0m
+        hdr = hdr + weigh(hdr_J, m)
+        if config.save_streams:
+            J_up.append(Jtoa)
+            J_dn.append(j0p_m)
 
     out = {"R": R, "T": T, "hdr": hdr, "bhr_uw": bhr_uw, "bhr_dw": bhr_dw,
            "J0_up_toa": Jup0, "J0_dn_boa": Jdn0}

@@ -3,17 +3,20 @@
 * The flagship: a polarized IQUV Rayleigh column (33 layers) over a
   wind-roughened Cox-Munk ocean, with a parameterizable spectral width —
   the same profile and arguments as the JAX package's
-  ``__graft_entry__._flagship_model``.
+  ``__graft_entry__._flagship_model``; ``aerosol=True`` adds its log-normal
+  Mie aerosol (the Jacobian scene of ``scripts/bench_lin.py``).
 * The RRS+SIF scene of the JAX package's RRS bench
   (``scripts/bench_rrs.py:23-36``): an 8-layer Rayleigh column over a
   Lambertian floor with surface SIF, IQU, 0.6 cm^-1 spacing.
-* The small RRS scene of the stored JAX reference ``data/rrs_ref_f64.npz``,
-  which the CPU tests and the chip smoke test both build from here.
+* The small RRS scene of the stored JAX reference ``data/rrs_ref_f64.npz``
+  and the small aerosol Jacobian scene of ``data/lin_ref_f64.npz``, which
+  the CPU tests and the chip smoke test both build from here.
 """
 
 import numpy as np
 
-from .core.model import Parameters, SurfaceDescriptor, model_from_parameters
+from .core.model import (Parameters, RTAerosol, ScatteringParams,
+                         SurfaceDescriptor, model_from_parameters)
 from .scattering.stokes import STOKES_IQU, STOKES_IQUV
 
 # ocean_coxmunk profile: layer temperatures [K] and half-level pressures [hPa]
@@ -31,15 +34,27 @@ FLAGSHIP_NU0 = 19417.0          # first wavenumber [cm^-1], 0.05 cm^-1 steps
 
 
 def flagship_model(n_spec=256, dtype=np.float32, nstreams=8,
-                   surface="coxmunk", nz=None, fused=None):
+                   surface="coxmunk", nz=None, fused=None, aerosol=False):
     """RTModel of the flagship scene (``surface="lambertian"`` swaps the
     ocean for a 0.05-albedo Lambertian floor). ``fused`` overrides the
-    execution strategy (None = the band kernel for f32 on CUDA)."""
+    execution strategy (None = the band kernel for f32 on CUDA).
+    ``aerosol=True`` adds one log-normal Mie aerosol (tau_ref 0.15 at
+    700 hPa, r_mode 0.12 um, sigma_g 1.5, n = 1.4 - 0.003i, 300 radius
+    nodes, untruncated): 7 aerosol and 1 wind Jacobian parameters."""
     if surface == "coxmunk":
         surf = SurfaceDescriptor("CoxMunkSurface", [], {"wind_speed": 5.0})
     else:
         surf = SurfaceDescriptor("LambertianSurfaceScalar", [0.05])
+    scat = None
+    if aerosol:
+        scat = ScatteringParams(
+            rt_aerosols=[RTAerosol(tau_ref=0.15, p0=700.0, sigma_p=60.0,
+                                   mu_log=float(np.log(0.12)),
+                                   sigma_log=float(np.log(1.5)),
+                                   n_r=1.4, n_i=0.003)],
+            nquad_radius=300, r_max=10.0, lambda_ref=1e4 / FLAGSHIP_NU0)
     params = Parameters(
+        scattering_params=scat,
         spec_bands=[FLAGSHIP_NU0 + 0.05 * np.arange(n_spec)],
         surfaces=[surf],
         nstreams=nstreams,
@@ -100,3 +115,42 @@ def rrs_ref_model(n_spec=RRS_REF_N_SPEC, polarization=STOKES_IQU):
         polarization=polarization, **rrs_ref_params(n_spec)))
     model.bands[0].sif_spec = RRS_REF_SIF * np.ones(n_spec)
     return model
+
+
+def lin_ref_params(dtype=np.float32):
+    """``Parameters`` keywords of the small aerosol Jacobian scene, less
+    ``surfaces``, ``polarization`` and ``scattering_params``: the scene of
+    the JAX package's tests/test_linearization.py (3 layers, nstreams 4,
+    two points near 755 nm, sza 40) with delta-BGE truncation, so that its
+    Mie optics build in seconds (plain data: the JAX package's
+    ``Parameters`` takes them too)."""
+    nu0 = 1e7 / 755.0
+    return dict(spec_bands=[np.array([nu0, nu0 + 0.5])], nstreams=4,
+                sza=40.0, vza=[10.0, 45.0], vaz=[30.0, 150.0], obs_alt=0.0,
+                T=np.array([230.0, 260.0, 285.0]),
+                p=np.array([10.0, 400.0, 800.0, 1013.0]), depol=0.0,
+                truncation="deltaBGE", float_type=dtype)
+
+
+#: The aerosol of the small Jacobian scene (RTAerosol keywords) and its
+#: Mie quadrature: 60 radius nodes to r_max 10 um, k_ref at 755 nm.
+LIN_REF_AEROSOL = dict(tau_ref=0.15, p0=700.0, sigma_p=60.0,
+                       mu_log=float(np.log(0.12)),
+                       sigma_log=float(np.log(1.5)), n_r=1.4, n_i=0.003)
+LIN_REF_MIE = dict(nquad_radius=60, r_max=10.0, lambda_ref=0.755)
+
+
+def lin_ref_model(dtype=np.float32, surface="coxmunk"):
+    """RTModel of the small aerosol Jacobian scene: ``lin_ref_params`` with
+    one Mie aerosol, over a wind-6 Cox-Munk ocean (IQU; 7 aerosol + wind
+    parameters) or, with ``surface="lambertian"``, a 0.2-albedo floor."""
+    from .scattering.stokes import STOKES_IQU
+    if surface == "coxmunk":
+        surf = SurfaceDescriptor("CoxMunkSurface", [], {"wind_speed": 6.0})
+    else:
+        surf = SurfaceDescriptor("LambertianSurfaceScalar", [0.2])
+    return model_from_parameters(Parameters(
+        surfaces=[surf], polarization=STOKES_IQU,
+        scattering_params=ScatteringParams(
+            rt_aerosols=[RTAerosol(**LIN_REF_AEROSOL)], **LIN_REF_MIE),
+        **lin_ref_params(dtype)))

@@ -1,0 +1,286 @@
+"""Multitangent band path for Jacobian runs: one Fourier moment's composite
+plus the forward-mode tangents of that composite for P parameters.
+
+Counterpart of ``vsmartmom_tpu/ops/fused_lin.py``. The JAX package gets
+its tangent kernel from ``jax.linearize`` of the forward body traced inside
+the Pallas kernel; here the tangent algebra is written out by hand in
+``csrc/fused_lin.cu`` (kernel K2) and its plain version is forward-mode AD
+(``torch.func.jvp``) of ``fused_band.moment_body_reference`` on the same
+operands, so the two can never describe different derivatives:
+
+* ``multitangent_args`` builds one moment's ``BandOperands`` from the
+  differentiable inputs (Z, tau, scat_w, F0) through the band path's own
+  prep (``core.solver.moment_args``, ``fused_band.band_operands``) and
+  pushes P input tangents through it with ``torch.func.jvp``
+  (``operand_tangents``; the JAX package's ``jax.linearize`` of
+  ``band_operands``);
+* ``moment_multitangent_reference`` is the plain K2: the primal composite
+  and P tangent composites;
+* ``fused_moment_multitangent`` launches K2 on CUDA tensors (counted in
+  ``fused_moment_multitangent.launches``) and runs the plain version on CPU
+  tensors;
+* ``rt_solve_multitangent`` is the Jacobian solve around it: the moment
+  loop (one launch per moment up to ``m_scat`` for all P tangents, the
+  Beer-law shortcut above it) and the surface tail with its tangent.
+
+Left behind from the TPU kernel: the tangent chunks (padded to equal size
+for one Mosaic compile per shape) and the in-kernel dot-mode switch; K2 runs
+exact-f32 products and K = 1 (solar-only) scenes, as the JAX kernel does.
+"""
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from ..core.kernels import CompositeLayer, interaction
+from ..core.solver import _surface_layer, beer_moment, moment_args
+from ..core.types import SolverConfig, SolverInputs, resolve_device
+from .fused_band import BandOperands, band_operands, moment_body_reference
+from .fused_rt import norm_sched
+
+#: Largest stream count N the CUDA kernel takes: the primal and one tangent
+#: chain in lockstep hold twenty N x N f32 operators in shared memory
+#: (216 KB at N = 52, inside the 227 KB a block may opt in to).
+KERNEL_MAX_N = 52
+KERNEL_MAX_DOUBL = 32
+
+
+class TangentOperands(NamedTuple):
+    """Tangents of the differentiable ``BandOperands`` fields for P
+    parameters, each with a leading P axis (geom and d_vec are constants)."""
+    Z_pp: torch.Tensor     # (P, C, N, N)
+    Z_mp: torch.Tensor     # (P, C, N, N)
+    w_over: torch.Tensor   # (P, nz, C, s)
+    Em1: torch.Tensor      # (P, nz, s, N)
+    dtau: torch.Tensor     # (P, nz, s)
+    j0_p: torch.Tensor     # (P, nz, s, N, K)
+    jm_star: torch.Tensor  # (P, nz, s, N, K)
+    ek: torch.Tensor       # (P, nz, s, K)
+
+
+def operand_tangents(fn, primals, tangents) -> TangentOperands:
+    """Push P stacked input tangents (each with a leading P axis) through
+    ``fn`` (primals -> BandOperands) by forward-mode AD; the result is
+    contiguous, ready for the kernel."""
+    def one(*d):
+        out = torch.func.jvp(fn, primals, d)[1]
+        return tuple(getattr(out, f) for f in TangentOperands._fields)
+    return TangentOperands(*(x.contiguous()
+                             for x in torch.func.vmap(one)(*tangents)))
+
+
+def moment_multitangent_reference(ops: BandOperands, dops: TangentOperands,
+                                  ns_sched, ns_inter: int):
+    """The plain version of K2 on any device: (primal composite, tangent
+    composite), the primal (R_mp, R_pm, T_pp, T_mm, J0_p, J0_m) of
+    ``moment_body_reference`` and the same six with a leading P axis, its
+    forward-mode derivatives along each parameter's operand tangents."""
+    fields = TangentOperands._fields
+    primals = tuple(getattr(ops, f) for f in fields)
+
+    def body(*x):
+        return moment_body_reference(ops._replace(**dict(zip(fields, x))),
+                                     ns_sched, ns_inter)
+
+    def one(*d):
+        return torch.func.jvp(body, primals, d)[1]
+    return body(*primals), torch.func.vmap(one)(*dops)
+
+
+def _check_kernel_operands(ops: BandOperands, dops: TangentOperands,
+                           ns_sched):
+    s, N = ops.Em1.shape[1], ops.Em1.shape[2]
+    nz, C, K = ops.Em1.shape[0], ops.Z_pp.shape[0], ops.j0_p.shape[-1]
+    P = dops.Z_pp.shape[0]
+    want = {"Z_pp": (C, N, N), "Z_mp": (C, N, N), "geom": (4, N, N),
+            "d_vec": (N,), "w_over": (nz, C, s), "Em1": (nz, s, N),
+            "dtau": (nz, s), "j0_p": (nz, s, N, K), "jm_star": (nz, s, N, K),
+            "ek": (nz, s, K)}
+    tensors = [(name, getattr(ops, name), want[name]) for name in want]
+    tensors += [(f"d{name}", getattr(dops, name), (P,) + want[name])
+                for name in TangentOperands._fields]
+    if N > KERNEL_MAX_N or K != 1 or P < 1:
+        raise ValueError(f"the multitangent kernel takes N <= {KERNEL_MAX_N},"
+                         f" K = 1 and P >= 1, got N={N}, K={K}, P={P}")
+    if len(ns_sched) > KERNEL_MAX_DOUBL:
+        raise ValueError(f"the kernel takes at most {KERNEL_MAX_DOUBL} "
+                         f"doubling steps, got {len(ns_sched)}")
+    for name, x, _ in tensors:
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name}: the kernel takes float32, got "
+                             f"{x.dtype}")
+    for name, x, shape in tensors:
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(x.shape)} != {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, x, _ in tensors:
+        if x.device.type != "cuda" or x.device != ops.Em1.device:
+            raise ValueError(f"{name}: the kernel takes tensors on one CUDA "
+                             f"device, got {x.device}")
+
+
+def _launch_kernel(ops: BandOperands, dops: TangentOperands, ns_sched,
+                   ns_inter: int):
+    """One launch of csrc/fused_lin.cu on the current stream."""
+    _check_kernel_operands(ops, dops, ns_sched)
+    from .cuda_build import load
+    s, N = ops.Em1.shape[1], ops.Em1.shape[2]
+    nz, C, P = ops.Em1.shape[0], ops.Z_pp.shape[0], dops.Z_pp.shape[0]
+    lib = load("fused_lin")
+    fn = lib.vsm_fused_moment_mt_f32
+    fn.argtypes = [ctypes.c_void_p] * 30 + [ctypes.c_int] * 6 + \
+        [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.vsm_error_string.argtypes = [ctypes.c_int]
+    lib.vsm_error_string.restype = ctypes.c_char_p
+    dev = ops.Em1.device
+    f32 = torch.float32
+    mat = [torch.empty((s, N, N), dtype=f32, device=dev) for _ in range(4)]
+    vec = [torch.empty((s, N, 1), dtype=f32, device=dev) for _ in range(2)]
+    tmat = [torch.empty((P, s, N, N), dtype=f32, device=dev)
+            for _ in range(4)]
+    tvec = [torch.empty((P, s, N, 1), dtype=f32, device=dev)
+            for _ in range(2)]
+    sched = (ctypes.c_int * max(len(ns_sched), 1))(*ns_sched)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*(x.data_ptr() for x in ops), *(x.data_ptr() for x in dops),
+                *(x.data_ptr() for x in (*mat, *vec, *tmat, *tvec)),
+                s, N, C, nz, P, len(ns_sched), sched, int(ns_inter), stream)
+    if rc != 0:
+        raise RuntimeError("fused_lin kernel launch failed: "
+                           + lib.vsm_error_string(rc).decode())
+    return (*mat, *vec), (*tmat, *tvec)
+
+
+def fused_moment_multitangent(ops: BandOperands, dops: TangentOperands,
+                              ns_sched, ns_inter: int):
+    """One Fourier moment, the primal composite plus P tangent composites
+    (see ``moment_multitangent_reference``), in one launch.
+
+    CUDA tensors launch ``csrc/fused_lin.cu`` (counted in
+    ``fused_moment_multitangent.launches``), which replaces the TPU kernel
+    ``vsmartmom_tpu/ops/fused_lin.py::fused_moment_multitangent`` ->
+    ``_mt_kernel``. Its design is a grid over (point, tangent): each block
+    runs K1's layer loop for the primal and one tangent chain in lockstep in
+    shared memory, so the primal is recomputed once per tangent. CPU tensors
+    run the plain version."""
+    ns_sched = tuple(ns_sched)
+    if ops.Em1.device.type == "cpu":
+        return moment_multitangent_reference(ops, dops, ns_sched, ns_inter)
+    out = _launch_kernel(ops, dops, ns_sched, ns_inter)
+    fused_moment_multitangent.launches += 1
+    return out
+
+
+fused_moment_multitangent.launches = 0
+
+
+def _stack(tangents, field, dtype, dev, index=None):
+    return torch.stack([
+        torch.as_tensor(getattr(t, field) if index is None
+                        else getattr(t, field)[index]).to(device=dev,
+                                                          dtype=dtype)
+        for t in tangents])
+
+
+def _cast(inputs: SolverInputs, dtype, dev) -> SolverInputs:
+    return SolverInputs(*(torch.as_tensor(x).to(device=dev, dtype=dtype)
+                          for x in inputs))
+
+
+def multitangent_args(inputs: SolverInputs, tangents, config: SolverConfig,
+                      m: int, device=None):
+    """(ops, dops, ns_sched, ns_inter): the arguments of
+    ``fused_moment_multitangent`` for moment ``m`` of a K = 1 band and the
+    given list of SolverInputs-shaped tangents, in ``config.dtype``."""
+    dev = resolve_device(device)
+    dtype = config.torch_dtype
+    inp = _cast(inputs, dtype, dev)
+
+    def prep(Zp, Zm, tau, scat_w, F0):
+        args, kw = moment_args(Zp, Zm, tau, scat_w, F0, inp.thermal_b,
+                               inp.qp_mu_N, inp.wt_mu_N, config, m)
+        del kw["ns_sched"], kw["ns_inter"]
+        return band_operands(*args, **kw)
+    primals = (inp.Z_pp[m], inp.Z_mp[m], inp.tau, inp.scat_w, inp.F0)
+    d_in = tuple(_stack(tangents, f, dtype, dev, i) for f, i in (
+        ("Z_pp", m), ("Z_mp", m), ("tau", None), ("scat_w", None),
+        ("F0", None)))
+    return (prep(*primals), operand_tangents(prep, primals, d_in),
+            norm_sched(config.ns_sched or None, config.ndoubl),
+            config.ns_inter)
+
+
+def rt_solve_multitangent(inputs: SolverInputs, tangents, config: SolverConfig,
+                          device=None):
+    """Forward solve plus P parameter tangents through the multitangent
+    band path (K = 1 configurations). ``tangents`` is a list of P
+    ``SolverInputs``-shaped tangents. Each Fourier moment up to ``m_scat``
+    is one launch for all P tangents; the moments above it take
+    ``rt_solve``'s Beer-law shortcut and its jvp. Returns (R, T, dR, dT)
+    tensors: R/T (nVZA, ns, s), dR/dT (P, nVZA, ns, s)."""
+    if config.n_sources != 1:
+        raise NotImplementedError("the multitangent path is solar-only "
+                                  "(K = 1)")
+    dev = resolve_device(device)
+    dtype = config.torch_dtype
+    inp = _cast(inputs, dtype, dev)
+    P, n_spec, ns = len(tangents), config.n_spec, config.n_stokes
+    n_m = config.m_max + 1
+    n_full = n_m if config.m_scat < 0 else min(config.m_scat + 1, n_m)
+    mu0 = inp.qp_mu_N[config.i_mu0_start]
+    vza_rows = torch.as_tensor(
+        [[v * ns + k for k in range(ns)] for v in config.vza_idx],
+        device=dev)
+
+    def stack(field, m=None):
+        return _stack(tangents, field, dtype, dev, m)
+
+    def weigh(J, m):
+        return J[:, vza_rows].permute(1, 2, 0) * inp.vza_w[m][:, :, None]
+
+    def tail(R_mp, R_pm, T_pp, T_mm, J0_p, J0_m, surf_r_m, surf_j_m,
+             surf_spec, F0, tau, sif, m):
+        surf = _surface_layer(surf_r_m, surf_j_m, inp.surf_direct_m[m],
+                              surf_spec, F0, tau.sum(dim=0), mu0, sif,
+                              m == 0, config)
+        out = interaction(CompositeLayer(R_mp, R_pm, T_pp, T_mm, J0_p,
+                                         J0_m), surf)
+        return weigh(out.J0_m.sum(dim=-1), m), weigh(out.J0_p.sum(dim=-1), m)
+
+    def beer(surf_j_m, surf_spec, F0, tau, m):
+        _, Jtoa, j0p = beer_moment(torch.cumsum(tau, dim=0)[-1], F0,
+                                   surf_spec, surf_j_m, inp.surf_direct_m[m],
+                                   inp.qp_mu_N, config)
+        return weigh(Jtoa, m), weigh(j0p, m)
+
+    d_tau, d_F0 = stack("tau"), stack("F0")
+    d_spec, d_sif = stack("surf_spec"), stack("sif_spec")
+    R = torch.zeros((len(config.vza_idx), ns, n_spec), dtype=dtype,
+                    device=dev)
+    T = torch.zeros_like(R)
+    dR = torch.zeros((P,) + R.shape, dtype=dtype, device=dev)
+    dT = torch.zeros_like(dR)
+    for m in range(n_m):
+        d_surf_j = stack("surf_j_m", m)
+        if m < n_full:
+            fn = functools.partial(tail, m=m)
+            comp, dcomp = fused_moment_multitangent(*multitangent_args(
+                inp, tangents, config, m, dev))
+            primals = (*comp, inp.surf_r[m], inp.surf_j_m[m], inp.surf_spec,
+                       inp.F0, inp.tau, inp.sif_spec)
+            d_in = (*dcomp, stack("surf_r", m), d_surf_j, d_spec, d_F0,
+                    d_tau, d_sif)
+        else:
+            fn = functools.partial(beer, m=m)
+            primals = (inp.surf_j_m[m], inp.surf_spec, inp.F0, inp.tau)
+            d_in = (d_surf_j, d_spec, d_F0, d_tau)
+        Rm, Tm = fn(*primals)
+        dRm, dTm = torch.func.vmap(lambda *d: torch.func.jvp(
+            fn, primals, d)[1])(*d_in)
+        R, T, dR, dT = R + Rm, T + Tm, dR + dRm, dT + dTm
+    return R, T, dR, dT

@@ -15,24 +15,28 @@ the angle axis, plain Python loops over (l, m).
 import numpy as np
 
 
-def compute_associated_legendre_PRT(mu, l_max: int):
+def compute_associated_legendre_PRT(mu, l_max: int, n_orders=None):
     """Normalized P_l^m, R_l^m, T_l^m on angle cosines ``mu``.
 
-    Returns three arrays of shape (len(mu), l_max, l_max) indexed
-    ``[i_mu, l, m]`` (0-based degrees/orders, entries for l < m are zero).
-    The third return is the "true" T (the recursion computes -T internally,
-    mirroring legendre_functions.jl:183-184).
+    Returns three arrays of shape (len(mu), l_max, n_orders) indexed
+    ``[i_mu, l, m]`` (0-based degrees/orders, entries for l < m are zero);
+    ``n_orders`` (default l_max) keeps the orders m < n_orders only. Each
+    order's recursion runs over l alone, so the kept entries do not depend
+    on ``n_orders``, nor an entry of degree l on ``l_max``. The third return
+    is the "true" T (the recursion computes -T internally, mirroring
+    legendre_functions.jl:183-184).
     """
     mu = np.asarray(mu, dtype=np.float64)
     nmu = len(mu)
-    P = np.zeros((nmu, l_max, l_max))
-    R = np.zeros((nmu, l_max, l_max))
-    T = np.zeros((nmu, l_max, l_max))
+    n_orders = l_max if n_orders is None else min(int(n_orders), l_max)
+    P = np.zeros((nmu, l_max, n_orders))
+    R = np.zeros((nmu, l_max, n_orders))
+    T = np.zeros((nmu, l_max, n_orders))
 
     smu = np.sqrt(1.0 - mu ** 2)
     cmu = mu
 
-    for m in range(l_max):
+    for m in range(n_orders):
         for l in range(m, l_max):
             if m == 0:
                 if l == 0:
@@ -155,3 +159,20 @@ def compute_legendre_poly(x, nmax: int):
             R2[:, k] = (ia * R2[:, k - 1] - ib * R2[:, k - 2] - ic * T2[:, k - 1]) / idd
             T2[:, k] = (ia * T2[:, k - 1] - ib * T2[:, k - 2] - ic * R2[:, k - 1]) / idd
     return P0, P2, R2, T2
+
+
+def compute_mie_pi_tau(mu, nmax: int):
+    """Mie angular functions pi_n, tau_n (legendre_functions.jl:195-214)."""
+    mu = np.asarray(mu, dtype=np.float64)
+    n_ang = len(mu)
+    pi_ = np.zeros((n_ang, nmax))
+    tau_ = np.zeros((n_ang, nmax))
+    pi_[:, 0] = 1.0
+    pi_[:, 1] = 3.0 * mu
+    tau_[:, 0] = mu
+    tau_[:, 1] = 6.0 * mu ** 2 - 3.0
+    for n in range(2, nmax):
+        pi_[:, n] = ((2 * n + 1) * mu * pi_[:, n - 1]
+                     - (n + 1) * pi_[:, n - 2]) / n
+        tau_[:, n] = (n + 1) * mu * pi_[:, n] - (n + 2) * pi_[:, n - 1]
+    return pi_, tau_

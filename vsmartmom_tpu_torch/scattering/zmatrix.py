@@ -9,6 +9,11 @@ Host-side float64 NumPy, vectorized with einsum over (degree, angle) axes
 instead of the reference's per-(l, i, j) loops. Output: two dense
 (N, N) supermatrices with N = n_mu * n_stokes, ready to upload per
 Fourier moment. Single-scattering albedo and tau are NOT folded in here.
+
+The generalized spherical functions cost O(l_max^2) Python steps, which
+dominates at a Mie aerosol's l_max of a few hundred; ``legendre_tables``
+computes them once for every moment and component of a build, and
+``compute_Z_moments`` reads them.
 """
 
 import numpy as np
@@ -63,12 +68,23 @@ def _b_tensor(pol: Polarization, greek: GreekCoefs):
     return B
 
 
-def compute_Z_moments(pol: Polarization, mu, greek: GreekCoefs, m: int):
+def legendre_tables(mu, l_max: int, n_orders: int):
+    """P, R, T at ``mu`` and at ``-mu`` for degrees < l_max and orders
+    < n_orders: what ``compute_Z_moments`` reads for any Greek expansion of
+    at most l_max terms and any moment m < n_orders."""
+    mu = np.asarray(mu, dtype=np.float64)
+    return (compute_associated_legendre_PRT(mu, l_max, n_orders)
+            + compute_associated_legendre_PRT(-mu, l_max, n_orders))
+
+
+def compute_Z_moments(pol: Polarization, mu, greek: GreekCoefs, m: int,
+                      tables):
     """Z++ and Z-+ Fourier-moment supermatrices for azimuth mode ``m``.
 
     ``mu`` must lie in (0, 1]; both matrices have shape
     (n_mu * n_stokes, n_mu * n_stokes), Stokes index fastest (matching the
-    reference supermatrix layout with qp_mu_N blocks).
+    reference supermatrix layout with qp_mu_N blocks). ``tables`` is a
+    ``legendre_tables(mu, L, n)`` result with L >= greek.l_max and n > m.
     """
     mu = np.asarray(mu, dtype=np.float64)
     if not np.all((mu > 0) & (mu <= 1)):
@@ -79,8 +95,10 @@ def compute_Z_moments(pol: Polarization, mu, greek: GreekCoefs, m: int):
         return np.zeros((n, n)), np.zeros((n, n))
 
     fact = 0.5 if m == 0 else 1.0
-    P, R, T = compute_associated_legendre_PRT(mu, l_max)
-    Pm, Rm, Tm = compute_associated_legendre_PRT(-mu, l_max)
+    if tables[0].shape[1] < l_max or tables[0].shape[2] <= m:
+        raise ValueError(f"Legendre tables of shape {tables[0].shape} do "
+                         f"not cover l_max={l_max}, m={m}")
+    P, R, T, Pm, Rm, Tm = (x[:, :l_max] for x in tables)
 
     Pi = _pi_tensor(pol, P, R, T, m)       # (nmu, ndeg, ns, ns)
     Pi_neg = _pi_tensor(pol, Pm, Rm, Tm, m)

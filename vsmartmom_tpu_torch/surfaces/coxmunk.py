@@ -14,7 +14,9 @@ Behavioral reference: vSmartMOM.jl src/CoreRT/Surfaces/coxmunk_surface.jl
 Everything here is host-side float64 NumPy, vectorized over the full
 (mu_out, mu_in, phi) geometry grid — the reference's triple scalar loop is
 replaced by broadcast arrays, and the expensive Mueller grid is built once
-and reused for every Fourier moment.
+and reused for every Fourier moment. The wind-speed Jacobian rides the same
+einsums: ``cox_munk_mueller_wind_tangent`` differentiates the Mueller grid
+analytically through sigma^2 and the whitecap fraction.
 """
 
 from dataclasses import dataclass
@@ -95,6 +97,11 @@ def whitecap_fraction(U: float) -> float:
     return 0.0 if U <= 0 else 2.95e-6 * U ** 3.52
 
 
+def whitecap_fraction_dU(U: float) -> float:
+    """d f_wc / d wind_speed (Monahan 1980 power law)."""
+    return 0.0 if U <= 0 else 3.52 * 2.95e-6 * U ** 2.52
+
+
 def _smith_lambda(mu, sigma2):
     """Smith (1967) monostatic shadowing integral Lambda(mu), vectorized."""
     mu = np.asarray(mu, dtype=np.float64)
@@ -104,6 +111,30 @@ def _smith_lambda(mu, sigma2):
     lam = (np.exp(-nu ** 2) / (np.sqrt(2 * np.pi) * nu) - erfc(nu)) / 2.0
     lam = np.maximum(0.0, lam)
     return np.where(mu <= 0, 1e10, lam)
+
+
+def _smith_lambda_dsigma2(mu, sigma2):
+    """d Lambda / d sigma^2 (analytic; reference coxmunk_surface.jl carries
+    the sigma^2 chain for its wind Jacobian, coxmunk_surface.jl:61-101).
+
+    Lambda(nu) = (exp(-nu^2)/(sqrt(2 pi) nu) - erfc(nu)) / 2 with
+    nu = cot(theta)/(sqrt(2) sigma):
+      dLambda/dnu = [-exp(-nu^2)(2 nu^2 + 1)/(sqrt(2 pi) nu^2)
+                     + (2/sqrt(pi)) exp(-nu^2)] / 2
+      dnu/dsigma2 = -nu / (2 sigma^2).
+    Zero where Lambda is clipped (mu <= 0 sentinel, or the lam < 0 clip
+    region where nu is huge and the derivative underflows anyway)."""
+    mu = np.asarray(mu, dtype=np.float64)
+    sin2 = np.maximum(1e-30, 1.0 - mu ** 2)
+    cot = mu / np.sqrt(sin2)
+    nu = cot / (np.sqrt(2.0) * np.sqrt(sigma2))
+    safe_nu = np.where(np.abs(nu) > 1e-30, nu, 1.0)
+    e = np.exp(-nu ** 2)
+    dlam_dnu = (-e * (2 * nu ** 2 + 1) / (np.sqrt(2 * np.pi) * safe_nu ** 2)
+                + (2.0 / np.sqrt(np.pi)) * e) / 2.0
+    dnu_ds2 = -nu / (2.0 * sigma2)
+    lam_raw = (e / (np.sqrt(2 * np.pi) * safe_nu) - erfc(nu)) / 2.0
+    return np.where((mu <= 0) | (lam_raw <= 0), 0.0, dlam_dnu * dnu_ds2)
 
 
 def fresnel_coefficients(n_rel: complex, cos_ti):
@@ -253,6 +284,61 @@ def cox_munk_mueller(surf: CoxMunkSurface, ns: int, mu_a, mu_b, dphi,
     return glint
 
 
+def cox_munk_mueller_wind_tangent(surf: CoxMunkSurface, ns: int, mu_a, mu_b,
+                                  dphi, n_water: Optional[complex] = None):
+    """(M, dM/dU): BRDF Mueller matrix and its analytic wind derivative.
+
+    The facet geometry (cos_beta, local incidence, Stokes rotations,
+    Fresnel Mueller) is wind-INDEPENDENT; wind enters only through the
+    slope variance sigma^2 = 0.003 + 0.00512 U (slope pdf P and Smith
+    shadowing) and the whitecap fraction. So
+
+      d glint/dU = glint * [ (zx^2+zy^2)/(2 s2^2) - 1/s2
+                             - (dLam_a + dLam_b)/(1 + Lam_a + Lam_b) ]
+                   * 0.00512
+      dM/dU = (1 - f_wc) d glint/dU + f_wc'(U) (wc - glint).
+
+    Mirrors the reference's analytic sigma^2 chain
+    (coxmunk_surface.jl:61-101)."""
+    if n_water is None:
+        n_water = surf.get_n_water()
+    s2 = surf.sigma2()
+    mu_a, mu_b, dphi = np.broadcast_arrays(
+        np.asarray(mu_a, dtype=np.float64), np.asarray(mu_b, dtype=np.float64),
+        np.asarray(dphi, dtype=np.float64))
+
+    cos_beta, cos_tl, zx, zy, a1, a2 = _geometry(mu_a, mu_b, dphi)
+
+    P = np.exp(-(zx ** 2 + zy ** 2) / (2 * s2)) / (2 * np.pi * s2)
+    r_s, r_p = fresnel_coefficients(n_water, cos_tl)
+    M_F = fresnel_mueller(r_s, r_p, ns)
+    L1 = stokes_rotation(-a1, ns)
+    L2 = stokes_rotation(a2, ns)
+    M_facet = L2 @ M_F @ L1
+
+    pref = P / (4.0 * mu_a * mu_b * cos_beta ** 4)
+    dlog_ds2 = (zx ** 2 + zy ** 2) / (2.0 * s2 ** 2) - 1.0 / s2
+    if surf.shadowing:
+        lam_sum = _smith_lambda(mu_a, s2) + _smith_lambda(mu_b, s2)
+        pref = pref / (1.0 + lam_sum)
+        dlam_ds2 = (_smith_lambda_dsigma2(mu_a, s2)
+                    + _smith_lambda_dsigma2(mu_b, s2))
+        dlog_ds2 = dlog_ds2 - dlam_ds2 / (1.0 + lam_sum)
+    glint = pref[..., None, None] * M_facet
+    dglint_dU = 0.00512 * dlog_ds2[..., None, None] * glint
+
+    if surf.include_whitecaps:
+        U = surf.wind_speed
+        f_wc = whitecap_fraction(U)
+        df_dU = whitecap_fraction_dU(U)
+        wc = np.zeros((ns, ns))
+        wc[0, 0] = surf.whitecap_albedo / np.pi
+        M = (1.0 - f_wc) * glint + f_wc * wc
+        dM = (1.0 - f_wc) * dglint_dU + df_dU * (wc - glint)
+        return M, dM
+    return glint, dglint_dU
+
+
 N_QUAD_PHI = 100
 
 
@@ -279,47 +365,69 @@ def coxmunk_reflectance_fourier(M_grid, phi, w, ns: int, m: int):
 
 
 def coxmunk_surface_operator_arrays(surf: CoxMunkSurface, quad, ns: int,
-                                    n_m: int,
+                                    n_m: int, wind_tangent: bool = False,
                                     n_water: Optional[complex] = None):
-    """(surf_r, surf_j): the solver's per-moment surface operators (incl.
-    the m = 0 factor 2 and the diag(mu*w) quadrature factor; see
-    model._surface_arrays). The analytic wind tangent of the JAX package
-    waits for the Jacobian slice of the port."""
+    """(surf_r, surf_j[, d_surf_r, d_surf_j]): the solver's per-moment
+    surface operators (incl. the m = 0 factor 2 and diag(mu*w) quadrature
+    factor; see model._surface_arrays) and, when requested, their ANALYTIC
+    wind-speed tangents — the Fourier projection is linear in the Mueller
+    grid, so the tangent rides the same einsum."""
     phi, w = gauleg(N_QUAD_PHI, 0.0, np.pi)
     mu = np.asarray(quad.qp_mu, dtype=np.float64)
-    M_grid = cox_munk_mueller(surf, ns, mu[:, None, None], mu[None, :, None],
-                              phi[None, None, :], n_water=n_water)
+    args = (mu[:, None, None], mu[None, :, None], phi[None, None, :])
+    if wind_tangent:
+        M_grid, dM_grid = cox_munk_mueller_wind_tangent(
+            surf, ns, *args, n_water=n_water)
+    else:
+        M_grid = cox_munk_mueller(surf, ns, *args, n_water=n_water)
     N = quad.Nquad * ns
     sl = slice(quad.i_mu0_start, quad.i_mu0_start + ns)
     qw = quad.qp_mu_N * quad.wt_mu_N
-    surf_r = np.zeros((n_m, N, N))
-    surf_j = np.zeros((n_m, N, ns))
-    for m in range(n_m):
-        R_raw = coxmunk_reflectance_fourier(M_grid, phi, w, ns, m)
-        if m == 0:
-            R_raw = 2.0 * R_raw
-        surf_r[m] = R_raw * qw[None, :]
-        surf_j[m] = quad.mu0 * R_raw[:, sl]
-    return surf_r, surf_j
+    grids = (M_grid, dM_grid) if wind_tangent else (M_grid,)
+    outs = []
+    for G in grids:
+        surf_r = np.zeros((n_m, N, N))
+        surf_j = np.zeros((n_m, N, ns))
+        for m in range(n_m):
+            R_raw = coxmunk_reflectance_fourier(G, phi, w, ns, m)
+            if m == 0:
+                R_raw = 2.0 * R_raw
+            surf_r[m] = R_raw * qw[None, :]
+            surf_j[m] = quad.mu0 * R_raw[:, sl]
+        outs += [surf_r, surf_j]
+    return tuple(outs)
 
 
 def tms_correction(surf: CoxMunkSurface, ns: int, vza_deg, vaz_deg, mu0,
                    tau_total, m_max: int,
-                   n_water: Optional[complex] = None):
+                   n_water: Optional[complex] = None,
+                   wind_tangent: bool = False):
     """TMS single-scatter correction of the truncated specular hotspot
-    (coxmunk_surface.jl:509-569). Returns (nVZA, ns, nSpec) to ADD to R_SFI."""
+    (coxmunk_surface.jl:509-569). Returns (nVZA, ns, nSpec) to ADD to R_SFI;
+    with ``wind_tangent`` also its analytic d/d(wind_speed) (the whole
+    correction is linear in the Mueller grid)."""
     if n_water is None:
         n_water = surf.get_n_water()
     phi_q, w_q = gauleg(N_QUAD_PHI, 0.0, np.pi)
     tau_total = np.atleast_1d(np.asarray(tau_total, dtype=np.float64))
     out = np.zeros((len(vza_deg), ns, len(tau_total)))
+    dout = np.zeros_like(out)
+
+    def mueller(mu_v, mu_i, ph):
+        if wind_tangent:
+            return cox_munk_mueller_wind_tangent(surf, ns, mu_v, mu_i, ph,
+                                                 n_water=n_water)
+        return cox_munk_mueller(surf, ns, mu_v, mu_i, ph,
+                                n_water=n_water), None
+
     for iv, (vza, vaz) in enumerate(zip(vza_deg, vaz_deg)):
         mu_v = np.cos(np.deg2rad(vza))
         dphi = np.deg2rad(vaz)
-        M_exact = cox_munk_mueller(surf, ns, mu_v, mu0, dphi, n_water=n_water)
+        M_exact, dM_exact = mueller(mu_v, mu0, dphi)
         # Fourier reconstruction at this geometry from the same quadrature
-        M_q = cox_munk_mueller(surf, ns, mu_v, mu0, phi_q, n_water=n_water)
+        M_q, dM_q = mueller(mu_v, mu0, phi_q)
         M_fourier = np.zeros((ns, ns))
+        dM_fourier = np.zeros((ns, ns))
         for m in range(m_max + 1):
             ff = 1.0 if m == 0 else 2.0
             wm = 0.5 if m == 0 else 1.0
@@ -327,6 +435,14 @@ def tms_correction(surf: CoxMunkSurface, ns: int, vza_deg, vaz_deg, mu0,
             az_here = _azimuthal_kernels(ns, m, np.array([dphi]))[0]
             coeff = (ff / np.pi) * np.einsum("p,pst,pst->st", w_q, M_q, az_q)
             M_fourier += wm * az_here * coeff
+            if wind_tangent:
+                dcoeff = (ff / np.pi) * np.einsum("p,pst,pst->st",
+                                                  w_q, dM_q, az_q)
+                dM_fourier += wm * az_here * dcoeff
         atten = mu0 * np.exp(-tau_total / mu0)              # (nSpec,)
         out[iv] = np.outer(M_exact[:, 0] - M_fourier[:, 0], atten)
+        if wind_tangent:
+            dout[iv] = np.outer(dM_exact[:, 0] - dM_fourier[:, 0], atten)
+    if wind_tangent:
+        return out, dout
     return out
