@@ -1,10 +1,13 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Three main paths
+Run from the root of a checkout: ``python3 chip_smoke.py``. Five paths
 are driven: the flagship forward ``rt_run`` (band kernel K1), the
 rotational-Raman forward ``rt_run_inelastic`` (K1 for the elastic half, the
-block-bichromatic RRS kernel K3 for the inelastic one) and the aerosol
-Jacobian run ``rt_run_lin`` (the multitangent kernel K2). Phases, each of
+block-bichromatic RRS kernel K3 for the inelastic one), the aerosol
+Jacobian run ``rt_run_lin`` (the multitangent kernel K2), the multisensor
+forward ``rt_run_ms`` (the per-layer doubling kernel K5, one launch per
+moment for all layers) and the flagship chain of per-layer steps of
+``scripts/probe_fused2.py`` (the layer-step kernel K4). Phases, each of
 which fails the run (non-zero exit) on a miss:
 
 1. setup — the card's name and power limit; every CUDA kernel of the port
@@ -58,6 +61,26 @@ which fails the run (non-zero exit) on a miss:
    at the least work (the primal once, two products per tangent product),
    with the kernel's own count (the primal again per tangent) beside it.
 
+5. multisensor (``ms_phase``) — K5 against ``doubling_reference`` on the
+   flagship's stash of one moment (33 layers x nSpec 1024 points, moment 0
+   and moment 15, where Z = 0 and r must stay exactly zero), <= 1e-4 per
+   output; ``rt_run_ms`` of the flagship (nSpec 1024, levels 0, 16, 33)
+   and of the MS bench scene (``rrs_sif_model`` at nSpec 256, levels 0, 4,
+   8; scripts/bench_ms.py), each counted: K5 launched m_max + 1 times and
+   no other kernel; per level the kernel route against the plain (LU) route
+   <= 1e-4 of max, and level 0 against the band path's rt_solve R and T
+   <= 1e-4; ``ms_pts_per_s`` (best of 3 after a warm-up, synchronised), a
+   device-time split of one more solve (CUDA events around the stash, K5,
+   the interactions and the interface solves), and K5's time per launch
+   against its plain version and its bound;
+6. layer chain (``layer_chain_phase``) — the flagship's elemental operators
+   of moments 0..m_scat at nSpec 1024 chained through K4 over all 33
+   layers from the vacuum composite, counted (3 x 33 launches), against the
+   plain chain <= 1e-4 per output and against K1's composite of the same
+   moment <= 1e-4 of max per output; the chain's time beside K1's for the
+   same moments, and K4's time per launch against its plain version and
+   its bound.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel. Without CUDA it exits non-zero and prints no result.
 """
@@ -88,6 +111,10 @@ N_CHUNK, N_CHUNKS = 1024, 4
 N_SPEC_TOTAL = N_CHUNK * N_CHUNKS
 RRS_N_SPEC = 256
 LIN_N_SPEC, LIN_SLICE = 1024, 64
+#: Multisensor scenes: the flagship at nSpec 1024 with an airborne sensor
+#: mid-column, and the JAX package's MS bench scene (scripts/bench_ms.py).
+MS_N_SPEC, MS_LEVELS = 1024, (0, 16, 33)
+MS_RRS_N_SPEC, MS_RRS_LEVELS = 256, (0, 4, 8)
 
 
 def fail(msg):
@@ -168,6 +195,320 @@ def mt_errors(outs, refs):
     e_abs = max(float((a - b).abs().max()) for o, r in zip(outs, refs)
                 for a, b in zip((*o[0], *o[1]), (*r[0], *r[1])))
     return e_prim, e_tan, e_abs
+
+
+def layer_flops(N, K, ns_sched, ns_inter=None):
+    """FP32 operations per point of one doubling ladder (K5) or, with
+    ``ns_inter``, one whole layer step (K4): per ladder step with k NS
+    iterations (2k + 5) N x N products and 4 K vector columns, per adding
+    step (2 ns_inter + 11) N x N products and 4 K columns; 2 N^2 per
+    product column."""
+    cols = sum((2 * k + 5) * N + 4 * K for k in ns_sched)
+    if ns_inter is not None:
+        cols += (2 * ns_inter + 11) * N + 4 * K
+    return 2.0 * N * N * cols
+
+
+def nbytes(*tensors):
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+class DeviceSplit:
+    """Device time of chosen functions inside one solve: each wrapped call
+    is bracketed by CUDA events (nested calls count in both)."""
+
+    def __init__(self):
+        self.spans = {}
+
+    def wrap(self, name, fn):
+        def timed(*args, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kw)
+            e1.record()
+            self.spans.setdefault(name, []).append((e0, e1))
+            return out
+        return timed
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return {k: sum(a.elapsed_time(b) for a, b in v)
+                for k, v in self.spans.items()}
+
+
+def best_of_3(fn):
+    """Host seconds of fn() (synchronised): (best of 3 after a warm-up,
+    all four)."""
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return min(times[1:]), times
+
+
+def launch_counted():
+    """Every kernel wrapper of the port by name; each carries its launch
+    count in ``.launches``."""
+    from vsmartmom_tpu_torch.ops import fused_band, fused_lin, fused_rrs, \
+        fused_rt
+    return {"fused_moment": fused_band.fused_moment,
+            "fused_moment_rrs": fused_rrs.fused_moment_rrs,
+            "fused_moment_multitangent": fused_lin.fused_moment_multitangent,
+            "fused_doubling": fused_rt.fused_doubling,
+            "fused_layer_step": fused_rt.fused_layer_step}
+
+
+def ms_phase(dev, smi):
+    """The multisensor path: K5 against its plain version at the flagship's
+    stash shape, ``rt_run_ms`` of the flagship (nSpec 1024, levels 0, 16,
+    33) and of the MS bench scene (nSpec 256, levels 0, 4, 8) with every
+    launch counter set to 0 just before and read just after, the kernel
+    route against the plain (LU) route per level and level 0 against the
+    band path's rt_solve, then timing. Returns K5's kernels-line entry."""
+    from vsmartmom_tpu_torch import flagship_model, rrs_sif_model, rt_run_ms
+    from vsmartmom_tpu_torch.core import multisensor, solver
+    from vsmartmom_tpu_torch.core.types import SolverInputs
+    from vsmartmom_tpu_torch.ops import fused_rt
+    counted = launch_counted()
+
+    scenes = {"flagship": (flagship_model(n_spec=MS_N_SPEC), MS_LEVELS),
+              "rrs_sif": (rrs_sif_model(n_spec=MS_RRS_N_SPEC),
+                          MS_RRS_LEVELS)}
+    built = {k: m.build_band(0, device=dev) for k, (m, _) in scenes.items()}
+    inputs, config = built["flagship"]
+    if not config.fused:
+        fail("the flagship f32 model on CUDA did not pick the kernel route")
+    sched = fused_rt.norm_sched(config.ns_sched or None, config.ndoubl)
+    inp = SolverInputs(*(x.to(torch.float32) for x in inputs))
+
+    # K5 against its plain version: moment 0 and moment m_max (Z = 0 above
+    # m_scat: r must stay exactly zero), nz x nSpec points each.
+    k5_abs_err, k5_ops = 0.0, None
+    for m in (0, config.m_max):
+        layer_data, kw = multisensor.layer_batch_args(inp, config, m)
+        d = kw.pop("d_vec")[:, None]
+        r_mp, t_pp, jp, jm, expk = solver.layer_batch(layer_data, **kw)
+        ops = (r_mp * d, t_pp, jp, jm * d, expk)
+        out = fused_rt.fused_doubling(*ops, config.ndoubl, ns_sched=sched)
+        torch.cuda.synchronize()
+        ref = fused_rt.doubling_reference(*ops, config.ndoubl, sched)
+        errs = {n: rel(a, b) for n, a, b in zip(("r", "t", "jp", "jm"),
+                                                out, ref)}
+        k5_abs_err = max([k5_abs_err] + [float((a - b).abs().max())
+                                         for a, b in zip(out, ref)])
+        print(f"K5 vs plain m={m} ({r_mp.shape[0]} points): " + " ".join(
+            f"{n}={e:.2e}" for n, e in errs.items()), flush=True)
+        if not all(np.isfinite(e) and e <= GATE for e in errs.values()):
+            fail(f"fused_doubling vs doubling_reference at m={m}: {errs}")
+        if m > config.m_scat and not bool((out[0] == 0).all()):
+            fail(f"K5 gave a non-zero reflection for Z = 0 at m={m}")
+        if m == 0:
+            k5_ops = ops
+        del out, ref
+
+    result = {}
+    for name, (model, levels) in scenes.items():
+        inputs, config = built[name]
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        uwJ, dwJ = rt_run_ms(model, levels, device=dev)
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counted.items()}
+        want = {k: 0 for k in counted}
+        want["fused_doubling"] = config.m_max + 1
+        print(f"main path: rt_run_ms {name} nSpec={config.n_spec} levels "
+              f"{levels}, launches {launches} (want {want}), {e2e_s:.1f} s",
+              flush=True)
+        if launches != want:
+            fail(f"rt_run_ms {name} launches {launches}, want {want}")
+        shape = (len(levels), len(config.vza_idx), config.n_stokes,
+                 config.n_spec)
+        if uwJ.shape != shape or not (np.isfinite(uwJ).all()
+                                      and np.isfinite(dwJ).all()):
+            fail(f"rt_run_ms {name}: not finite or shape {uwJ.shape}")
+        plain = multisensor.rt_solve_ms(
+            inputs, dataclasses.replace(config, fused=False), levels, dev)
+        e_route = {f"{k}[{L}]": rel(v[i], plain[k][i].cpu())
+                   for k, v in (("uwJ", uwJ), ("dwJ", dwJ))
+                   for i, L in enumerate(levels)}
+        band = solver.rt_solve(inputs, config, dev)
+        e_band = {"uwJ[0]-R": rel(uwJ[0], band["R"].cpu()),
+                  "dwJ[0]-T": rel(dwJ[0], band["T"].cpu())}
+        print(f"MS {name}: kernel route vs plain route " + " ".join(
+            f"{k}={e:.2e}" for k, e in e_route.items()) + "; level 0 vs "
+            "band rt_solve " + " ".join(f"{k}={e:.2e}"
+                                        for k, e in e_band.items()),
+            flush=True)
+        if not all(e <= GATE for e in (*e_route.values(),
+                                       *e_band.values())):
+            fail(f"MS {name} gates: {e_route} {e_band}")
+
+        solve_s, times = best_of_3(lambda: multisensor.rt_solve_ms(
+            inputs, config, levels, dev))
+        split = DeviceSplit()
+        patched = [(solver, "fused_doubling"),
+                   (multisensor, "_make_added_layer"),
+                   (multisensor, "interaction"),
+                   (multisensor, "interlayer_flux")]
+        saved = [getattr(mod, attr) for mod, attr in patched]
+        for mod, attr in patched:
+            setattr(mod, attr, split.wrap(attr, getattr(mod, attr)))
+        try:
+            t0 = time.perf_counter()
+            multisensor.rt_solve_ms(inputs, config, levels, dev)
+            split_ms = split.ms()
+            split_ms["solve"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            for (mod, attr), fn in zip(patched, saved):
+                setattr(mod, attr, fn)
+        result[name] = {
+            "ms_pts_per_s": config.n_spec / solve_s, "ms_solve_s": solve_s,
+            "ms_solve_all_s": times, "rt_run_ms_e2e_s": e2e_s,
+            "n_spec": config.n_spec, "levels": levels, "launches": launches,
+            "device_split_ms": {
+                "stash (elemental + K5)": split_ms["_make_added_layer"],
+                "K5": split_ms["fused_doubling"],
+                "interactions": split_ms["interaction"],
+                "interlayer_flux": split_ms.get("interlayer_flux", 0.0),
+                "solve (host clock)": split_ms["solve"]}}
+
+    inputs, config = built["flagship"]
+    k5_ms = cuda_time_ms(lambda: fused_rt._launch_doubling(*k5_ops, sched),
+                         reps=3)
+    k5_plain_ms = cuda_time_ms(lambda: fused_rt.doubling_reference(
+        *k5_ops, config.ndoubl, sched), reps=2)
+    out = fused_rt._launch_doubling(*k5_ops, sched)
+    n_pts = k5_ops[0].shape[0]
+    k5_flops = layer_flops(config.N, config.n_sources, sched) * n_pts
+    k5_ops_ms = k5_flops / FP32_PEAK_FLOPS * 1e3
+    k5_mem_ms = nbytes(*k5_ops, *out) / HBM_BYTES_PER_S * 1e3
+    k5_bound = max(k5_ops_ms, k5_mem_ms)
+    print(json.dumps({
+        "card": smi, "ms": result,
+        "k5_launch": {"points": n_pts, "kernel_ms": k5_ms,
+                      "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
+                      "bound_share": k5_bound / k5_ms, "flops": k5_flops,
+                      "bytes": nbytes(*k5_ops, *out),
+                      "achieved_tflops": k5_flops / k5_ms / 1e9}}),
+        flush=True)
+    return {"name": "fused_doubling", "route": "cuda",
+            "source": "vsmartmom_tpu_torch/csrc/fused_rt.cu",
+            "replaces": "vsmartmom_tpu/ops/fused_rt.py:425",
+            "launches": result["flagship"]["launches"]["fused_doubling"],
+            "max_abs_err": k5_abs_err, "ms": k5_ms, "plain_ms": k5_plain_ms,
+            "bound_ms": k5_bound,
+            "bound_by": "operations" if k5_ops_ms >= k5_mem_ms else "bytes",
+            "library_ms": None}
+
+
+def layer_chain_phase(dev, smi, inputs, config):
+    """K4 on the flagship chain of scripts/probe_fused2.py: the flagship's
+    own elemental operators of moments 0..m_scat at nSpec 1024 chained
+    through ``fused_layer_step`` over all layers from the vacuum composite
+    (launch counters set to 0 just before, read just after), held against
+    the plain chain and K1's composite of the same moment; timing of the
+    chain beside K1's launches for the same moments. Returns K4's
+    kernels-line entry."""
+    from vsmartmom_tpu_torch.core import multisensor, solver
+    from vsmartmom_tpu_torch.core.kernels import identity_composite
+    from vsmartmom_tpu_torch.core.types import SolverInputs
+    from vsmartmom_tpu_torch.ops import fused_band, fused_rt
+    counted = launch_counted()
+    inputs, config = solver.spectral_slice(inputs, config, 0, N_CHUNK)
+    inp = SolverInputs(*(x.to(torch.float32) for x in inputs))
+    nz, s, N, K = config.nz, N_CHUNK, config.N, config.n_sources
+    sched = fused_rt.norm_sched(config.ns_sched or None, config.ndoubl)
+    layers = []
+    for m in range(config.m_scat + 1):
+        layer_data, kw = multisensor.layer_batch_args(inp, config, m)
+        d = kw.pop("d_vec")
+        r_mp, t_pp, jp, jm, expk = (
+            x.reshape(nz, s, *x.shape[1:])
+            for x in solver.layer_batch(layer_data, **kw))
+        layers.append((r_mp * d[:, None], t_pp, jp, jm * d[:, None], expk,
+                       d))
+
+    def chain(step):
+        comps = []
+        for r, t, jp, jm, ek, d in layers:
+            comp = identity_composite(s, N, torch.float32, dev, K)
+            for z in range(nz):
+                comp = step(comp, r[z], t[z], jp[z], jm[z], ek[z], d,
+                            config.ndoubl, sched, config.ns_inter)
+            comps.append(comp)
+        return comps
+
+    for fn in counted.values():
+        fn.launches = 0
+    out = chain(fused_rt.fused_layer_step)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    want = {k: 0 for k in counted}
+    want["fused_layer_step"] = len(layers) * nz
+    print(f"layer chain: moments 0..{config.m_scat} x {nz} layers at "
+          f"nSpec={s}, launches {launches} (want {want})", flush=True)
+    if launches != want:
+        fail(f"layer chain launches {launches}, want {want}")
+    plain = chain(fused_rt.layer_step_reference)
+    names = ("R_mp", "R_pm", "T_pp", "T_mm", "J0_p", "J0_m")
+    k4_abs_err = 0.0
+    k1_args = [solver.band_moment_args(inputs, config, m, dev)
+               for m in range(len(layers))]
+    for m, (o, p, a) in enumerate(zip(out, plain, k1_args)):
+        k1 = fused_band.fused_moment(*a[0], **a[1])
+        e_p = {n: rel(x, y) for n, x, y in zip(names, o, p)}
+        e_k1 = {n: rel(x, y) for n, x, y in zip(names, o, k1)}
+        k4_abs_err = max([k4_abs_err] + [float((x - y).abs().max())
+                                         for x, y in zip(o, p)])
+        print(f"K4 chain m={m} vs plain chain: " + " ".join(
+            f"{n}={e:.2e}" for n, e in e_p.items()) + "; vs K1: " + " ".join(
+            f"{n}={e:.2e}" for n, e in e_k1.items()), flush=True)
+        if not all(np.isfinite(e) and e <= GATE
+                   for e in (*e_p.values(), *e_k1.values())):
+            fail(f"K4 chain at m={m}: vs plain {e_p}, vs K1 {e_k1}")
+
+    chain_ms = cuda_time_ms(lambda: chain(fused_rt.fused_layer_step),
+                            reps=3)
+    k1_ms = cuda_time_ms(lambda: [fused_band.fused_moment(*a[0], **a[1])
+                                  for a in k1_args], reps=3)
+    r, t, jp, jm, ek, d = layers[0]
+    z = nz // 2
+    comp = out[0]
+    k4_ms = chain_ms / want["fused_layer_step"]
+    k4_plain_ms = cuda_time_ms(lambda: fused_rt.layer_step_reference(
+        comp, r[z], t[z], jp[z], jm[z], ek[z], d, config.ndoubl, sched,
+        config.ns_inter), reps=3)
+    one = fused_rt._launch_layer_step(comp, r[z], t[z], jp[z], jm[z], ek[z],
+                                      d, sched, config.ns_inter)
+    k4_flops = layer_flops(N, K, sched, config.ns_inter) * s
+    k4_bytes = nbytes(*comp, r[z], t[z], jp[z], jm[z], ek[z], d, *one)
+    k4_ops_ms = k4_flops / FP32_PEAK_FLOPS * 1e3
+    k4_mem_ms = k4_bytes / HBM_BYTES_PER_S * 1e3
+    k4_bound = max(k4_ops_ms, k4_mem_ms)
+    print(json.dumps({
+        "card": smi, "layer_chain": {
+            "moments": len(layers), "layers": nz, "n_spec": s,
+            "k4_chain_ms": chain_ms, "k1_same_moments_ms": k1_ms,
+            "k4_launch": {"kernel_ms": k4_ms, "plain_ms": k4_plain_ms,
+                          "bound_ms": k4_bound,
+                          "bound_share": k4_bound / k4_ms,
+                          "flops": k4_flops, "bytes": k4_bytes,
+                          "achieved_tflops": k4_flops / k4_ms / 1e9}}}),
+        flush=True)
+    return {"name": "fused_layer_step", "route": "cuda",
+            "source": "vsmartmom_tpu_torch/csrc/fused_rt.cu",
+            "replaces": "vsmartmom_tpu/ops/fused_rt.py:493",
+            "launches": launches["fused_layer_step"],
+            "max_abs_err": k4_abs_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
+            "bound_ms": k4_bound,
+            "bound_by": "operations" if k4_ops_ms >= k4_mem_ms else "bytes",
+            "library_ms": None}
 
 
 def moment_bytes(args, out):
@@ -604,6 +945,8 @@ def main():
                       "bytes": k2_bytes,
                       "achieved_tflops_kernel": 3 * n_par * primal_flops
                       / k2_ms / 1e9}}), flush=True)
+    k5_entry = ms_phase(dev, smi)
+    k4_entry = layer_chain_phase(dev, smi, inputs, config)
     print(json.dumps({"kernels": [{
         "name": "fused_moment", "route": "cuda",
         "source": "vsmartmom_tpu_torch/csrc/fused_band.cu",
@@ -627,7 +970,7 @@ def main():
         "max_abs_err": k2_abs_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound,
         "bound_by": "operations" if k2_ops >= k2_mem else "bytes",
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, k5_entry, k4_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

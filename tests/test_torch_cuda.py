@@ -286,3 +286,119 @@ def test_fused_thermal_rt_run_lin_raises(cuda):
     model.bands[0].thermal_b = np.full((model.profile.nz, 2), 0.1)
     with pytest.raises(NotImplementedError, match="thermal"):
         rt_run_lin(model, device=cuda)
+
+
+def _layer_inputs(cuda, K, m=0, ek_form="point"):
+    """K5's operands on the card for one moment of the flagship (N = 52,
+    33 layers x 8 points, its probed schedule), from the port's own
+    elemental operators: (r*, t, jp, jm*, expk, d_vec), config. K = 2 adds
+    a seeded thermal source; m above m_scat is a purely absorbing moment
+    (Z = 0: r = 0, t diagonal). The per-row expk form scales each row's
+    attenuation by its own factor in [0.99, 1]."""
+    from vsmartmom_tpu_torch.core.multisensor import layer_batch_args
+    from vsmartmom_tpu_torch.core.solver import layer_batch
+    from vsmartmom_tpu_torch.core.types import SolverInputs
+    from vsmartmom_tpu_torch.flagship import flagship_model
+    model = flagship_model(n_spec=8, nstreams=8)
+    if K == 2:
+        model.bands[0].thermal_b = np.random.default_rng(5).uniform(
+            0.05, 0.5, (model.profile.nz, 8))
+    inputs, config = model.build_band(0, device=cuda)
+    assert config.N == 52 and config.n_sources == K and config.fused
+    inp = SolverInputs(*(x.float() for x in inputs))
+    layer_data, kw = layer_batch_args(inp, config, m)
+    d = kw.pop("d_vec")
+    r, t, jp, jm, ek = layer_batch(layer_data, **kw)
+    if ek_form == "row":
+        g = torch.Generator(device=cuda).manual_seed(0)
+        ek = ek[:, None, :] * (1.0 - 0.01 * torch.rand(
+            jp.shape, generator=g, device=cuda))
+    return (r * d[:, None], t, jp, jm * d[:, None], ek, d), config
+
+
+@pytest.mark.parametrize("K,ndoubl,ek_form", [
+    (1, 0, "point"), (1, 8, "point"), (2, 8, "row"), (2, 0, "row")])
+def test_doubling_kernel_matches_plain_version(cuda, K, ndoubl, ek_form):
+    """K5 at N = 52 against ``doubling_reference`` on the card, on the
+    flagship's elemental operators and probed NS schedule."""
+    from vsmartmom_tpu_torch.ops.fused_rt import (doubling_reference,
+                                                  fused_doubling)
+    (r, t, jp, jm, ek, _), config = _layer_inputs(cuda, K, ek_form=ek_form)
+    sched = config.ns_sched[:ndoubl]
+    assert len(config.ns_sched) == 8
+    before = fused_doubling.launches
+    out = fused_doubling(r, t, jp, jm, ek, ndoubl, ns_sched=sched)
+    torch.cuda.synchronize()
+    assert fused_doubling.launches == before + 1
+    ref = doubling_reference(r, t, jp, jm, ek, ndoubl, sched)
+    for a, b in zip(out, ref):
+        assert torch.isfinite(a).all() and _rel(a, b) <= GATE
+
+
+def test_doubling_kernel_keeps_an_absorbing_layer_exact(cuda):
+    """Moment 15 of the flagship (above m_scat, Z = 0): r = 0 and t
+    diagonal; with the seed I + 0 or with NS iterations r stays exactly
+    zero and t exactly diagonal, with no NaN from a zero row."""
+    from vsmartmom_tpu_torch.ops.fused_rt import (doubling_reference,
+                                                  fused_doubling)
+    (r, t, jp, jm, ek, _), config = _layer_inputs(cuda, 2, m=15)
+    assert config.m_scat < 15 <= config.m_max and (r == 0).all()
+    off = ~torch.eye(52, dtype=torch.bool, device=cuda)
+    for sched in ((0,) * 8, (3,) * 8):
+        out = fused_doubling(r, t, jp, jm, ek, 8, ns_sched=sched)
+        torch.cuda.synchronize()
+        assert (out[0] == 0).all() and (out[1][:, off] == 0).all()
+        ref = doubling_reference(r, t, jp, jm, ek, 8, sched)
+        for a, b in zip(out[1:], ref[1:]):
+            assert torch.isfinite(a).all() and _rel(a, b) <= GATE
+
+
+@pytest.mark.parametrize("K,ndoubl,ek_form", [
+    (1, 0, "point"), (1, 8, "row"), (2, 8, "point"), (2, 0, "row")])
+def test_layer_step_kernel_matches_plain_version(cuda, K, ndoubl, ek_form):
+    """K4 at N = 52 against ``layer_step_reference``: layer 1 of the
+    flagship added onto the composite of layer 0."""
+    from vsmartmom_tpu_torch.core.kernels import identity_composite
+    from vsmartmom_tpu_torch.ops.fused_rt import (fused_layer_step,
+                                                  layer_step_reference)
+    ops, config = _layer_inputs(cuda, K, ek_form=ek_form)
+    r, t, jp, jm, ek, d = ops
+    sched = config.ns_sched[:ndoubl]
+    lay = [tuple(x.reshape(33, 8, *x.shape[1:])[z] for x in ops[:5])
+           for z in (0, 1)]
+    comp = layer_step_reference(
+        identity_composite(8, 52, torch.float32, cuda, K), *lay[0], d,
+        ndoubl, sched, config.ns_inter)
+    before = fused_layer_step.launches
+    out = fused_layer_step(comp, *lay[1], d, ndoubl, ns_sched=sched,
+                           ns_inter=config.ns_inter)
+    torch.cuda.synchronize()
+    assert fused_layer_step.launches == before + 1
+    ref = layer_step_reference(comp, *lay[1], d, ndoubl, sched,
+                               config.ns_inter)
+    for a, b in zip(out, ref):
+        assert torch.isfinite(a).all() and _rel(a, b) <= GATE
+
+
+def test_ms_kernel_route_matches_plain_route(cuda):
+    """rt_solve_ms through K5 (one launch per moment) against the plain
+    (LU) route on the card, per level; level 0 against the band path's
+    rt_solve R and T."""
+    from vsmartmom_tpu_torch.core.multisensor import rt_solve_ms
+    from vsmartmom_tpu_torch.core.solver import rt_solve
+    from vsmartmom_tpu_torch.ops.fused_rt import fused_doubling
+    inputs, config = _model(16).build_band(0, device=cuda)
+    assert config.fused
+    levels = (0, 5, 16, config.nz)
+    before = fused_doubling.launches
+    out = rt_solve_ms(inputs, config, levels, cuda)
+    assert fused_doubling.launches - before == config.m_max + 1
+    plain = rt_solve_ms(inputs, dataclasses.replace(config, fused=False),
+                        levels, cuda)
+    for k in ("uwJ", "dwJ"):
+        assert torch.isfinite(out[k]).all()
+        for i in range(len(levels)):
+            assert _rel(out[k][i], plain[k][i]) <= GATE, (k, levels[i])
+    band = rt_solve(inputs, config, cuda)
+    assert _rel(out["uwJ"][0], band["R"]) <= GATE
+    assert _rel(out["dwJ"][0], band["T"]) <= GATE

@@ -159,3 +159,64 @@ def test_mt_wrapper_runs_the_plain_version_on_the_cpu(mt_cpu_operands):
     for a, b in zip((*out[0], *out[1]), (*ref[0], *ref[1])):
         assert torch.equal(a, b)
     assert out[1][0].shape[0] == 2
+
+
+@pytest.mark.parametrize("module", ["core/multisensor.py", "ops/fused_rt.py",
+                                    "core/solver.py"])
+def test_multisensor_slice_imports_no_jax(module):
+    """The multisensor slice's modules (rt_run_ms, the per-layer kernels'
+    wrappers, _make_added_layer) import neither JAX nor the JAX package."""
+    path = ROOT / "vsmartmom_tpu_torch" / module
+    bad = [mod for mod in _imported_roots(path) if mod in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_rt_run_ms_needs_cuda_or_an_explicit_device(monkeypatch):
+    from vsmartmom_tpu_torch import flagship_model, rt_run_ms
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = flagship_model(n_spec=2, nstreams=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rt_run_ms(model, [0, 33])
+    uwJ, dwJ = rt_run_ms(model, [0, 33], device="cpu")
+    assert uwJ.shape == dwJ.shape == (2, 9, 4, 2)
+    assert np.isfinite(uwJ).all() and np.isfinite(dwJ).all()
+
+
+def _layer_operands(N=12, K=1, s=3, dtype=torch.float32):
+    g = torch.Generator().manual_seed(0)
+    mats = [0.01 * torch.rand((s, N, N), generator=g, dtype=dtype)
+            for _ in range(6)]
+    vecs = [0.1 * torch.rand((s, N, K), generator=g, dtype=dtype)
+            for _ in range(4)]
+    ek = torch.rand((s, K), generator=g, dtype=dtype)
+    d = torch.ones(N, dtype=dtype)
+    return mats, vecs, ek, d
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K4"])
+@pytest.mark.parametrize("case,match", [
+    ("cpu", "CUDA"), ("f64", "float32"), ("wide", "N <= 64"),
+    ("K3", "K <= 2"), ("shape", "shape"), ("deep", "at most 32")])
+def test_layer_kernel_wrappers_refuse(monkeypatch, kernel, case, match):
+    """K5 and K4 take f32 tensors of matching shapes on one CUDA device,
+    N <= 64, K <= 2 and at most 32 doubling steps; their launchers refuse
+    anything else before any build."""
+    from vsmartmom_tpu_torch.ops import cuda_build, fused_rt
+
+    def no_build(name):
+        raise AssertionError("the launcher tried to build a kernel")
+    monkeypatch.setattr(cuda_build, "load", no_build)
+    N, K = {"wide": (68, 1), "K3": (12, 3)}.get(case, (12, 1))
+    dtype = torch.float64 if case == "f64" else torch.float32
+    mats, vecs, ek, d = _layer_operands(N, K, dtype=dtype)
+    if case == "shape":
+        vecs[2] = vecs[2][:, :-1]
+    sched = (1,) * (33 if case == "deep" else 2)
+    with pytest.raises(ValueError, match=match):
+        if kernel == "K5":
+            fused_rt._launch_doubling(mats[4], mats[5], vecs[2], vecs[3], ek,
+                                      sched)
+        else:
+            fused_rt._launch_layer_step((*mats[:4], *vecs[:2]), mats[4],
+                                        mats[5], vecs[2], vecs[3], ek, d,
+                                        sched, 2)

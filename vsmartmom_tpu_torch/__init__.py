@@ -6,22 +6,25 @@ profiles, depolarization, Greek coefficients, Z supermatrices, surfaces, the
 Newton-Schulz schedule probe) is the port's own float64 NumPy copy. The
 solver runs on torch tensors; the whole-moment band path launches the
 hand-written Hopper kernel ``csrc/fused_band.cu`` and the rotational-Raman
-path also ``csrc/fused_rrs.cu`` and the Jacobian path ``csrc/fused_lin.cu``,
+path also ``csrc/fused_rrs.cu``, the Jacobian path ``csrc/fused_lin.cu`` and
+the multisensor path the per-layer doubling kernel of ``csrc/fused_rt.cu``,
 each built by ``nvcc`` at first use into
 ``vsmartmom_tpu_torch/_build/``.
 
 Entry points (``rt_run``, ``rt_run_full``, ``rt_run_streams``, ``rt_solve``,
-``rt_run_inelastic``, ``rt_run_lin``) run on CUDA unless the caller passes ``device`` (e.g.
-``device="cpu"``); without CUDA and without a device they raise.
+``rt_run_inelastic``, ``rt_run_lin``, ``rt_run_ms``) run on CUDA unless the
+caller passes ``device`` (e.g. ``device="cpu"``); without CUDA and without a
+device they raise.
 """
 
 from .core.inelastic import rt_run_inelastic
 from .core.linearization import ParameterLayout, default_layout, rt_run_lin
 from .core.model import Parameters, SurfaceDescriptor, model_from_parameters
+from .core.multisensor import rt_run_ms
 from .core.solver import rt_run, rt_run_full, rt_run_streams, rt_solve
 from .flagship import flagship_model, rrs_sif_model
 
 __all__ = ["Parameters", "SurfaceDescriptor", "model_from_parameters",
            "rt_run", "rt_run_full", "rt_run_streams", "rt_solve",
-           "rt_run_inelastic", "rt_run_lin", "default_layout",
+           "rt_run_inelastic", "rt_run_lin", "rt_run_ms", "default_layout",
            "ParameterLayout", "flagship_model", "rrs_sif_model"]

@@ -1,0 +1,137 @@
+"""Multi-sensor RT: up- and downwelling radiances at arbitrary sensor levels.
+
+Counterpart of the elastic half of ``vsmartmom_tpu/core/multisensor.py``
+(reference rt_run_multisensor.jl ``rt_run_test_ms``, rt_kernel_multisensor.jl
+and interlayer_flux.jl). A sensor level L in [0, Nz] is the interface below
+layer L (0 = TOA, Nz = BOA, between = airborne, balloon or tower). For each
+sensor the column splits into a *top* stack (layers 1..L) and a *bot* stack
+(layers L+1..Nz plus the surface), and the field at the interface follows
+from the two-stack coupling:
+
+    dwJ = (I - topR+- botR-+)^-1 (topJ0+ + topR+- botJ0-)
+    uwJ = (I - botR-+ topR+-)^-1 (botJ0- + botR-+ topJ0+)
+
+Per Fourier moment the driver stashes every layer's added operators in one
+batch (``solver._make_added_layer``: one launch of the doubling kernel K5 on
+the kernel route), then per sensor builds the top stack by a forward adding
+loop and the bot stack by a reverse *prepend* loop (the adding equations are
+a symmetric two-stack composition, so prepending is ``interaction`` with the
+container roles swapped). Every moment takes this full path; there is no
+Beer-law split above m_scat, as in the JAX driver.
+"""
+
+import torch
+
+from .kernels import (AddedLayer, CompositeLayer, identity_composite,
+                      interaction)
+from .solver import _make_added_layer, _surface_layer
+from .types import SolverConfig, SolverInputs, resolve_device, stokes_d_vector
+
+
+def interaction_prepend(add: AddedLayer, comp: CompositeLayer
+                        ) -> CompositeLayer:
+    """Compose ``add`` (above) with ``comp`` (below): ``interaction`` with
+    the upper and lower container roles swapped."""
+    upper = CompositeLayer(*add)
+    lower = AddedLayer(*comp)
+    return interaction(upper, lower)
+
+
+def _composite_from_added(add: AddedLayer) -> CompositeLayer:
+    return CompositeLayer(*add)
+
+
+def interlayer_flux(top: CompositeLayer, bot: CompositeLayer):
+    """(dwJ, uwJ) stream vectors (s, N, K) at the top/bot interface
+    (interlayer_flux_helper!, interlayer_flux.jl:185-202)."""
+    N = top.T_pp.shape[-1]
+    eye = torch.eye(N, dtype=top.T_pp.dtype, device=top.T_pp.device)
+    dwJ = torch.linalg.solve(eye - top.R_pm @ bot.R_mp,
+                             top.J0_p + top.R_pm @ bot.J0_m)
+    uwJ = torch.linalg.solve(eye - bot.R_mp @ top.R_pm,
+                             bot.J0_m + bot.R_mp @ top.J0_p)
+    return dwJ, uwJ
+
+
+def layer_batch_args(inp: SolverInputs, config: SolverConfig, m: int):
+    """(layer_data, kwargs) of ``solver._make_added_layer`` for moment m,
+    from inputs already on their device in the solver's dtype: the layer
+    tables with the optical depth above each layer, and the moment's phase
+    matrices, geometry, Fourier weight and D diagonal."""
+    mu0 = inp.qp_mu_N[config.i_mu0_start]
+    tau_sum = torch.cat([torch.zeros_like(inp.tau[:1]),
+                         torch.cumsum(inp.tau, dim=0)[:-1]], dim=0)
+    d_vec = torch.as_tensor(stokes_d_vector(config.n_stokes, config.nquad),
+                            dtype=inp.tau.dtype, device=inp.tau.device)
+    kw = dict(Z_pp_m=inp.Z_pp[m], Z_mp_m=inp.Z_mp[m], qp_mu_N=inp.qp_mu_N,
+              wt_mu_N=inp.wt_mu_N, mu0=mu0, config=config, F0=inp.F0,
+              fourier_w=0.5 if m == 0 else 0.25, is_m0=m == 0, d_vec=d_vec)
+    return (inp.tau, inp.scat_w, tau_sum, inp.thermal_b), kw
+
+
+def rt_solve_ms(inputs: SolverInputs, config: SolverConfig, sensor_levels,
+                device=None):
+    """Multi-sensor solve on ``device``. Returns a dict with uwJ and dwJ,
+    each (n_sensors, nVZA, n_stokes, nSpec): the up- and downwelling
+    radiance at each sensor level.
+
+    As in the reference, sensor level 0 (TOA) reports (TOA upwelling, BOA
+    downwelling), rt_solve's (R, T) (postprocessing_vza_ms.jl:31-41)."""
+    dev = resolve_device(device)
+    dtype = config.torch_dtype
+    n_spec, N, nz = config.n_spec, config.N, config.nz
+    ns = config.n_stokes
+    levels = tuple(int(v) for v in sensor_levels)
+    inp = SolverInputs(*(torch.as_tensor(x).to(device=dev, dtype=dtype)
+                         for x in inputs))
+    mu0 = inp.qp_mu_N[config.i_mu0_start]
+    tau_boa = torch.cumsum(inp.tau, dim=0)[-1]
+    vza_rows = torch.as_tensor(
+        [[v * ns + k for k in range(ns)] for v in config.vza_idx],
+        device=dev)
+    uwJ = torch.zeros((len(levels), len(config.vza_idx), ns, n_spec),
+                      dtype=dtype, device=dev)
+    dwJ = torch.zeros_like(uwJ)
+
+    for m in range(config.m_max + 1):
+        layer_data, kw = layer_batch_args(inp, config, m)
+        adds = _make_added_layer(layer_data, **kw)
+        surf = _surface_layer(inp.surf_r[m], inp.surf_j_m[m],
+                              inp.surf_direct_m[m], inp.surf_spec, inp.F0,
+                              tau_boa, mu0, inp.sif_spec, m == 0, config)
+        for i_s, L in enumerate(levels):
+            top = identity_composite(n_spec, N, dtype, dev, config.n_sources)
+            for z in range(L):
+                top = interaction(top, AddedLayer(*(x[z] for x in adds)))
+            bot = _composite_from_added(surf)
+            for z in reversed(range(L, nz)):
+                bot = interaction_prepend(AddedLayer(*(x[z] for x in adds)),
+                                          bot)
+            if L == 0:
+                # TOA: (TOA up, BOA down) from the full-column composite
+                # (postprocessing_vza_ms.jl:32-34).
+                uw, dw = bot.J0_m, bot.J0_p
+            else:
+                dw, uw = interlayer_flux(top, bot)
+            w3 = inp.vza_w[m][:, :, None]
+            uwJ[i_s] += uw.sum(dim=-1)[:, vza_rows].permute(1, 2, 0) * w3
+            dwJ[i_s] += dw.sum(dim=-1)[:, vza_rows].permute(1, 2, 0) * w3
+        del adds                      # free the moment's stash before the next
+    return {"uwJ": uwJ, "dwJ": dwJ}
+
+
+def rt_run_ms(model, sensor_levels, i_band: int = 0, device=None):
+    """User-facing multi-sensor run (reference ``rt_run_test_ms``).
+
+    sensor_levels: ints in [0, Nz], the number of layers above each sensor
+    (0 = TOA, Nz = BOA). Returns (uwJ, dwJ) numpy arrays, each (n_sensors,
+    nVZA, n_stokes, nSpec). Runs on CUDA unless ``device`` is given; an f32
+    model on CUDA takes the kernel route (K5 for each moment's layers)."""
+    dev = resolve_device(device)
+    inputs, config = model.build_band(i_band, device=dev)
+    levels = tuple(int(v) for v in sensor_levels)
+    for v in levels:
+        if not 0 <= v <= config.nz:
+            raise ValueError(f"sensor level {v} outside [0, {config.nz}]")
+    out = rt_solve_ms(inputs, config, levels, dev)
+    return out["uwJ"].cpu().numpy(), out["dwJ"].cpu().numpy()

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.fused_band import fused_moment
+from ..ops.fused_rt import fused_doubling, unstar
 from .kernels import (AddedLayer, CompositeLayer, _exp, _expm1, doubling,
                       elemental, identity_composite, interaction)
 from .types import SolverConfig, SolverInputs, resolve_device, stokes_d_vector
@@ -62,6 +63,44 @@ def _elemental_and_sources(tau_z, scat_w_z, tau_sum_z, thermal_b_z, *,
     j0_m = torch.stack([j_sol_m, j_th], dim=-1)
     expk = torch.stack([expk_sol, torch.ones_like(expk_sol)], dim=-1)
     return r_mp, t_pp, j0_p, j0_m, expk
+
+
+def layer_batch(layer_data, *, config: SolverConfig, F0, **kw):
+    """Elemental operators and sources of every layer of one moment as one
+    batch of nz * s points (layer-major): ``_elemental_and_sources`` on
+    ``layer_data`` = (tau, scat_w, tau_sum, thermal_b) with a leading layer
+    axis, (nz, s), (nz, C, s), (nz, s), (nz, s). Returns (r_mp, t_pp, j0_p,
+    j0_m, expk) with a leading nz * s axis."""
+    tau, scat_w, tau_sum, thermal_b = layer_data
+    return _elemental_and_sources(
+        tau.reshape(-1), scat_w.transpose(0, 1).reshape(scat_w.shape[1], -1),
+        tau_sum.reshape(-1), thermal_b.reshape(-1), config=config,
+        F0=F0.repeat(1, tau.shape[0]), **kw)
+
+
+def _make_added_layer(layer_data, *, d_vec, config: SolverConfig,
+                      **kw) -> AddedLayer:
+    """Homogeneous-layer operators (elemental -> doubling) of every layer
+    of one moment at once, for the multisensor driver, which stashes them.
+    The layers are independent, so they run as one batch (``layer_batch``).
+    Returns an AddedLayer of (nz, s, N, N) operators and (nz, s, N, K)
+    sources.
+
+    With ``config.fused`` the ladder is ``ops.fused_rt.fused_doubling`` on
+    the starred operators (one launch of K5 on CUDA tensors, its plain NS
+    version on CPU tensors), then unstarred with the reverse operators
+    rebuilt by parity; otherwise it is ``kernels.doubling`` (LU)."""
+    nz, s = layer_data[0].shape
+    r_mp, t_pp, j0_p, j0_m, expk = layer_batch(layer_data, config=config,
+                                               **kw)
+    if config.fused:
+        d = d_vec[:, None]
+        add = AddedLayer(*unstar(*fused_doubling(
+            r_mp * d, t_pp, j0_p, j0_m * d, expk, config.ndoubl,
+            ns_sched=config.ns_sched or None), d_vec))
+    else:
+        add = doubling(r_mp, t_pp, j0_p, j0_m, expk, config.ndoubl, d_vec)
+    return AddedLayer(*(x.reshape(nz, s, *x.shape[1:]) for x in add))
 
 
 def _solar_block(x, N: int, i_mu0_start: int):
