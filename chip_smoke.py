@@ -1,14 +1,17 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Five paths
+Run from the root of a checkout: ``python3 chip_smoke.py``. Six paths
 are driven: the flagship forward ``rt_run`` (band kernel K1), the
 rotational-Raman forward ``rt_run_inelastic`` (K1 for the elastic half, the
 block-bichromatic RRS kernel K3 for the inelastic one), the aerosol
 Jacobian run ``rt_run_lin`` (the multitangent kernel K2), the multisensor
 forward ``rt_run_ms`` (the per-layer doubling kernel K5, one launch per
-moment for all layers) and the flagship chain of per-layer steps of
-``scripts/probe_fused2.py`` (the layer-step kernel K4). Phases, each of
-which fails the run (non-zero exit) on a miss:
+moment for all layers), the flagship chain of per-layer steps of
+``scripts/probe_fused2.py`` (the layer-step kernel K4) and the nine Pallas
+probes P1-P9 of ``scripts/`` through their Hopper counterparts
+(``vsmartmom_tpu_torch/probes``: the dot_chain, lane_dot_chain, layout and
+band-stage kernels). Phases, each of which fails the run (non-zero exit) on
+a miss:
 
 1. setup — the card's name and power limit; every CUDA kernel of the port
    built from ``vsmartmom_tpu_torch/csrc`` (one nvcc per source, in parallel);
@@ -79,7 +82,24 @@ which fails the run (non-zero exit) on a miss:
    plain chain <= 1e-4 per output and against K1's composite of the same
    moment <= 1e-4 of max per output; the chain's time beside K1's for the
    same moments, and K4's time per launch against its plain version and
-   its bound.
+   its bound. K5 against its plain version and K4's chain against the plain
+   chain must be exactly equal (their device code lives in
+   ``csrc/rt_device.cuh``, shared with the band-stage kernel);
+7. probes (``probes_phase``) — each probe module's ``run()`` at its
+   script's own shapes with every launch counter set to 0 just before and
+   read just after (it must equal the wrapper calls the cases report: one
+   warm-up, ``probes.common.REPS`` timed calls per try and the checks),
+   one JSON line per call site with each case's device time (the timed
+   calls queued behind a sleeping kernel, ``probes.common.time_ms``),
+   bound, plain and library times, its error against the plain version and
+   against the f64 product. Gates: every kernel time the device's work
+   alone; dot and lane chains against their plain versions <= 1e-5 of
+   max|plain| at lengths 1, 8 and the whole chain (a TF32 chain at length
+   1 only: its drift is recorded), each chain's last step <= 1e-5 and
+   equal bit for bit to the kernel's own chain; the layout cases exact;
+   the band stages NaN where the plain version is NaN and <= 1e-5 of
+   max|plain| where it is finite, and the full stage at one layer finite
+   throughout.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel. Without CUDA it exits non-zero and prints no result.
@@ -253,13 +273,17 @@ def best_of_3(fn):
 def launch_counted():
     """Every kernel wrapper of the port by name; each carries its launch
     count in ``.launches``."""
-    from vsmartmom_tpu_torch.ops import fused_band, fused_lin, fused_rrs, \
-        fused_rt
+    from vsmartmom_tpu_torch.ops import band_stages, fused_band, fused_lin, \
+        fused_rrs, fused_rt, probe_dots, probe_layout
     return {"fused_moment": fused_band.fused_moment,
             "fused_moment_rrs": fused_rrs.fused_moment_rrs,
             "fused_moment_multitangent": fused_lin.fused_moment_multitangent,
             "fused_doubling": fused_rt.fused_doubling,
-            "fused_layer_step": fused_rt.fused_layer_step}
+            "fused_layer_step": fused_rt.fused_layer_step,
+            "dot_chain": probe_dots.dot_chain,
+            "lane_dot_chain": probe_dots.lane_dot_chain,
+            "layout_op": probe_layout.layout_op,
+            "band_stages": band_stages.band_stages}
 
 
 def ms_phase(dev, smi):
@@ -309,6 +333,9 @@ def ms_phase(dev, smi):
         if m == 0:
             k5_ops = ops
         del out, ref
+    if k5_abs_err != 0:
+        fail(f"K5 vs plain is {k5_abs_err}, not bit-identical as before the "
+             "move of its device code into csrc/rt_device.cuh")
 
     result = {}
     for name, (model, levels) in scenes.items():
@@ -472,6 +499,9 @@ def layer_chain_phase(dev, smi, inputs, config):
         if not all(np.isfinite(e) and e <= GATE
                    for e in (*e_p.values(), *e_k1.values())):
             fail(f"K4 chain at m={m}: vs plain {e_p}, vs K1 {e_k1}")
+    if k4_abs_err != 0:
+        fail(f"K4 chain vs plain chain is {k4_abs_err}, not bit-identical as "
+             "before the move of its device code into csrc/rt_device.cuh")
 
     chain_ms = cuda_time_ms(lambda: chain(fused_rt.fused_layer_step),
                             reps=3)
@@ -509,6 +539,102 @@ def layer_chain_phase(dev, smi, inputs, config):
             "bound_ms": k4_bound,
             "bound_by": "operations" if k4_ops_ms >= k4_mem_ms else "bytes",
             "library_ms": None}
+
+
+#: The wrapper each probe call site launches, and the source of its kernel.
+PROBE_KERNELS = {
+    "P1": "dot_chain", "P2": "dot_chain", "P3": "dot_chain",
+    "P6": "dot_chain", "P8": "dot_chain", "P4": "lane_dot_chain",
+    "P9": "lane_dot_chain", "P5": "layout_op", "P7": "band_stages"}
+PROBE_SOURCES = {"dot_chain": "probe_dots.cu",
+                 "lane_dot_chain": "probe_dots.cu",
+                 "layout_op": "probe_layout.cu",
+                 "band_stages": "band_stages.cu"}
+
+
+def probe_failures(site, case):
+    """The gates one probe case misses (``probes.common.chain_failures``
+    for the dot and lane chains); every kernel time must be the device's
+    work alone."""
+    from vsmartmom_tpu_torch.probes import common
+    bad = [] if case["device_only"]["kernel"] else [
+        f"{case['case']}: the host did not queue the timed calls ahead"]
+    if site == "P5":
+        return bad + ([] if case["exact"] else [f"{case['case']}: not exact"])
+    if site == "P7":
+        if case["must_be_finite"] and case["finite_share"] != 1.0:
+            bad.append(f"{case['case']}: plain version not finite "
+                       f"({case['finite_share']})")
+        if not (case["nan_match"] and case["err_plain"] <= common.GATE):
+            bad.append(f"{case['case']}: NaN pattern {case['nan_match']}, "
+                       f"{case['err_plain']} where finite")
+        return bad
+    return bad + common.chain_failures(case)
+
+
+def probe_entry(site, replaces, cases, launches):
+    """The kernels-line entry of one probe call site: its headline case
+    (the first fp32 case; P5 one pass over its sixteen cases; P7 the full
+    stage where it is finite) and the largest kernel-vs-plain difference
+    over all its cases."""
+    if site == "P5":
+        head = {k: sum(c[k] for c in cases)
+                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        head.update(case="16 cases, one launch each", bound_by="bytes")
+    elif site == "P7":
+        head = next(c for c in cases if c["must_be_finite"])
+    else:
+        head = next(c for c in cases if c["mode"] == "fp32")
+    wrapper = PROBE_KERNELS[site]
+    return {"name": f"{wrapper}[{site}]", "route": "cuda",
+            "source": "vsmartmom_tpu_torch/csrc/" + PROBE_SOURCES[wrapper],
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "case": head["case"]}
+
+
+def probes_phase(smi):
+    """P1-P9: each probe module run on the card at its script's shapes,
+    every launch counter set to 0 just before and read just after (it
+    must equal the wrapper calls each case made: one warm-up, REPS timed
+    calls per try, its checks), its gates held, one JSON line per call
+    site. Returns the nine kernels-line entries."""
+    import importlib
+
+    from vsmartmom_tpu_torch.probes import SITES
+    counted = launch_counted()
+    entries = []
+    for module, sites in SITES.items():
+        mod = importlib.import_module(f"vsmartmom_tpu_torch.probes.{module}")
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        result = mod.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counted.items()}
+        want = {k: 0 for k in counted}
+        for site in sites:
+            want[PROBE_KERNELS[site]] += sum(c["kernel_calls"]
+                                             for c in result[site])
+        print(f"probes: {module} in {seconds:.1f} s, launches "
+              f"{ {k: v for k, v in launches.items() if v} } (want "
+              f"{ {k: v for k, v in want.items() if v} })", flush=True)
+        if launches != want:
+            fail(f"probe {module} launches {launches}, want {want}")
+        for site, replaces in sites.items():
+            cases = result[site]
+            print(json.dumps({"card": smi, "probe": site,
+                              "replaces": replaces, "device": result["device"],
+                              "cases": cases}), flush=True)
+            bad = [m for c in cases for m in probe_failures(site, c)]
+            if bad:
+                fail(f"probe {site}: " + "; ".join(bad))
+            entries.append(probe_entry(site, replaces, cases,
+                                       launches[PROBE_KERNELS[site]]))
+    return entries
 
 
 def moment_bytes(args, out):
@@ -947,6 +1073,7 @@ def main():
                       / k2_ms / 1e9}}), flush=True)
     k5_entry = ms_phase(dev, smi)
     k4_entry = layer_chain_phase(dev, smi, inputs, config)
+    probe_entries = probes_phase(smi)
     print(json.dumps({"kernels": [{
         "name": "fused_moment", "route": "cuda",
         "source": "vsmartmom_tpu_torch/csrc/fused_band.cu",
@@ -970,7 +1097,8 @@ def main():
         "max_abs_err": k2_abs_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound,
         "bound_by": "operations" if k2_ops >= k2_mem else "bytes",
-        "library_ms": None}, k5_entry, k4_entry]}), flush=True)
+        "library_ms": None}, k5_entry, k4_entry, *probe_entries]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -402,3 +402,124 @@ def test_ms_kernel_route_matches_plain_route(cuda):
     band = rt_solve(inputs, config, cuda)
     assert _rel(out["uwJ"][0], band["R"]) <= GATE
     assert _rel(out["dwJ"][0], band["T"]) <= GATE
+
+
+# ---- the probe kernels (dot_chain, lane_dot_chain, layout, band stages) ----
+# Gate 1e-5 of max|plain|: the kernels repeat their plain versions' FP32
+# arithmetic (TF32 modes on the same rounded operands) in another order of
+# sums. A TF32 chain is held step by step: one FP32 ulp of that order can
+# move an operand to the neighbouring TF32 value, and the chain carries it.
+PROBE_GATE = 1e-5
+
+
+def _probe_pair(cuda, form, n, seed):
+    g = np.random.default_rng(seed)
+    c = 3 * n if form == "sum" else n
+    x = g.random((4, n, n)) / n
+    y = g.standard_normal((4, n, c))
+    if form == "left":
+        x = 0.2 * g.standard_normal((4, n, n)) / np.sqrt(n)
+    return (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (x, y))
+
+
+@pytest.mark.parametrize("n", [52, 104])
+@pytest.mark.parametrize("mode", ["fp32", "tf32", "3xtf32"])
+@pytest.mark.parametrize("form", ["right", "left", "sum", "single"])
+def test_dot_chain_matches_plain_version(cuda, form, mode, n):
+    from vsmartmom_tpu_torch.ops.probe_dots import (dot_chain,
+                                                    dot_chain_reference)
+    x, y = _probe_pair(cuda, form, n, seed=n)
+    kw = dict(form=form, mode=mode, scale=0.5 if form == "right" else 1.0)
+    if form in ("right", "left"):
+        kw["chain"] = 3
+    if form == "sum":
+        kw["ndot"] = 3
+    before = dot_chain.launches
+    out = dot_chain(x, y, **kw)
+    torch.cuda.synchronize()
+    assert dot_chain.launches == before + 1
+    assert torch.isfinite(out).all()
+    if mode == "tf32" and form in ("right", "left"):
+        prev = dot_chain(x, y, **dict(kw, chain=2))
+        a, b = (prev, y) if form == "right" else (x, prev)
+        one = dot_chain(a, b, **dict(kw, chain=1))
+        assert torch.equal(one, out)
+        ref = dot_chain_reference(a, b, **dict(kw, chain=1))
+    else:
+        ref = dot_chain_reference(x, y, **kw)
+    assert _rel(out, ref) <= PROBE_GATE
+
+
+@pytest.mark.parametrize("s,chain", [(100, 1), (100, 3), (2048, 2)])
+def test_lane_dot_chain_matches_plain_version(cuda, s, chain):
+    """The (N, N, s) chain at N = 52, s a multiple of the block's 16 points
+    and not."""
+    from vsmartmom_tpu_torch.ops.probe_dots import (lane_dot_chain,
+                                                    lane_dot_chain_reference)
+    a = torch.from_numpy((np.random.default_rng(s).random((52, 52, s)) / 52)
+                         .astype(np.float32)).to(cuda)
+    out = lane_dot_chain(a, a, chain, 0.25)
+    torch.cuda.synchronize()
+    ref = lane_dot_chain_reference(a, a, chain, 0.25)
+    assert torch.isfinite(out).all() and _rel(out, ref) <= PROBE_GATE
+
+
+@pytest.mark.parametrize("case", range(16))
+def test_layout_cases_are_exact(cuda, case):
+    """Each of the layout probe's sixteen cases equals its torch expression
+    exactly (inputs on a 1/256 grid: every sum is exact)."""
+    from vsmartmom_tpu_torch.ops.probe_layout import (layout_op,
+                                                      layout_op_reference)
+    from vsmartmom_tpu_torch.probes.layout_ops import inputs
+    ins = inputs(case, cuda)
+    out = layout_op(case, *ins)
+    torch.cuda.synchronize()
+    assert torch.equal(out, layout_op_reference(case, *ins))
+
+
+@pytest.mark.parametrize("kind", ["probe", "bounded"])
+@pytest.mark.parametrize("stage", ["acc", "elem", "src", "pack", "dbl",
+                                   "full"])
+def test_band_stages_match_plain_version(cuda, stage, kind):
+    """NaN where the plain version is NaN, 1e-5 of max|plain| where it is
+    finite, on the band probe's own and bounded inputs."""
+    from vsmartmom_tpu_torch.ops.band_stages import (band_stages,
+                                                     band_stages_reference)
+    from vsmartmom_tpu_torch.probes.band_bisect import compare, inputs
+    tau, Em1, aux = inputs(kind, cuda)
+    out = band_stages(stage, tau, Em1, aux)
+    torch.cuda.synchronize()
+    same, err, _ = compare(out, band_stages_reference(stage, tau, Em1, aux))
+    assert same and err <= PROBE_GATE
+
+
+def test_band_full_stage_is_finite_at_one_layer(cuda):
+    """The full stage on the bounded inputs at one layer is finite
+    throughout, in the kernel and in the plain version, and within 1e-5 of
+    max|plain|."""
+    from vsmartmom_tpu_torch.ops.band_stages import (band_stages,
+                                                     band_stages_reference)
+    from vsmartmom_tpu_torch.probes.band_bisect import FINITE_CASE, inputs
+    stage, kind, nz = FINITE_CASE
+    tau, Em1, aux = inputs(kind, cuda, nz=nz)
+    out = band_stages(stage, tau, Em1, aux)
+    torch.cuda.synchronize()
+    ref = band_stages_reference(stage, tau, Em1, aux)
+    assert torch.isfinite(ref).all() and torch.isfinite(out).all()
+    assert _rel(out, ref) <= PROBE_GATE
+
+
+def test_probe_wrappers_refuse_before_building(cuda, monkeypatch):
+    """On the card too, operands the kernels do not take are refused before
+    any build."""
+    from vsmartmom_tpu_torch.ops import cuda_build, probe_dots
+
+    def no_build(name):
+        raise AssertionError("the wrapper tried to build a kernel")
+    monkeypatch.setattr(cuda_build, "load", no_build)
+    x = torch.zeros((2, 130, 130), device=cuda)
+    with pytest.raises(ValueError, match="n <= 128"):
+        probe_dots.dot_chain(x, x, "right")
+    with pytest.raises(ValueError, match="float32"):
+        probe_dots.dot_chain(x[:, :8, :8].double().contiguous(),
+                             x[:, :8, :8].contiguous(), "right")

@@ -146,3 +146,22 @@ def test_wrappers_run_the_plain_versions_on_the_cpu():
     with pytest.raises(NotImplementedError, match="default"):
         fused_rt.fused_layer_step(comp, r, t, jp, jm, ek, d, 3,
                                   dot_mode="default")
+
+
+def test_build_name_hashes_the_shared_headers(monkeypatch, tmp_path):
+    """A library's name carries a hash of its source and of every
+    csrc/*.cuh, so an edited shared header (csrc/rt_device.cuh) rebuilds
+    every source that may include it instead of reusing a stale library."""
+    from vsmartmom_tpu_torch.ops import cuda_build
+    monkeypatch.setattr(cuda_build, "SRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// one\n")
+    first = cuda_build._target("k")
+    assert cuda_build._target("k") == first
+    (tmp_path / "shared.cuh").write_text("// two\n")
+    second = cuda_build._target("k")
+    assert second != first and second.name.startswith("libk-")
+    (tmp_path / "other.cuh").write_text("// a new header\n")
+    assert cuda_build._target("k") not in (first, second)
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n// edited\n')
+    assert cuda_build._target("k") not in (first, second)

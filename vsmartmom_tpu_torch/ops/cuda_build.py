@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes``. The library goes
 to ``vsmartmom_tpu_torch/_build/`` (git-ignored) under a name that carries a
-hash of its source and flags, so an edited source is rebuilt and an
-unchanged one is reused within a checkout. ``build_all`` starts one ``nvcc``
+hash of its source, of every shared header ``csrc/*.cuh`` and of the flags,
+so an edited source or header is rebuilt and an unchanged one is reused
+within a checkout. ``build_all`` starts one ``nvcc``
 per source, all together.
 """
 
@@ -42,10 +43,11 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names) -> dict:
