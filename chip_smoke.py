@@ -1,10 +1,12 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Six paths
+Run from the root of a checkout: ``python3 chip_smoke.py``. Seven paths
 are driven: the flagship forward ``rt_run`` (band kernel K1), the
 rotational-Raman forward ``rt_run_inelastic`` (K1 for the elastic half, the
 block-bichromatic RRS kernel K3 for the inelastic one), the aerosol
-Jacobian run ``rt_run_lin`` (the multitangent kernel K2), the multisensor
+Jacobian run ``rt_run_lin`` (the multitangent kernel K2), the thermal
+(K = 2, solar + Planck) Jacobian run ``rt_run_lin`` (K1', the same kernel
+at two source columns), the multisensor
 forward ``rt_run_ms`` (the per-layer doubling kernel K5, one launch per
 moment for all layers), the flagship chain of per-layer steps of
 ``scripts/probe_fused2.py`` (the layer-step kernel K4) and the nine Pallas
@@ -99,7 +101,27 @@ a miss:
    equal bit for bit to the kernel's own chain; the layout cases exact;
    the band stages NaN where the plain version is NaN and <= 1e-5 of
    max|plain| where it is finite, and the full stage at one layer finite
-   throughout.
+   throughout;
+8. thermal Jacobian (``thermal_lin_phase``) on ``thermal_lin_model`` (the
+   aerosol flagship at 2500 cm^-1 with each layer's Planck source; N = 52,
+   nz = 33, C = 2, K = 2, P = 8) — K1' against its plain version on a
+   64-point slice at m = 0, 1 and m_max (primal <= 1e-4, each parameter's
+   tangents <= 2e-4 of its max; the thermal column of J0_p and J0_m
+   non-zero at m = 0 and exactly zero, tangents too, above it); the K = 2
+   shared memory inside the 232,448 B opt-in; ``rt_run_lin`` at nSpec 1024
+   counted (K2 launched m_scat + 1 times at K = 2, no other kernel), R, T,
+   dR, dT finite, dR (9, 4, 1024, 8); on the slice the kernel route
+   against the jvp route (R <= 1e-4, each dR <= 2e-4 of its max) and the
+   additivity of the sources (dR and R of solar + thermal against the sum
+   of the solar-only and the thermal-only runs, ``include_solar=False``,
+   2e-4 and 1e-4); ``rt_run`` of the scene (K1 at K = 2) against R
+   (1e-4); the small thermal scene against the stored JAX CPU f64
+   reference (``data/lin_thermal_ref_f64.npz``, the K = 1 phase's gates
+   with its 1.01 control); timing: a warm-up on the slice, then one timed
+   solve at nSpec 1024 (one, not the best of 2: a second would add ~36 s
+   to a phase of ~2.5 minutes), K1''s time per launch, its plain
+   version's and its bound at the least work (the K2 count with the
+   second source column).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel. Without CUDA it exits non-zero and prints no result.
@@ -131,6 +153,10 @@ N_CHUNK, N_CHUNKS = 1024, 4
 N_SPEC_TOTAL = N_CHUNK * N_CHUNKS
 RRS_N_SPEC = 256
 LIN_N_SPEC, LIN_SLICE = 1024, 64
+#: The thermal Jacobian scene's width and its checked slice.
+THERMAL_N_SPEC, THERMAL_SLICE = 1024, 64
+#: Shared memory one block may opt in to on an H100 (bytes).
+SMEM_OPT_IN = 232448
 #: Multisensor scenes: the flagship at nSpec 1024 with an airborne sensor
 #: mid-column, and the JAX package's MS bench scene (scripts/bench_ms.py).
 MS_N_SPEC, MS_LEVELS = 1024, (0, 16, 33)
@@ -637,6 +663,233 @@ def probes_phase(smi):
     return entries
 
 
+def lin_ref_gates(out, ref, names):
+    """A Jacobian run against a stored JAX f64 reference: ({R, T, dR, dT}
+    errors, each parameter's dR error on its own scale, the height
+    parameters' 1.01 control, whether the gates hold): R <= 1e-4, each dR
+    <= 2e-4 of its own max (HEIGHT_GATE for the aerosol height), and the
+    height Jacobians 1% off must fail their gate."""
+    e = {k: rel(out[k], ref[k]) for k in ("R", "T", "dR", "dT")}
+    own = [rel(out["dR"][..., q], ref["dR"][..., q])
+           for q in range(len(names))]
+    gates = [HEIGHT_GATE if n.endswith(HEIGHT_PARAMS) else TAN_GATE
+             for n in names]
+    control = [rel(1.01 * out["dR"][..., q], ref["dR"][..., q])
+               for q, n in enumerate(names) if n.endswith(HEIGHT_PARAMS)]
+    ok = (e["R"] <= GATE and all(x <= g for x, g in zip(own, gates))
+          and all(x > HEIGHT_GATE for x in control))
+    return e, own, control, ok
+
+
+def thermal_lin_phase(dev, smi):
+    """The thermal (K = 2) Jacobian path through K1' (see the module
+    docstring, phase 8). Returns K1''s kernels-line entry."""
+    import ctypes
+
+    from vsmartmom_tpu_torch import (default_layout, rt_run, rt_run_lin,
+                                     thermal_lin_model)
+    from vsmartmom_tpu_torch.core.linearization import (build_tangent_inputs,
+                                                        rt_solve_jvp)
+    from vsmartmom_tpu_torch.core.solver import spectral_slice
+    from vsmartmom_tpu_torch.flagship import lin_thermal_model
+    from vsmartmom_tpu_torch.ops import cuda_build, fused_band, fused_lin
+    counted = launch_counted()
+    phase_t0 = time.perf_counter()
+
+    smem_fn = cuda_build.load("fused_lin").vsm_fused_moment_mt_smem_bytes
+    smem_fn.restype = ctypes.c_size_t
+    smem_fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem = {k: smem_fn(fused_lin.KERNEL_MAX_N, k) for k in (1, 2)}
+    print(f"K2 shared memory at N={fused_lin.KERNEL_MAX_N}: K=1 {smem[1]} B,"
+          f" K=2 {smem[2]} B (opt-in limit {SMEM_OPT_IN} B)", flush=True)
+    if smem[2] > SMEM_OPT_IN:
+        fail(f"K2 at K = 2 needs {smem[2]} B of shared memory")
+
+    t0 = time.perf_counter()
+    model = thermal_lin_model(THERMAL_N_SPEC)
+    scene_s = time.perf_counter() - t0
+    layout = default_layout(model)
+    t0 = time.perf_counter()
+    inputs, config, tans = build_tangent_inputs(model, 0, layout, device=dev)
+    torch.cuda.synchronize()
+    tangent_s = time.perf_counter() - t0
+    n_par = len(tans)
+    if not (config.fused and config.n_sources == 2 and config.N == 52
+            and n_par == 8):
+        fail(f"the thermal scene on CUDA: fused={config.fused}, "
+             f"K={config.n_sources}, N={config.N}, P={n_par}")
+    print(f"thermal Jacobian config: N={config.N} nz={config.nz} "
+          f"C={inputs.Z_pp.shape[1]} K={config.n_sources} "
+          f"ndoubl={config.ndoubl} ns_sched={config.ns_sched} "
+          f"ns_inter={config.ns_inter} m_max={config.m_max} "
+          f"m_scat={config.m_scat} params={layout.names()}; "
+          f"max B={model.bands[0].thermal_b.max():.4g}; host build "
+          f"{scene_s:.1f} s, tangents {tangent_s:.1f} s", flush=True)
+    sl = spectral_slice(inputs, config, 0, THERMAL_SLICE)
+    sl_tans = [spectral_slice(t, config, 0, THERMAL_SLICE)[0] for t in tans]
+
+    # K1' against its plain version; the thermal column at m > 0 is zero.
+    outs, refs, th_max = [], [], 0.0
+    for m in (0, 1, config.m_max):
+        args = fused_lin.multitangent_args(sl[0], sl_tans, sl[1], m, dev)
+        outs.append(fused_lin.fused_moment_multitangent(*args))
+        torch.cuda.synchronize()
+        refs.append(fused_lin.moment_multitangent_reference(*args))
+        (*_, Jp, Jm), (*_, dJp, dJm) = outs[-1]
+        th = [x[..., 1] for x in (Jp, Jm, dJp, dJm)]
+        if m == 0:
+            th_max = max(float(th[0].abs().max()), float(th[1].abs().max()))
+            if not th_max > 0:
+                fail("K1' gave no thermal signal at m = 0")
+        elif not all(bool((x == 0).all()) for x in th):
+            fail(f"K1' gave a non-zero thermal column at m = {m}")
+    k1p_prim, k1p_tan, k1p_abs_err = mt_errors(outs, refs)
+    del outs, refs
+    print(f"K1' vs plain (nSpec={THERMAL_SLICE}, m=0,1,{config.m_max}): "
+          f"primal={k1p_prim:.2e} tangents per parameter "
+          + " ".join(f"{e:.2e}" for e in k1p_tan)
+          + f"; thermal column max at m=0 {th_max:.4g}, exactly 0 above",
+          flush=True)
+    if not (np.isfinite(k1p_prim) and k1p_prim <= GATE
+            and all(np.isfinite(e) and e <= TAN_GATE for e in k1p_tan)):
+        fail(f"K1' vs moment_multitangent_reference: primal {k1p_prim}, "
+             f"tangents {k1p_tan}")
+
+    # The main path, counted.
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    R, T, dR, dT = rt_run_lin(model, layout=layout, device=dev)
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    want = {k: 0 for k in counted}
+    want["fused_moment_multitangent"] = config.m_scat + 1
+    print(f"main path: thermal rt_run_lin nSpec={THERMAL_N_SPEC}, K=2, "
+          f"{n_par} parameters, launches {launches} (want {want}), "
+          f"{e2e_s:.1f} s", flush=True)
+    if launches != want:
+        fail(f"thermal Jacobian path launches {launches}, want {want}")
+    if dR.shape != (9, 4, THERMAL_N_SPEC, n_par) or not all(
+            np.isfinite(x).all() for x in (R, T, dR, dT)):
+        fail(f"thermal rt_run_lin not finite or dR of shape {dR.shape}")
+    kern = fused_lin.rt_solve_multitangent(sl[0], sl_tans, sl[1], dev)
+    plain = rt_solve_jvp(sl[0], sl_tans,
+                         dataclasses.replace(sl[1], fused=False), dev)
+    e_route = [rel(kern[0], plain[0])] + [rel(kern[2][q], plain[2][q])
+                                          for q in range(n_par)]
+    print(f"thermal kernel route vs jvp route (nSpec={THERMAL_SLICE}): "
+          f"R={e_route[0]:.2e} dR per parameter "
+          + " ".join(f"{e:.2e}" for e in e_route[1:])
+          + f"; dT={rel(kern[3], plain[3]):.2e}", flush=True)
+    if not (e_route[0] <= GATE and all(e <= TAN_GATE for e in e_route[1:])):
+        fail(f"thermal kernel route vs jvp route: {e_route}")
+    del plain
+    fused_band.fused_moment.launches = 0
+    R_fwd, _ = rt_run(model, device=dev, spectral_chunk=THERMAL_N_SPEC)
+    e_fwd = rel(R, R_fwd)
+    print(f"rt_run of the thermal scene: fused_moment launches="
+          f"{fused_band.fused_moment.launches} (want {config.m_scat + 1}, "
+          f"K=2), R vs rt_run_lin's R {e_fwd:.2e}", flush=True)
+    if fused_band.fused_moment.launches != config.m_scat + 1 \
+            or not e_fwd <= GATE:
+        fail(f"rt_run vs rt_run_lin on the thermal scene: {e_fwd}")
+
+    # Additivity: the RT is linear in its sources. The solar-only and the
+    # thermal-only (include_solar=False) bands of the same scene, with the
+    # same tangents (they carry none of F0 or thermal_b).
+    band, th_b = model.bands[0], model.bands[0].thermal_b
+    band.thermal_b = None
+    sol = model.build_band(0, device=dev)
+    band.thermal_b = th_b
+    model.params.include_solar = False
+    therm = model.build_band(0, device=dev)
+    model.params.include_solar = True
+    if not (sol[1].n_sources == 1 and therm[1].n_sources == 2
+            and not bool(therm[0].F0.any())
+            and sol[1].ns_sched == therm[1].ns_sched == config.ns_sched):
+        fail("the solar-only and thermal-only builds of the thermal scene")
+    parts = []
+    for b in (sol, therm):
+        b_inputs, b_config = spectral_slice(*b, 0, THERMAL_SLICE)
+        parts.append(fused_lin.rt_solve_multitangent(b_inputs, sl_tans,
+                                                     b_config, dev))
+    e_add = [rel(parts[0][0] + parts[1][0], kern[0])] + [
+        rel(parts[0][2][q] + parts[1][2][q], kern[2][q])
+        for q in range(n_par)]
+    share = float(parts[1][0].abs().max() / kern[0].abs().max())
+    print(f"additivity (nSpec={THERMAL_SLICE}): R={e_add[0]:.2e} dR per "
+          "parameter " + " ".join(f"{e:.2e}" for e in e_add[1:])
+          + f"; thermal-only max R / total {share:.3f}", flush=True)
+    if not (e_add[0] <= GATE and all(e <= TAN_GATE for e in e_add[1:])
+            and share > 1e-3):
+        fail(f"additivity of the sources: {e_add}, thermal share {share}")
+    del kern, parts
+
+    # Against the JAX package: the small thermal scene's stored f64 run.
+    ref = np.load(Path(__file__).resolve().parent / "vsmartmom_tpu_torch"
+                  / "data" / "lin_thermal_ref_f64.npz")
+    small_model = lin_thermal_model()
+    small = dict(zip(("R", "T", "dR", "dT"),
+                     rt_run_lin(small_model, device=dev)))
+    names = default_layout(small_model).names()
+    e_ref, own, control, ok = lin_ref_gates(small, ref, names)
+    print("thermal Jacobian kernel path vs JAX f64 reference (small thermal "
+          "scene): " + " ".join(f"{k}={e:.2e}" for k, e in e_ref.items())
+          + "; dR per parameter on its own scale "
+          + " ".join(f"{n}={e:.2e}" for n, e in zip(names, own))
+          + "; height dR 1% off " + " ".join(f"{e:.2e}" for e in control),
+          flush=True)
+    if not ok:
+        fail(f"thermal Jacobian port vs stored JAX reference: {e_ref}, per "
+             f"parameter {own}, control {control}")
+
+    # Timing: a warm-up on the slice, then one solve at full width.
+    fused_lin.rt_solve_multitangent(sl[0], sl_tans, sl[1], dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = fused_lin.rt_solve_multitangent(inputs, tans, config, dev)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(o[2]).all()):
+        fail("non-finite dR in the timed thermal Jacobian solve")
+    del o
+    args = fused_lin.multitangent_args(inputs, tans, config, 0, dev)
+    k_ms = cuda_time_ms(lambda: fused_lin._launch_kernel(*args), reps=3)
+    p_ms = cuda_time_ms(
+        lambda: fused_lin.moment_multitangent_reference(*args), reps=2)
+    out = fused_lin._launch_kernel(*args)
+    primal_flops = moment_flops(config, THERMAL_N_SPEC)
+    flops = (1 + 2 * n_par) * primal_flops
+    n_bytes = nbytes(*args[0], *args[1], *out[0], *out[1])
+    t_ops, t_bytes = flops / FP32_PEAK_FLOPS * 1e3, \
+        n_bytes / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    print(json.dumps({
+        "card": smi, "lin_thermal_pts_per_s": THERMAL_N_SPEC / solve_s,
+        "lin_thermal_tangent_pts_per_s": THERMAL_N_SPEC * n_par / solve_s,
+        "lin_thermal_solve_s": solve_s,
+        "rt_run_lin_thermal_e2e_s": e2e_s, "scene_build_s": scene_s,
+        "tangent_build_s": tangent_s, "n_spec": THERMAL_N_SPEC,
+        "n_params": n_par, "launches": launches,
+        "smem_bytes_k2": smem[2], "phase_s": time.perf_counter() - phase_t0,
+        "k1prime_launch": {"n_spec": THERMAL_N_SPEC, "kernel_ms": k_ms,
+                           "plain_ms": p_ms, "bound_ms": bound,
+                           "bound_share": bound / k_ms, "flops": flops,
+                           "flops_kernel": 3 * n_par * primal_flops,
+                           "bytes": n_bytes,
+                           "achieved_tflops_kernel": 3 * n_par
+                           * primal_flops / k_ms / 1e9}}), flush=True)
+    return {"name": "fused_moment_multitangent[K1']", "route": "cuda",
+            "source": "vsmartmom_tpu_torch/csrc/fused_lin.cu",
+            "replaces": "vsmartmom_tpu/ops/fused_band.py:469",
+            "launches": launches["fused_moment_multitangent"],
+            "max_abs_err": k1p_abs_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
 def moment_bytes(args, out):
     """Bytes one launch must move: its operands read once (the plain prep's
     compact row tables) and the composite written once."""
@@ -647,6 +900,7 @@ def moment_bytes(args, out):
 
 
 def main():
+    script_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         fail("CUDA is not available: the chip smoke test runs only on a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False    # exact f32 products
@@ -931,24 +1185,15 @@ def main():
     small_model = lin_ref_model()
     small = dict(zip(("R", "T", "dR", "dT"),
                      rt_run_lin(small_model, device=dev)))
-    e_lref = {k: rel(small[k], ref[k]) for k in ("R", "T", "dR", "dT")}
     names = default_layout(small_model).names()
-    own = [rel(small["dR"][..., q], ref["dR"][..., q])
-           for q in range(len(names))]
-    gates = [HEIGHT_GATE if n.endswith(HEIGHT_PARAMS) else TAN_GATE
-             for n in names]
-    # Control: the height Jacobians 1% off must fail their gate.
-    control = [rel(1.01 * small["dR"][..., q], ref["dR"][..., q])
-               for q, n in enumerate(names) if n.endswith(HEIGHT_PARAMS)]
+    e_lref, own, control, ok = lin_ref_gates(small, ref, names)
     print("Jacobian kernel path vs JAX f64 reference (small aerosol scene): "
           + " ".join(f"{k}={e:.2e}" for k, e in e_lref.items())
           + "; dR per parameter on its own scale "
           + " ".join(f"{n}={e:.2e}" for n, e in zip(names, own))
           + "; height dR 1% off " + " ".join(f"{e:.2e}" for e in control),
           flush=True)
-    if not (e_lref["R"] <= GATE
-            and all(e <= g for e, g in zip(own, gates))
-            and all(e > HEIGHT_GATE for e in control)):
+    if not ok:
         fail(f"Jacobian port vs stored JAX reference: {e_lref}, per "
              f"parameter {own}, control {control}")
 
@@ -1074,6 +1319,9 @@ def main():
     k5_entry = ms_phase(dev, smi)
     k4_entry = layer_chain_phase(dev, smi, inputs, config)
     probe_entries = probes_phase(smi)
+    k1p_entry = thermal_lin_phase(dev, smi)
+    print(f"chip_smoke.py: {time.perf_counter() - script_t0:.1f} s, the "
+          "kernels' build included", flush=True)
     print(json.dumps({"kernels": [{
         "name": "fused_moment", "route": "cuda",
         "source": "vsmartmom_tpu_torch/csrc/fused_band.cu",
@@ -1097,7 +1345,8 @@ def main():
         "max_abs_err": k2_abs_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound,
         "bound_by": "operations" if k2_ops >= k2_mem else "bytes",
-        "library_ms": None}, k5_entry, k4_entry, *probe_entries]}),
+        "library_ms": None}, k1p_entry, k5_entry, k4_entry,
+        *probe_entries]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

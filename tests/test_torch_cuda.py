@@ -8,6 +8,7 @@ Gate, as in chip_smoke.py and the JAX package's bench: max|d| / max|ref|
 against the plain RRS path 1e-4 on R and, with the coarse production ie
 ladder, 5e-3 on ieR (the JAX bench's gate, scripts/bench_rrs.py:90)."""
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -183,13 +184,18 @@ def test_rrs_wrapper_refuses_wide_streams_before_building(cuda, monkeypatch):
 
 def _lin_setup(cuda, scene):
     """(inputs, config, tangents) of a Jacobian scene on the card: the small
-    aerosol scene (N = 21, 2 points) or the aerosol flagship (N = 52) at 16
-    points; 7 aerosol parameters and wind speed."""
+    aerosol scene (N = 21, 2 points), the aerosol flagship (N = 52) at 16
+    points, or their thermal (K = 2) twins, the small scene with its seeded
+    thermal source and the thermal Jacobian scene at 16 points; 7 aerosol
+    parameters and wind speed."""
     from vsmartmom_tpu_torch.core.linearization import (build_tangent_inputs,
                                                         default_layout)
-    from vsmartmom_tpu_torch.flagship import flagship_model, lin_ref_model
-    model = lin_ref_model() if scene == "small" else \
-        flagship_model(n_spec=16, aerosol=True)
+    from vsmartmom_tpu_torch.flagship import (flagship_model, lin_ref_model,
+                                              lin_thermal_model,
+                                              thermal_lin_model)
+    model = {"small": lin_ref_model, "small_thermal": lin_thermal_model,
+             "flagship": lambda: flagship_model(n_spec=16, aerosol=True),
+             "thermal": lambda: thermal_lin_model(16)}[scene]()
     return build_tangent_inputs(model, 0, default_layout(model), device=cuda)
 
 
@@ -211,11 +217,15 @@ def _mt_errors(outs, refs):
     return e_prim, e_tan
 
 
-@pytest.mark.parametrize("scene,N", [("small", 21), ("flagship", 52)])
+@pytest.mark.parametrize("scene,N", [("small", 21), ("flagship", 52),
+                                     ("small_thermal", 21), ("thermal", 52)])
 def test_mt_kernel_matches_plain_version(cuda, scene, N):
-    """K2 against its plain version (forward-mode AD of the plain moment
-    body) at moments 0, 1 and m_max, all 8 tangents: primal <= 1e-4 and each
-    parameter's tangent outputs <= 2e-4 of that parameter's max|ref|."""
+    """K2 (K1' for the thermal scenes, K = 2) against its plain version
+    (forward-mode AD of the plain moment body) at moments 0, 1 and m_max,
+    all 8 tangents: primal <= 1e-4 and each parameter's tangent outputs
+    <= 2e-4 of that parameter's max|ref|. At K = 2 the thermal column of
+    J0_p and J0_m is non-zero at m = 0 and exactly zero, tangents too,
+    above it."""
     from vsmartmom_tpu_torch.ops.fused_lin import (
         fused_moment_multitangent, moment_multitangent_reference,
         multitangent_args)
@@ -231,12 +241,30 @@ def test_mt_kernel_matches_plain_version(cuda, scene, N):
         refs.append(moment_multitangent_reference(*args))
         assert all(torch.isfinite(x).all() for x in (*outs[-1][0],
                                                       *outs[-1][1]))
+        if config.n_sources == 2:
+            (*_, Jp, Jm), (*_, dJp, dJm) = outs[-1]
+            th = [x[..., 1] for x in (Jp, Jm, dJp, dJm)]
+            if m == 0:
+                assert all(bool((x != 0).any()) for x in th)
+            else:
+                assert all(bool((x == 0).all()) for x in th)
     e_prim, e_tan = _mt_errors(outs, refs)
     assert e_prim <= GATE and max(e_tan) <= 2e-4, (e_prim, e_tan)
 
 
+def test_mt_kernel_shared_memory_fits_at_k2(cuda):
+    """The K = 2 layout at the widest N the kernel takes stays inside the
+    232,448 B of shared memory a block may opt in to."""
+    from vsmartmom_tpu_torch.ops import cuda_build
+    fn = cuda_build.load("fused_lin").vsm_fused_moment_mt_smem_bytes
+    fn.restype = ctypes.c_size_t
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    assert fn(52, 1) == 20 * 52 * 52 * 4 + (14 * 52 + 3 * 52) * 4
+    assert fn(52, 2) == 222768 <= 232448
+
+
 @pytest.mark.parametrize("case,match", [
-    ("shape", "shape"), ("K2", "K = 1"), ("wide", "N <= 52")])
+    ("shape", "shape"), ("K3", "K <= 2"), ("wide", "N <= 52")])
 def test_mt_wrapper_refuses_before_building(cuda, monkeypatch, case, match):
     from vsmartmom_tpu_torch.ops import cuda_build, fused_lin
     inputs, config, tangents = _lin_setup(cuda, "small")
@@ -244,8 +272,8 @@ def test_mt_wrapper_refuses_before_building(cuda, monkeypatch, case, match):
         inputs, tangents, config, 0, cuda)
     if case == "shape":
         dops = dops._replace(Em1=dops.Em1[:, :, :1].contiguous())
-    elif case == "K2":
-        ops = ops._replace(j0_p=torch.cat([ops.j0_p] * 2, dim=-1))
+    elif case == "K3":
+        ops = ops._replace(j0_p=torch.cat([ops.j0_p] * 3, dim=-1))
     else:
         ops = ops._replace(Em1=torch.zeros(ops.Em1.shape[:2] + (56,),
                                            device=cuda))
@@ -279,13 +307,64 @@ def test_mt_kernel_path_matches_jvp_path(cuda):
             2e-4 * np.abs(dR0[..., q]).max(), q
 
 
-def test_fused_thermal_rt_run_lin_raises(cuda):
+def test_fused_thermal_rt_run_lin_matches_jvp_path(cuda):
+    """rt_run_lin of the small thermal scene (K = 2) through K1', counted:
+    m_scat + 1 = 7 launches and no other kernel; R 1e-4, each parameter's
+    dR 2e-4 of its max and dT 2e-4 of the stack's max against the plain
+    jvp route on the card."""
     from vsmartmom_tpu_torch.core.linearization import rt_run_lin
-    from vsmartmom_tpu_torch.flagship import lin_ref_model
-    model = lin_ref_model()
-    model.bands[0].thermal_b = np.full((model.profile.nz, 2), 0.1)
-    with pytest.raises(NotImplementedError, match="thermal"):
-        rt_run_lin(model, device=cuda)
+    from vsmartmom_tpu_torch.flagship import lin_thermal_model
+    from vsmartmom_tpu_torch.ops import fused_band, fused_lin
+    model = lin_thermal_model()
+    before = (fused_lin.fused_moment_multitangent.launches,
+              fused_band.fused_moment.launches)
+    R, _, dR, dT = rt_run_lin(model, device=cuda)
+    assert (fused_lin.fused_moment_multitangent.launches - before[0],
+            fused_band.fused_moment.launches - before[1]) == (7, 0)
+    model.params.fused = False
+    R0, _, dR0, dT0 = rt_run_lin(model, device=cuda)
+    assert np.abs(R - R0).max() <= GATE * np.abs(R0).max()
+    assert np.abs(dT - dT0).max() <= 2e-4 * np.abs(dT0).max()
+    for q in range(dR.shape[-1]):
+        assert np.abs(dR[..., q] - dR0[..., q]).max() <= \
+            2e-4 * np.abs(dR0[..., q]).max(), q
+
+
+def test_wide_scene_takes_the_jvp_route_on_the_card(cuda):
+    """A scene wider than K2 takes (N = 60: K1 takes it, so build_band
+    picks the band path) with the strategy left automatic: rt_run_lin
+    warns, launches no kernel, and equals the jvp route (the same
+    operations on the same card: 1e-6)."""
+    from vsmartmom_tpu_torch import (Parameters, SurfaceDescriptor,
+                                     model_from_parameters)
+    from vsmartmom_tpu_torch.core.linearization import (build_tangent_inputs,
+                                                        default_layout,
+                                                        rt_run_lin,
+                                                        rt_solve_jvp)
+    from vsmartmom_tpu_torch.ops import fused_band, fused_lin
+    from vsmartmom_tpu_torch.scattering.stokes import STOKES_IQUV
+    model = model_from_parameters(Parameters(
+        spec_bands=[np.array([13000.0, 13000.5])],
+        surfaces=[SurfaceDescriptor("LambertianSurfaceScalar", [0.1])],
+        nstreams=12, polarization=STOKES_IQUV, sza=40.0, vza=[10.0, 45.0],
+        vaz=[30.0, 150.0], obs_alt=0.0, T=np.array([250.0, 280.0]),
+        p=np.array([300.0, 700.0, 1013.0]), depol=0.0,
+        float_type=np.float32))
+    before = (fused_lin.fused_moment_multitangent.launches,
+              fused_band.fused_moment.launches)
+    with pytest.warns(UserWarning, match="N = 60"):
+        R, _, dR, _ = rt_run_lin(model, device=cuda)
+    assert (fused_lin.fused_moment_multitangent.launches,
+            fused_band.fused_moment.launches) == before
+    inputs, config, tangents = build_tangent_inputs(
+        model, 0, default_layout(model), device=cuda)
+    assert config.fused and config.N == 60
+    R0, _, dR0, _ = rt_solve_jvp(inputs, tangents,
+                                 dataclasses.replace(config, fused=False),
+                                 cuda)
+    R0, dR0 = R0.cpu().numpy(), np.moveaxis(dR0.cpu().numpy(), 0, -1)
+    assert np.abs(R - R0).max() <= 1e-6 * np.abs(R0).max()
+    assert np.abs(dR - dR0).max() <= 1e-6 * np.abs(dR0).max()
 
 
 def _layer_inputs(cuda, K, m=0, ek_form="point"):

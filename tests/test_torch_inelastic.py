@@ -249,6 +249,63 @@ def test_rt_run_inelastic_on_the_cpu():
                          device="cpu")
 
 
+def test_fscatt_counts_aerosols():
+    """The Rayleigh fraction of layer scattering divides by Rayleigh plus
+    every aerosol's optical depth, as in JAX (1e-12), on the small RRS
+    scene with the small Jacobian scene's Mie aerosol, delta-BGE truncated
+    as there, where it falls to ~0.06 in the aerosol layer."""
+    from vsmartmom_tpu.core import model as jm
+    from vsmartmom_tpu.core.inelastic import inelastic_setup as jax_setup
+    from vsmartmom_tpu.scattering.stokes import STOKES_IQU as J_IQU
+    from vsmartmom_tpu_torch.core import model as pm
+    from vsmartmom_tpu_torch.core.inelastic import inelastic_setup
+    from vsmartmom_tpu_torch.flagship import LIN_REF_AEROSOL, LIN_REF_MIE
+    from vsmartmom_tpu_torch.scattering.stokes import STOKES_IQU
+    ref = np.asarray(jax_setup(jm.model_from_parameters(jm.Parameters(
+        surfaces=[jm.SurfaceDescriptor("LambertianSurfaceScalar",
+                                       [RRS_REF_ALBEDO])],
+        polarization=J_IQU, scattering_params=jm.ScatteringParams(
+            rt_aerosols=[jm.RTAerosol(**LIN_REF_AEROSOL)], **LIN_REF_MIE),
+        **rrs_ref_params(), truncation="deltaBGE")))[6])
+    out = inelastic_setup(pm.model_from_parameters(pm.Parameters(
+        surfaces=[pm.SurfaceDescriptor("LambertianSurfaceScalar",
+                                       [RRS_REF_ALBEDO])],
+        polarization=STOKES_IQU, scattering_params=pm.ScatteringParams(
+            rt_aerosols=[pm.RTAerosol(**LIN_REF_AEROSOL)], **LIN_REF_MIE),
+        **rrs_ref_params(), truncation="deltaBGE")), device="cpu")[6].numpy()
+    assert out.shape == ref.shape == (3, N_SPEC)
+    assert ref.min() < 0.1
+    assert _rel(out, ref) <= 1e-12
+
+
+def test_wide_scene_takes_the_plain_rrs_route(monkeypatch):
+    """A scene wider than K3 takes (36 < N <= 64: K1 takes it, so the band
+    path is picked) with the strategy left automatic: rt_run_inelastic
+    warns, naming K3, its limit and N, and runs the plain rt_solve_rrs,
+    equal to an explicit fused=False run. The automatic choice is made as
+    on the card (``types.auto_kernel``); on the CPU the kernel route would
+    run the plain K1 and K3, which differ from the plain path in
+    rounding."""
+    from vsmartmom_tpu_torch.core import model as model_mod
+    from vsmartmom_tpu_torch.core.inelastic import rt_run_inelastic
+    from vsmartmom_tpu_torch.scattering.stokes import STOKES_IQU
+    monkeypatch.setattr(model_mod, "auto_kernel", lambda dev, ft: True)
+
+    def wide(fused=None):
+        model = model_mod.model_from_parameters(model_mod.Parameters(
+            surfaces=[model_mod.SurfaceDescriptor("LambertianSurfaceScalar",
+                                                  [RRS_REF_ALBEDO])],
+            polarization=STOKES_IQU, fused=fused,
+            **dict(rrs_ref_params(), nstreams=10)))
+        model.bands[0].sif_spec = RRS_REF_SIF * np.ones(N_SPEC)
+        return model
+    with pytest.warns(UserWarning, match=r"K3 .* N <= 36; this scene has "
+                                         r"N = 39"):
+        out = rt_run_inelastic(wide(), device="cpu")
+    for a, b in zip(out, rt_run_inelastic(wide(fused=False), device="cpu")):
+        assert np.array_equal(a, b)
+
+
 def make_rrs_ref():
     """R, T, ieR, ieT of the IQU scene from the JAX package on the CPU: the
     f32 model's configuration solved in f64 by the plain rt_solve_rrs."""

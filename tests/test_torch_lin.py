@@ -5,11 +5,13 @@ Scene: ``flagship.lin_ref_model``, the small aerosol scene of
 tests/test_linearization.py (3 layers, nstreams 4, IQU, two points near
 755 nm, wind 6 Cox-Munk ocean; 7 aerosol parameters + wind) with
 delta-BGE truncation and 60 radius nodes, so that its Mie optics build in
-seconds; and its twin over a 0.2-albedo Lambertian floor (albedo parameter).
-Both solve the f32 model's configuration (its doubling count and schedule)
-in f64: that is the stored reference's recipe, and it runs the JAX package
-once per scene. JAX outputs are converted with ``np.asarray`` before the
-torch side runs.
+seconds; its twin over a 0.2-albedo Lambertian floor (albedo parameter);
+and ``flagship.lin_thermal_model``, the Cox-Munk scene with a seeded
+per-layer thermal source (K = 2). All solve the f32 model's configuration
+(its doubling count and schedule) in f64: that is the stored references'
+recipe, and it runs the JAX package once per scene (the thermal scene
+here, beside the others, shares their exact Mie tangent compiles). JAX
+outputs are converted with ``np.asarray`` before the torch side runs.
 
 Tolerances, relative to max|ref|: 1e-12 for the host build and the
 tangents that do not come from the exact Mie tangents (same NumPy
@@ -19,11 +21,12 @@ Riccati-Bessel recursion amplifies the rounding) and for R, T and each
 parameter's dR/dT of the f64 plain route; 2e-5 for the plain K2 against the
 JAX Pallas kernel in interpret mode at f32.
 
-Also holds the stored cross-framework reference
+Also holds the stored cross-framework references
 ``vsmartmom_tpu_torch/data/lin_ref_f64.npz`` (R, T, dR, dT of the Cox-Munk
-scene), which the chip smoke test compares the port's kernel path against:
-a test recomputes it so it cannot go stale. ``python tests/test_torch_lin.py``
-rewrites it.
+scene) and ``data/lin_thermal_ref_f64.npz`` (the thermal scene), which the
+chip smoke test compares the port's kernel path against: tests recompute
+them so they cannot go stale. ``python tests/test_torch_lin.py`` rewrites
+the first, ``python tests/test_torch_thermal.py`` the second.
 """
 
 import dataclasses
@@ -37,12 +40,17 @@ import torch
 if __name__ == "__main__":
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from vsmartmom_tpu_torch.flagship import (LIN_REF_AEROSOL, LIN_REF_MIE,
-                                          lin_ref_model, lin_ref_params)
+                                          lin_ref_model, lin_ref_params,
+                                          lin_thermal_b, lin_thermal_model)
 
 KEYS = ("R", "T", "dR", "dT")
 SURFACES = ("coxmunk", "lambertian")
-REF_PATH = (Path(__file__).resolve().parents[1] / "vsmartmom_tpu_torch"
-            / "data" / "lin_ref_f64.npz")
+#: The JAX runs: each surface, and the Cox-Munk scene with its thermal
+#: source.
+SCENES = SURFACES + ("thermal",)
+DATA = Path(__file__).resolve().parents[1] / "vsmartmom_tpu_torch" / "data"
+REF_PATH = DATA / "lin_ref_f64.npz"
+THERMAL_REF_PATH = DATA / "lin_thermal_ref_f64.npz"
 #: The aerosol-height parameters. Their f32 dR on this 3-layer scene is
 #: ~1e-6 of the others' and lands within ~1.3e-3 of its own scale of the
 #: f64 reference on every route; HEIGHT_GATE still fails a 1% error in it.
@@ -93,12 +101,16 @@ def jax_model(surface="coxmunk"):
         **lin_ref_params()))
 
 
-def jax_rt_run_lin(surface):
+def jax_rt_run_lin(surface, thermal=False):
     """JAX rt_run_lin (its plain jvp route on the CPU) of the scene, with
-    the band build and tangents it ran on, as numpy."""
+    the band build and tangents it ran on, as numpy; ``thermal`` adds the
+    seeded thermal source of ``flagship.lin_thermal_model``."""
     from vsmartmom_tpu.core.linearization import (build_tangent_inputs,
                                                   default_layout, rt_run_lin)
     model = solve_in_f64(jax_model(surface))
+    if thermal:
+        model.bands[0].thermal_b = lin_thermal_b(model.profile.nz,
+                                                 model.bands[0].n_spec)
     layout = default_layout(model)
     inputs, config, tangents = build_tangent_inputs(model, 0, layout)
     out = dict(zip(KEYS, (np.asarray(x) for x in rt_run_lin(model,
@@ -113,7 +125,9 @@ def jax_rt_run_lin(surface):
 
 @pytest.fixture(scope="module")
 def jax_lin():
-    return {s: jax_rt_run_lin(s) for s in SURFACES}
+    out = {s: jax_rt_run_lin(s) for s in SURFACES}
+    out["thermal"] = jax_rt_run_lin("coxmunk", thermal=True)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -184,14 +198,17 @@ def test_fd_mie_tangents_match_jax(port_build):
                             getattr(ref[p]["greek"], f)) <= 1e-12, (p, f)
 
 
-@pytest.mark.parametrize("surface", SURFACES)
+@pytest.mark.parametrize("surface", SCENES)
 def test_rt_run_lin_matches_jax(jax_lin, surface):
     """The entry point on the plain jvp route in f64 against JAX's
-    rt_run_lin: R, T and each parameter's dR, dT within 1e-9."""
+    rt_run_lin: R, T and each parameter's dR, dT within 1e-9 (the thermal
+    scene: a K = 2 solve, 20% of its R from the thermal source)."""
     from vsmartmom_tpu_torch import rt_run_lin
-    model = solve_in_f64(lin_ref_model(surface=surface))
+    model = solve_in_f64(lin_thermal_model() if surface == "thermal"
+                         else lin_ref_model(surface=surface))
     out = dict(zip(KEYS, rt_run_lin(model, device="cpu")))
     ref = jax_lin[surface]
+    assert ref["config"].n_sources == (2 if surface == "thermal" else 1)
     assert out["dR"].shape == ref["dR"].shape == (2, 3, 2, 8)
     for k in ("R", "T"):
         assert _rel(out[k], ref[k]) <= 1e-9, k
@@ -313,7 +330,9 @@ def test_rt_run_lin_on_the_cpu():
     the CPU takes the plain jvp route and lands on the stored JAX
     reference (its configuration in f64): R 1e-4, each parameter's dR
     2e-4 of its own max, the aerosol height's HEIGHT_GATE, which a 1%
-    error in it exceeds; a fused thermal scene is refused."""
+    error in it exceeds; the fused thermal scene (the plain K2 at K = 2 on
+    the CPU) runs and matches the jvp route: R and each parameter's dR
+    2e-5 of their max, dT 2e-5 of the stack's."""
     from vsmartmom_tpu_torch import default_layout, rt_run_lin
     stored = np.load(REF_PATH)
     out = dict(zip(KEYS, rt_run_lin(lin_ref_model(), device="cpu")))
@@ -329,11 +348,15 @@ def test_rt_run_lin_on_the_cpu():
                         stored["dR"][..., q]) > HEIGHT_GATE, name
         else:
             assert err <= 2e-4, name
-    model = lin_ref_model()
+    model = lin_thermal_model()
     model.params.fused = True
-    model.bands[0].thermal_b = np.full((model.profile.nz, 2), 0.1)
-    with pytest.raises(NotImplementedError, match="thermal"):
-        rt_run_lin(model, device="cpu")
+    fused = dict(zip(KEYS, rt_run_lin(model, device="cpu")))
+    model.params.fused = False
+    plain = dict(zip(KEYS, rt_run_lin(model, device="cpu")))
+    assert _rel(fused["R"], plain["R"]) <= 2e-5
+    assert _rel(fused["dT"], plain["dT"]) <= 2e-5
+    for q in range(len(names)):
+        assert _rel(fused["dR"][..., q], plain["dR"][..., q]) <= 2e-5, q
 
 
 def make_lin_ref():
@@ -342,11 +365,49 @@ def make_lin_ref():
     return {k: out[k] for k in KEYS}
 
 
-def test_stored_lin_reference_is_current(jax_lin):
-    stored = np.load(REF_PATH)
+@pytest.mark.parametrize("scene,path", [("coxmunk", REF_PATH),
+                                        ("thermal", THERMAL_REF_PATH)],
+                         ids=["lin", "thermal"])
+def test_stored_lin_reference_is_current(jax_lin, scene, path):
+    stored = np.load(path)
     for k in KEYS:
-        assert stored[k].shape == jax_lin["coxmunk"][k].shape
-        assert _rel(stored[k], jax_lin["coxmunk"][k]) <= 1e-12, k
+        assert stored[k].shape == jax_lin[scene][k].shape
+        assert _rel(stored[k], jax_lin[scene][k]) <= 1e-12, k
+
+
+def test_wide_scene_takes_the_jvp_route(monkeypatch):
+    """A scene wider than K2 takes (52 < N <= 64: K1 takes it, so the band
+    path is picked) with the strategy left automatic: rt_run_lin warns,
+    naming K2, its limit and N, and runs the jvp route, equal to an
+    explicit fused=False run. The automatic choice is made as on the card
+    (``types.auto_kernel``); on the CPU the kernel route would run the
+    plain K2, which differs from the jvp route in rounding."""
+    from vsmartmom_tpu_torch import rt_run_lin
+    from vsmartmom_tpu_torch.core import model as model_mod
+    model = _wide_model()
+    monkeypatch.setattr(model_mod, "auto_kernel", lambda dev, ft: True)
+    with pytest.warns(UserWarning, match=r"K2 .* N <= 52; this scene has "
+                                         r"N = 60"):
+        out = rt_run_lin(model, device="cpu")
+    model.params.fused = False
+    for a, b in zip(out, rt_run_lin(model, device="cpu")):
+        assert np.array_equal(a, b)
+
+
+def _wide_model():
+    """A Rayleigh column over a 0.1-albedo floor, IQUV at nstreams 12
+    (N = 60 with the sun's and view nodes), 2 layers, 2 points, f32: one
+    Jacobian parameter (albedo)."""
+    from vsmartmom_tpu_torch import Parameters, SurfaceDescriptor
+    from vsmartmom_tpu_torch import model_from_parameters
+    from vsmartmom_tpu_torch.scattering.stokes import STOKES_IQUV
+    return model_from_parameters(Parameters(
+        spec_bands=[np.array([13000.0, 13000.5])],
+        surfaces=[SurfaceDescriptor("LambertianSurfaceScalar", [0.1])],
+        nstreams=12, polarization=STOKES_IQUV, sza=40.0, vza=[10.0, 45.0],
+        vaz=[30.0, 150.0], obs_alt=0.0, T=np.array([250.0, 280.0]),
+        p=np.array([300.0, 700.0, 1013.0]), depol=0.0,
+        float_type=np.float32))
 
 
 if __name__ == "__main__":

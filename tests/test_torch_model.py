@@ -123,3 +123,61 @@ def test_legendre_functions_match_jax(which):
         a, b = pl.compute_legendre_poly(x, 9), jl.compute_legendre_poly(x, 9)
     for u, v in zip(a, b):
         np.testing.assert_array_equal(u, v)
+
+
+def test_model_accessors_match_jax():
+    """The reference API's accessors, which the published-table suites read
+    (``model.mu0``, ``model.tau_rayl``), the banner and
+    ``band_solver_args`` on the aerosol flagship, against the JAX model of
+    the same scene."""
+    from __graft_entry__ import _flagship_model
+    from vsmartmom_tpu_torch import flagship_model
+    jm = _flagship_model(n_spec=8, nstreams=4, aerosol=True)
+    pm = flagship_model(n_spec=8, nstreams=4, aerosol=True)
+    assert repr(pm) == repr(jm)
+    assert "1 aerosol(s)" in repr(pm) and "CoxMunkSurface" in repr(pm)
+    assert pm.mu0 == jm.mu0 == pm.quad.mu0
+    assert len(pm.tau_rayl) == len(jm.tau_rayl) == 1
+    assert pm.tau_rayl[0] is pm.bands[0].tau_rayl
+    assert _rel(pm.tau_rayl[0], jm.tau_rayl[0]) <= 1e-12
+    ((inputs, config),) = pm.band_solver_args(device="cpu")
+    assert inputs.tau.device.type == "cpu" and config.N == 4 * pm.quad.Nquad
+
+
+def _wide_model(fused=None):
+    """A Rayleigh column over a 0.1-albedo floor, IQUV at nstreams 14
+    (N = 68 with the sun's and view nodes: wider than K1 takes), 2 layers,
+    2 points, f32."""
+    from vsmartmom_tpu_torch import (Parameters, SurfaceDescriptor,
+                                     model_from_parameters)
+    from vsmartmom_tpu_torch.scattering.stokes import STOKES_IQUV
+    return model_from_parameters(Parameters(
+        spec_bands=[np.array([13000.0, 13000.5])],
+        surfaces=[SurfaceDescriptor("LambertianSurfaceScalar", [0.1])],
+        nstreams=14, polarization=STOKES_IQUV, sza=40.0, vza=[10.0, 45.0],
+        vaz=[30.0, 150.0], obs_alt=0.0, T=np.array([250.0, 280.0]),
+        p=np.array([300.0, 700.0, 1013.0]), depol=0.0,
+        float_type=np.float32, fused=fused))
+
+
+def test_wide_scene_takes_the_plain_route(monkeypatch):
+    """A scene wider than K1 takes (N > 64) with the strategy left
+    automatic: build_band warns, naming K1, its limit and N, and picks the
+    plain path, so rt_run equals an explicit fused=False run. The
+    automatic choice is made as on the card (``types.auto_kernel``); on the
+    CPU the band route would run the plain K1, which differs from the plain
+    path in rounding. An explicit fused=True keeps the band route."""
+    from vsmartmom_tpu_torch import rt_run
+    from vsmartmom_tpu_torch.core import model as model_mod
+    monkeypatch.setattr(model_mod, "auto_kernel", lambda dev, ft: True)
+    model = _wide_model()
+    with pytest.warns(UserWarning, match=r"K1 .* N <= 64; this scene has "
+                                         r"N = 68"):
+        _, config = model.build_band(0, device="cpu")
+    assert not config.fused and config.N == 68
+    with pytest.warns(UserWarning, match="K1"):
+        out = rt_run(model, device="cpu")
+    for a, b in zip(out, rt_run(_wide_model(fused=False), device="cpu")):
+        assert np.array_equal(a, b)
+    _, config = _wide_model(fused=True).build_band(0, device="cpu")
+    assert config.fused

@@ -30,17 +30,20 @@ RRS kernel (``ops/fused_rrs.py``); only the surface step runs the plain
 queued in ROADMAP.md.
 """
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..ops.fused_band import fused_moment
-from ..ops.fused_rrs import fused_moment_rrs, ie_ladder_resolution, roll_stack
+from ..ops.fused_rrs import (KERNEL_MAX_N, fused_moment_rrs,
+                             ie_ladder_resolution, roll_stack)
 from .kernels import (AddedLayer, CompositeLayer, _exp, _expm1,
                       identity_composite, interaction)
 from .solver import _elemental_and_sources, _surface_layer, band_moment_args
-from .types import resolve_device, rrs_setup_from_numpy, stokes_d_vector
+from .types import (kernel_takes_width, resolve_device, rrs_setup_from_numpy,
+                    stokes_d_vector)
 
 
 class IEAdded(NamedTuple):
@@ -525,9 +528,13 @@ def inelastic_setup(model, i_band: int = 0, mode: str = "RRS", device=None):
         model.params.polarization, model.quad.qp_mu, [greek_raman()],
         config.m_max + 1))
     # Rayleigh fraction of layer scattering (fScattRayleigh,
-    # compEffectiveLayerProperties.jl:56); no aerosols in the port yet.
-    tau_rayl = band.tau_rayl.T
-    fscatt = tau_rayl / np.where(tau_rayl > 0, tau_rayl, 1.0)
+    # compEffectiveLayerProperties.jl:56): tau_rayl / (tau_rayl + tau_aer).
+    tau_scat_mix = band.tau_rayl.T.copy()          # (Nz, s)
+    for aer in band.aerosols:
+        prof = np.asarray(aer.tau_profile)
+        tau_scat_mix = tau_scat_mix + (prof[:, None] if prof.ndim == 1
+                                       else prof.T)
+    fscatt = band.tau_rayl.T / np.where(tau_scat_mix > 0, tau_scat_mix, 1.0)
     return (inputs, config, *rrs_setup_from_numpy(
         shifts, w_shifts, Z_r_pp, Z_r_mp, fscatt, dev))
 
@@ -538,12 +545,18 @@ def rt_run_inelastic(model, i_band: int = 0, mode: str = "RRS", device=None,
     every spectral point exchanges with its rotational-line neighbourhood.
 
     An f32 model on CUDA runs the kernel path (``rt_solve_rrs_fused``),
-    anything else the plain path. Returns numpy (R, T, ieR, ieT): the
-    elastic radiance factors and the inelastic contributions, each
+    anything else the plain path; so does a scene wider than K3 takes
+    (N > ``ops.fused_rrs.KERNEL_MAX_N``), with one warning, when
+    ``model.params.fused`` was left at None. Returns numpy (R, T, ieR, ieT):
+    the elastic radiance factors and the inelastic contributions, each
     (nVZA, n_stokes, nSpec). Total = R + ieR."""
     dev = resolve_device(device)
     (inputs, config, shifts, w_shifts, Z_r_pp, Z_r_mp,
      fscatt) = inelastic_setup(model, i_band, mode, dev)
+    if config.fused and model.params.fused is None and not \
+            kernel_takes_width("K3 (csrc/fused_rrs.cu)", KERNEL_MAX_N,
+                               config.N):
+        config = dataclasses.replace(config, fused=False)
     if config.fused:
         out = rt_solve_rrs_fused(inputs, config, shifts, w_shifts, Z_r_pp,
                                  Z_r_mp, fscatt, dev, ie_fullres=ie_fullres)

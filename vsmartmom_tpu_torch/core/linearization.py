@@ -15,10 +15,12 @@ model build:
 * Cox-Munk wind speed: the analytic sigma^2-chain tangent of the surface
   operators and of the TMS correction.
 
-``rt_run_lin`` routes by configuration: the band path with one source
-(``config.fused``, K = 1) runs the multitangent kernel K2
-(``ops/fused_lin.py``); the plain path runs ``torch.func.jvp`` through
-``rt_solve``, vmapped over the tangents, which is the Jacobian baseline. The band path with a thermal source (K = 2) is not ported yet.
+``rt_run_lin`` routes by configuration: the band path (``config.fused``)
+runs the multitangent kernel K2 (``ops/fused_lin.py``) for solar (K = 1)
+and thermal (K = 2, solar + Planck) scenes alike; the plain path runs
+``torch.func.jvp`` through ``rt_solve``, vmapped over the tangents, which
+is the Jacobian baseline. A scene too wide for K2 whose strategy was left
+automatic (``Parameters.fused`` None) takes the plain path with a warning.
 
 The band is built once per call and its inputs are handed to every tangent
 build; nothing is cached on the model. Gas absorption and its VMR
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 
 from .solver import rt_solve
-from .types import SolverInputs, resolve_device
+from .types import SolverInputs, kernel_takes_width, resolve_device
 
 AEROSOL_PARAMS = ("tau_ref", "n_r", "n_i", "r_mode", "sigma_g", "p0",
                   "sigma_p")
@@ -281,19 +283,25 @@ def rt_run_lin(model, i_band: int = 0, layout: ParameterLayout = None,
 
     Returns numpy (R, T, dR, dT): R/T (nVZA, nStokes, nSpec), dR/dT
     (nVZA, nStokes, nSpec, Nparams). The wind-speed Jacobian includes the
-    TMS glint-correction derivative."""
+    TMS glint-correction derivative.
+
+    The band path (``config.fused``) runs K2 at the band's K = 1 or 2; a
+    scene wider than K2 takes (N > ``ops.fused_lin.KERNEL_MAX_N``) runs
+    ``rt_solve_jvp`` instead, with one warning, when ``model.params.fused``
+    was left at None (an explicit True still launches, and K2 refuses)."""
+    from ..ops import fused_lin
     dev = resolve_device(device)
     if layout is None:
         layout = default_layout(model, i_band)
     inputs, config, tangents = build_tangent_inputs(
         model, i_band, layout, fd_rel, dev)
+    if config.fused and model.params.fused is None and not \
+            kernel_takes_width("K2 (csrc/fused_lin.cu)",
+                               fused_lin.KERNEL_MAX_N, config.N):
+        config = dc_replace(config, fused=False)
     if config.fused:
-        if config.n_sources != 1:
-            raise NotImplementedError(
-                "the thermal (K = 2) Jacobian route through the band kernel "
-                "is not ported yet (ROADMAP.md); run with fused=False")
-        from ..ops.fused_lin import rt_solve_multitangent
-        R, T, dR, dT = rt_solve_multitangent(inputs, tangents, config, dev)
+        R, T, dR, dT = fused_lin.rt_solve_multitangent(inputs, tangents,
+                                                       config, dev)
     else:
         R, T, dR, dT = rt_solve_jvp(inputs, tangents, config, dev)
     R, T = R.cpu().numpy(), T.cpu().numpy()

@@ -30,8 +30,8 @@ from ..utils.quadrature import QuadPoints, nearest_index, rt_set_streams
 from .atmosphere import (AtmosphericProfile, aerosol_profile_shape,
                          compute_atmos_profile_fields, compute_ndoubl,
                          rayleigh_layer_tau, reduce_profile)
-from .types import (SolverConfig, resolve_device, solver_inputs_from_numpy,
-                    stokes_d_vector)
+from .types import (SolverConfig, auto_kernel, kernel_takes_width,
+                    resolve_device, solver_inputs_from_numpy, stokes_d_vector)
 
 
 @dataclass
@@ -56,8 +56,10 @@ class Parameters:
     absorption_params: Optional[Any] = None   # not ported yet: must be None
     scattering_params: Optional["ScatteringParams"] = None
     dtau_max_threshold: float = 1e-3
+    include_solar: bool = True          # zero F0 for thermal-only runs
     quadrature: str = "GaussLegQuad"
-    # Execution strategy (None = auto: the band kernel for f32 on CUDA).
+    # Execution strategy (None = auto: the band kernel for f32 on CUDA
+    # where the scene's width fits it).
     fused: Optional[bool] = None
 
     @property
@@ -198,6 +200,39 @@ class RTModel:
         self.vza_idx = tuple(nearest_index(quad.qp_mu, np.cos(np.deg2rad(v)))
                              for v in params.vza)
 
+    def __repr__(self):
+        """Reference-style model banner (tools/show_utils.jl)."""
+        p = self.params
+        lines = [f"RTModel  {p.polarization.name}  nstreams={p.nstreams} "
+                 f"(Nquad={self.quad.Nquad})  sza={p.sza:.1f}  "
+                 f"vza={[float(v) for v in p.vza]}  Nz={self.profile.nz}  "
+                 f"f{np.dtype(p.float_type).itemsize*8}"]
+        for i, b in enumerate(self.bands):
+            nu = b.nu_grid
+            aer = f", {len(b.aerosols)} aerosol(s)" if b.aerosols else ""
+            abs_ = ", abs" if np.any(b.tau_abs) else ""
+            lines.append(
+                f"  band[{i}]: {nu.min():.1f}-{nu.max():.1f} cm^-1 "
+                f"({b.n_spec} pts), m_max={self._band_m_max(b)}, "
+                f"{b.surface.kind}{aer}{abs_}, "
+                f"tau_rayl={np.asarray(b.tau_rayl).sum(axis=-1).max():.4f}")
+        return "\n".join(lines)
+
+    # -- accessors of the reference API, which the published-table suites
+    # read --
+    @property
+    def tau_rayl(self):
+        return [b.tau_rayl for b in self.bands]
+
+    @property
+    def mu0(self):
+        return self.quad.mu0
+
+    def band_solver_args(self, device=None):
+        """``build_band`` of every band on ``device``."""
+        return [self.build_band(i, device=device)
+                for i in range(len(self.bands))]
+
     def _band_m_max(self, band: BandData) -> int:
         """Per-band Fourier order from component support, clamped by the
         stream contract stream_l_cap = 2*Nstreams - 1."""
@@ -211,8 +246,10 @@ class RTModel:
         """(SolverInputs on ``device`` as float64, SolverConfig) for one band.
 
         ``device`` also picks the strategy when ``params.fused`` is None:
-        the band kernel for an f32 model on CUDA, the plain path otherwise
-        (an f64 model stays on the plain path, as in the JAX package).
+        the band kernel for an f32 model on CUDA (``types.auto_kernel``)
+        whose width N fits it (``ops.fused_band.KERNEL_MAX_N``; a wider
+        scene warns and takes the plain path), the plain path otherwise (an
+        f64 model stays on the plain path, as in the JAX package).
         ``rrs=True`` builds the elastic half of a rotational-Raman run: the
         Cabannes Greek coefficients and scattering weight
         tau_rayl * pi_cabannes (compEffectiveLayerProperties.jl:8-9,36-41);
@@ -269,6 +306,8 @@ class RTModel:
                 vza_w[m, iv] = w * np.array([cosm, cosm, sinm, sinm][:ns])
 
         F0 = np.tile(pol.I0[:, None], (1, n_spec))
+        if not params.include_solar:
+            F0 = np.zeros_like(F0)
 
         n_sources = 2 if band.thermal_b is not None else 1
         thermal_b = band.thermal_b if band.thermal_b is not None \
@@ -279,7 +318,9 @@ class RTModel:
         # a scene-probed Newton-Schulz schedule on the kernel path.
         fused = params.fused
         if fused is None:
-            fused = dev.type == "cuda" and ft == np.float32
+            from ..ops.fused_band import KERNEL_MAX_N
+            fused = auto_kernel(dev, ft) and kernel_takes_width(
+                "K1 (csrc/fused_band.cu)", KERNEL_MAX_N, quad.Nquad * ns)
         ns_sched, ns_inter = (), 6
         if fused and ndoubl > 0:
             from ..ops.ns_schedule import probe_ns_schedule

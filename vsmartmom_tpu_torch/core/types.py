@@ -15,9 +15,14 @@ compared array for array.
 ``rrs_setup_from_numpy`` carry state across: they take the JAX package's
 ``build_band`` and ``inelastic_setup`` outputs as plain numpy arrays and a
 field dict, so the two packages run on identical inputs.
+
+``auto_kernel`` and ``kernel_takes_width`` are the automatic choice of
+route (``Parameters.fused`` None): the hand-written kernels for a float32
+model on CUDA, where the scene's width fits the kernel.
 """
 
 import dataclasses
+import warnings
 from dataclasses import dataclass
 from typing import Any, NamedTuple
 
@@ -36,6 +41,26 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def auto_kernel(dev: torch.device, float_type) -> bool:
+    """The automatic strategy: the kernel routes for a float32 model on
+    CUDA, the plain routes otherwise (an f64 model stays plain, as in the
+    JAX package)."""
+    return dev.type == "cuda" and np.dtype(float_type) == np.float32
+
+
+def kernel_takes_width(kernel: str, limit: int, N: int) -> bool:
+    """Whether an automatically chosen kernel route takes a scene of N
+    streams: True for N <= ``limit``; otherwise one warning that names the
+    kernel, its limit and N, and the caller takes its plain route. A choice
+    made from the shape before any launch, as the JAX package chooses its
+    routes."""
+    if N <= limit:
+        return True
+    warnings.warn(f"{kernel} takes N <= {limit}; this scene has N = {N}, "
+                  "so it runs the plain route", stacklevel=3)
+    return False
 
 
 @dataclass(frozen=True)

@@ -1,10 +1,23 @@
 // Multitangent band kernel K2 for Hopper (sm_90a): one Fourier moment of the
 // adding-doubling solve over all layers, plus the forward-mode tangent of its
-// composite along P parameters.
+// composite along P parameters, for K = 1 (solar) or K = 2 (solar + thermal)
+// source columns.
 //
-// Replaces the TPU kernel vsmartmom_tpu/ops/fused_lin.py::
-// fused_moment_multitangent -> _mt_kernel, whose tangent algebra comes from
-// jax.linearize of the forward body at trace time. Here it is written out:
+// Replaces two TPU kernels:
+//   * vsmartmom_tpu/ops/fused_lin.py::fused_moment_multitangent -> _mt_kernel
+//     (K = 1), whose tangent algebra comes from jax.linearize of the forward
+//     body at trace time;
+//   * K1' (K = 2): the tangent kernel that Pallas's automatic JVP rule builds
+//     from vsmartmom_tpu/ops/fused_band.py::fused_moment -> _moment_kernel,
+//     which the JAX package's thermal Jacobian runs one parameter per
+//     dispatch (core/linearization.py). One launch here does all P.
+// The second source column is the isothermal Planck source: it doubles with
+// ek = 1 (tangent 0), so the ladder's source jobs and the E_EK epilogue loop
+// over the K columns of every (N, K) source vector. K is a template argument:
+// the K = 1 instance is the solar kernel's code, with no index arithmetic
+// over a run-time K.
+//
+// The tangent algebra is written out:
 // every product A B of the forward kernel (csrc/fused_band.cu) gets the
 // tangent product dA B + A dB, and
 //   * the elemental assembly is differentiated through its row tables, the
@@ -19,7 +32,9 @@
 // Design (a): a grid over (spectral point, tangent). Each block runs the
 // primal and ONE tangent chain in lockstep, keeping both composites and both
 // ladders in shared memory for the whole moment: twenty N x N f32 operators
-// (216 KB at N = 52, one block per SM) and fourteen N-vectors. The primal is
+// (216 KB at N = 52, one block per SM) and fourteen (N, K) source vectors
+// (222,768 B in all at N = 52, K = 2, inside the 232,448 B a block may opt
+// in to). The primal is
 // so recomputed once per tangent: P (1 + 2) primal-units of work against the
 // least 1 + 2P (24 against 17 at P = 8). Block (pt, 0) writes the primal.
 //
@@ -33,6 +48,7 @@
 #include <cuda_runtime.h>
 
 #define VSM_MAX_N 52
+#define VSM_MAX_K 2
 #define VSM_MAX_DOUBL 32
 #define VSM_NMAT 20
 #define VSM_NVEC 14
@@ -48,37 +64,50 @@ struct Args {
   const float* w;     // (nz, C, s) scattering weight over tau per component
   const float* Em1;   // (nz, s, N) expm1(-dtau/mu_i)
   const float* dt;    // (nz, s) elemental optical depth
-  const float* jp;    // (nz, s, N) elemental sources j0+ (K = 1)
-  const float* jms;   // (nz, s, N) starred elemental sources D j0-
-  const float* ek;    // (nz, s) beam attenuation per doubling
+  const float* jp;    // (nz, s, N, K) elemental sources j0+
+  const float* jms;   // (nz, s, N, K) starred elemental sources D j0-
+  const float* ek;    // (nz, s, K) per-source attenuation per doubling
   // Tangents of the operands above, each with a leading P axis.
   const float* dZpp;  // (P, C, N, N)
   const float* dZmp;
   const float* dw;    // (P, nz, C, s)
   const float* dEm1;  // (P, nz, s, N)
   const float* ddt;   // (P, nz, s)
-  const float* djp;   // (P, nz, s, N)
+  const float* djp;   // (P, nz, s, N, K)
   const float* djms;
-  const float* dek;   // (P, nz, s)
+  const float* dek;   // (P, nz, s, K)
   float* Rmp;         // (s, N, N) primal composite
   float* Rpm;
   float* Tpp;
   float* Tmm;
-  float* Jp;          // (s, N)
+  float* Jp;          // (s, N, K)
   float* Jm;
   float* tRmp;        // (P, s, N, N) tangent composites
   float* tRpm;
   float* tTpp;
   float* tTmm;
-  float* tJp;         // (P, s, N)
+  float* tJp;         // (P, s, N, K)
   float* tJm;
   int s, N, C, nz, P, ndoubl, ns_inter;
   int sched[VSM_MAX_DOUBL];
 };
 
 // Epilogues: C = f(acc) with E the job's extra operand, d the D diagonal,
-// ek / dek the beam factor of this doubling step and its tangent.
+// ek / dek the output's source column's factor of this doubling step and its
+// tangent (vector jobs only).
 enum { E_ST = 0, E_ACC, E_NS, E_NEG, E_ADD, E_SGN, E_EK, E_EKT };
+
+// Each source column's attenuation per doubling of this step and its
+// tangent, passed by value so that they stay in registers.
+struct Beam {
+  float ek[VSM_MAX_K];
+  float dek[VSM_MAX_K];
+};
+
+// Column c < K of a Beam field, without a run-time index into it.
+__device__ __forceinline__ float column(const float (&v)[VSM_MAX_K], int c) {
+  return c == 0 ? v[0] : v[1];
+}
 
 struct Job {
   const float* A0;
@@ -151,9 +180,11 @@ __device__ __forceinline__ void mac_tile(const float* __restrict__ A,
 }
 
 // One phase: nm matrix jobs (n x n outputs, 4 x 4 tiles per thread) and nv
-// vector jobs (n outputs, one per thread). The caller synchronises after.
+// vector jobs (n x K outputs of an (N, K) vector, one per thread; b holds
+// each column's factors). The caller synchronises after.
+template <int K>
 __device__ void product(const Job* jm, int nm, const Job* jv, int nv,
-                        const float* d, float ek, float dek, int n, int LD) {
+                        const float* d, Beam b, int n, int LD) {
   const int tg = (n + 3) >> 2;
   const int tiles = tg * tg;
   for (int t = threadIdx.x; t < nm * tiles; t += blockDim.x) {
@@ -179,31 +210,36 @@ __device__ void product(const Job* jm, int nm, const Job* jv, int nv,
         const int j = j0 + c;
         if (j < n) {
           const int idx = i * LD + j;
-          o.C[idx] = epilogue(o.epi, acc[r][c], o.C, o.E, idx, i, j, d, ek,
-                              dek);
+          o.C[idx] = epilogue(o.epi, acc[r][c], o.C, o.E, idx, i, j, d, 0.0f,
+                              0.0f);
         }
       }
     }
   }
-  for (int t = threadIdx.x; t < nv * n; t += blockDim.x) {
-    const int q = t / n;
+  const int nk = n * K;
+  for (int t = threadIdx.x; t < nv * nk; t += blockDim.x) {
+    const int q = t / nk;
     const Job o = jv[q];
-    const int i = t - q * n;
+    const int e = t - q * nk;            // (i, c) of the (N, K) output
+    const int i = e / K;
+    const int c = e - i * K;
     const float* a = o.A0 + i * LD;
     float acc = 0.0f;
-    for (int k = 0; k < n; ++k) acc = fmaf(a[k], o.B0[k], acc);
+    for (int k = 0; k < n; ++k) acc = fmaf(a[k], o.B0[k * K + c], acc);
     if (o.A1 != nullptr) {
       const float* a1 = o.A1 + i * LD;
-      for (int k = 0; k < n; ++k) acc = fmaf(a1[k], o.B1[k], acc);
+      for (int k = 0; k < n; ++k) acc = fmaf(a1[k], o.B1[k * K + c], acc);
     }
-    o.C[i] = epilogue(o.epi, acc, o.C, o.E, i, i, 0, d, ek, dek);
+    o.C[e] = epilogue(o.epi, acc, o.C, o.E, e, i, c, d, column(b.ek, c),
+                      column(b.dek, c));
   }
 }
 
+template <int K>
 __device__ __forceinline__ void phase(const Job* jm, int nm, const Job* jv,
-                                      int nv, const float* d, float ek,
-                                      float dek, int n, int LD) {
-  product(jm, nm, jv, nv, d, ek, dek, n, LD);
+                                      int nv, const float* d, Beam b, int n,
+                                      int LD) {
+  product<K>(jm, nm, jv, nv, d, b, n, LD);
   __syncthreads();
 }
 
@@ -235,9 +271,9 @@ __device__ void ns_inverse(float* T[4], float* U[4], int iters,
   __syncthreads();
   for (int it = 0; it < iters; ++it) {
     const Job a[2] = {job(S, m, c, E_NS, m), tjob(dS, m, S, dm, dc, E_NEG, dm)};
-    phase(a, 2, nullptr, 0, d, 0.0f, 0.0f, n, LD);
+    phase<1>(a, 2, nullptr, 0, d, Beam{}, n, LD);
     const Job b[2] = {job(m, c, nm), tjob(dm, c, m, dc, dnm)};
-    phase(b, 2, nullptr, 0, d, 0.0f, 0.0f, n, LD);
+    phase<1>(b, 2, nullptr, 0, d, Beam{}, n, LD);
     float* tmp = m;
     m = nm;
     nm = tmp;
@@ -255,12 +291,15 @@ __device__ void ns_inverse(float* T[4], float* U[4], int iters,
   U[3] = dnm;
 }
 
+template <int K>
 __global__ void __launch_bounds__(VSM_THREADS, 1) mt_kernel(const Args a) {
   extern __shared__ __align__(16) float smem[];
   const int N = a.N, C = a.C, s = a.s;
   const int LD = (N + 3) & ~3;           // float4-aligned rows
   const int MS = N * LD;
   const int NN = N * N;
+  const int NK = N * K;
+  const int VS = (NK + 3) & ~3;          // stride of an (N, K) vector
   const int pt = blockIdx.x;             // spectral point of this block
   const int q = blockIdx.y;              // tangent of this block
   const int tid = threadIdx.x;
@@ -283,20 +322,20 @@ __global__ void __launch_bounds__(VSM_THREADS, 1) mt_kernel(const Args a) {
                  smem + 19 * MS};
   float* V = smem + VSM_NMAT * MS;
   float* Jp = V;
-  float* Jm = V + LD;
-  float* jp = V + 2 * LD;
-  float* jm = V + 3 * LD;
-  float* va = V + 4 * LD;
-  float* vb = V + 5 * LD;
-  float* vc = V + 6 * LD;
-  float* dJp = V + 7 * LD;
-  float* dJm = V + 8 * LD;
-  float* djp = V + 9 * LD;
-  float* djm = V + 10 * LD;
-  float* dva = V + 11 * LD;
-  float* dvb = V + 12 * LD;
-  float* dvc = V + 13 * LD;
-  float* sE = V + VSM_NVEC * LD;         // Em1 row of the layer
+  float* Jm = V + VS;
+  float* jp = V + 2 * VS;
+  float* jm = V + 3 * VS;
+  float* va = V + 4 * VS;
+  float* vb = V + 5 * VS;
+  float* vc = V + 6 * VS;
+  float* dJp = V + 7 * VS;
+  float* dJm = V + 8 * VS;
+  float* djp = V + 9 * VS;
+  float* djm = V + 10 * VS;
+  float* dva = V + 11 * VS;
+  float* dvb = V + 12 * VS;
+  float* dvc = V + 13 * VS;
+  float* sE = V + VSM_NVEC * VS;         // Em1 row of the layer
   float* dE = sE + LD;                   // its tangent
   float* sd = dE + LD;                   // D diagonal
 
@@ -307,9 +346,9 @@ __global__ void __launch_bounds__(VSM_THREADS, 1) mt_kernel(const Args a) {
   const float* dw = a.dw + qn * a.nz * C * s;
   const float* dEm1 = a.dEm1 + qn * a.nz * s * N;
   const float* ddt = a.ddt + qn * a.nz * s;
-  const float* djpq = a.djp + qn * a.nz * s * N;
-  const float* djmq = a.djms + qn * a.nz * s * N;
-  const float* dek = a.dek + qn * a.nz * s;
+  const float* djpq = a.djp + qn * a.nz * s * NK;
+  const float* djmq = a.djms + qn * a.nz * s * NK;
+  const float* dekq = a.dek + qn * a.nz * s * K;
 
   // Vacuum composite (R = 0, T = I, J = 0); its tangent is zero.
   for (int e = tid; e < NN; e += nt) {
@@ -325,13 +364,13 @@ __global__ void __launch_bounds__(VSM_THREADS, 1) mt_kernel(const Args a) {
     dTpp[idx] = 0.0f;
     dTmm[idx] = 0.0f;
   }
-  for (int i = tid; i < N; i += nt) {
-    Jp[i] = 0.0f;
-    Jm[i] = 0.0f;
-    dJp[i] = 0.0f;
-    dJm[i] = 0.0f;
-    sd[i] = a.dvec[i];
+  for (int e = tid; e < NK; e += nt) {
+    Jp[e] = 0.0f;
+    Jm[e] = 0.0f;
+    dJp[e] = 0.0f;
+    dJm[e] = 0.0f;
   }
+  for (int i = tid; i < N; i += nt) sd[i] = a.dvec[i];
 
   const float* RG = a.geom;
   const float* GA = a.geom + NN;
@@ -344,15 +383,21 @@ __global__ void __launch_bounds__(VSM_THREADS, 1) mt_kernel(const Args a) {
     for (int i = tid; i < N; i += nt) {
       sE[i] = a.Em1[zs * N + i];
       dE[i] = dEm1[zs * N + i];
-      jp[i] = a.jp[zs * N + i];
-      jm[i] = a.jms[zs * N + i];
-      djp[i] = djpq[zs * N + i];
-      djm[i] = djmq[zs * N + i];
+    }
+    for (int e = tid; e < NK; e += nt) {
+      jp[e] = a.jp[zs * NK + e];
+      jm[e] = a.jms[zs * NK + e];
+      djp[e] = djpq[zs * NK + e];
+      djm[e] = djmq[zs * NK + e];
     }
     const float dtz = a.dt[zs];
     const float ddtz = ddt[zs];
-    float ek = a.ek[zs];
-    float dk = dek[zs];
+    Beam bm{};
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      bm.ek[c] = a.ek[zs * K + c];
+      bm.dek[c] = dekq[zs * K + c];
+    }
     __syncthreads();
 
     // ---- elemental assembly and its tangent: r* = D r-+, t++ ----
@@ -392,12 +437,13 @@ __global__ void __launch_bounds__(VSM_THREADS, 1) mt_kernel(const Args a) {
     // ---- doubling ladder on starred operators, primal and tangent ----
     for (int step = 0; step < a.ndoubl; ++step) {
       // S = r r and its tangent; jm_e = jm ek and its tangent.
-      for (int i = tid; i < N; i += nt) {
-        va[i] = jm[i] * ek;
-        dva[i] = djm[i] * ek + jm[i] * dk;
+      for (int e = tid; e < NK; e += nt) {
+        const float ek = column(bm.ek, e % K);
+        va[e] = jm[e] * ek;
+        dva[e] = djm[e] * ek + jm[e] * column(bm.dek, e % K);
       }
       const Job p1[2] = {job(r, r, T[0]), tjob(dr, r, r, dr, U[0])};
-      phase(p1, 2, nullptr, 0, sd, ek, dk, N, LD);
+      phase<K>(p1, 2, nullptr, 0, sd, bm, N, LD);
       ns_inverse(T, U, a.sched[step], sd, N, LD);   // T[0] = gp, U[0] = dgp
       // tt_gp = t gp -> T1; rt = r t -> T2; vb = jm_e + r jp; vc = jp + r jm_e
       const Job p2m[4] = {job(t, T[0], T[1]), tjob(dt, T[0], t, U[0], U[1]),
@@ -405,7 +451,7 @@ __global__ void __launch_bounds__(VSM_THREADS, 1) mt_kernel(const Args a) {
       const Job p2v[4] = {job(r, jp, vb, E_ADD, va), job(r, va, vc, E_ADD, jp),
                           tjob(dr, jp, r, djp, dvb, E_ADD, dva),
                           tjob(dr, va, r, dva, dvc, E_ADD, djp)};
-      phase(p2m, 4, p2v, 4, sd, ek, dk, N, LD);
+      phase<K>(p2m, 4, p2v, 4, sd, bm, N, LD);
       // t' = tt_gp t -> T3; r += tt_gp rt; jm += tt_gp vb; and tangents.
       // The tangent of jp' = jp ek + tt_gp vc reads the old jp, so the
       // primal jp is updated in a phase of its own afterwards.
@@ -415,17 +461,20 @@ __global__ void __launch_bounds__(VSM_THREADS, 1) mt_kernel(const Args a) {
       const Job p3v[3] = {job(T[1], vb, jm, E_ACC),
                           tjob(U[1], vb, T[1], dvb, djm, E_ACC),
                           tjob(U[1], vc, T[1], dvc, djp, E_EKT, jp)};
-      phase(p3m, 4, p3v, 3, sd, ek, dk, N, LD);
+      phase<K>(p3m, 4, p3v, 3, sd, bm, N, LD);
       const Job p4v[1] = {job(T[1], vc, jp, E_EK)};
-      phase(nullptr, 0, p4v, 1, sd, ek, dk, N, LD);
+      phase<K>(nullptr, 0, p4v, 1, sd, bm, N, LD);
       float* tmp = t;
       t = T[3];
       T[3] = tmp;
       tmp = dt;
       dt = U[3];
       U[3] = tmp;
-      dk = 2.0f * ek * dk;
-      ek *= ek;
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        bm.dek[c] = 2.0f * bm.ek[c] * bm.dek[c];
+        bm.ek[c] *= bm.ek[c];
+      }
     }
 
     // ---- unstar: r-+ = D r*, j0- = D j-* ----
@@ -435,15 +484,15 @@ __global__ void __launch_bounds__(VSM_THREADS, 1) mt_kernel(const Args a) {
       r[idx] *= sd[i];
       dr[idx] *= sd[i];
     }
-    for (int i = tid; i < N; i += nt) {
-      jm[i] *= sd[i];
-      djm[i] *= sd[i];
+    for (int e = tid; e < NK; e += nt) {
+      jm[e] *= sd[e / K];
+      djm[e] *= sd[e / K];
     }
     __syncthreads();
 
     // ---- adding onto the composite, primal and tangent ----
     const Job i1[2] = {job(r, Rpm, T[0]), tjob(dr, Rpm, r, dRpm, U[0])};
-    phase(i1, 2, nullptr, 0, sd, 0.0f, 0.0f, N, LD);      // r-+ R+-
+    phase<K>(i1, 2, nullptr, 0, sd, Beam{}, N, LD);      // r-+ R+-
     ns_inverse(T, U, a.ns_inter, sd, N, LD);              // T[0] = inv1
     // T01_inv = T-- inv1 -> T1; rT = r T++ -> T2; u = inv1 r -> T3;
     // va = j0- + r J+
@@ -453,7 +502,7 @@ __global__ void __launch_bounds__(VSM_THREADS, 1) mt_kernel(const Args a) {
                         job(T[0], r, T[3]), tjob(U[0], r, T[0], dr, U[3])};
     const Job i2v[2] = {job(r, Jp, va, E_ADD, jm),
                         tjob(dr, Jp, r, dJp, dva, E_ADD, djm)};
-    product(i2m, 6, i2v, 2, sd, 0.0f, 0.0f, N, LD);
+    product<K>(i2m, 6, i2v, 2, sd, Beam{}, N, LD);
     for (int e = tid; e < NN; e += nt) {                  // t-- = D t D
       const int i = e / N;
       const int j = e - i * N;
@@ -468,14 +517,14 @@ __global__ void __launch_bounds__(VSM_THREADS, 1) mt_kernel(const Args a) {
                         tjob(U[1], T[2], T[1], U[2], dRmp, E_ACC)};
     const Job i3v[2] = {job(T[1], va, Jm, E_ACC),
                         tjob(U[1], va, T[1], dva, dJm, E_ACC)};
-    phase(i3m, 4, i3v, 2, sd, 0.0f, 0.0f, N, LD);
+    phase<K>(i3m, 4, i3v, 2, sd, Beam{}, N, LD);
     // Ru = R+- u -> T0; Rt = R+- t-- -> T1; vb = J+ + R+- j0-
     const Job i4m[4] = {job(Rpm, T[3], T[0]),
                         tjob(dRpm, T[3], Rpm, U[3], U[0]),
                         job(Rpm, t, T[1]), tjob(dRpm, t, Rpm, dt, U[1])};
     const Job i4v[2] = {job(Rpm, jm, vb, E_ADD, Jp),
                         tjob(dRpm, jm, Rpm, djm, dvb, E_ADD, dJp)};
-    phase(i4m, 4, i4v, 2, sd, 0.0f, 0.0f, N, LD);
+    phase<K>(i4m, 4, i4v, 2, sd, Beam{}, N, LD);
     for (int e = tid; e < NN; e += nt) {                  // back to t++
       const int i = e / N;
       const int j = e - i * N;
@@ -487,7 +536,7 @@ __global__ void __launch_bounds__(VSM_THREADS, 1) mt_kernel(const Args a) {
     // T21_inv = t++ + t++ Ru -> T2
     const Job i5m[2] = {job(t, T[0], T[2], E_ADD, t),
                         tjob(dt, T[0], t, U[0], U[2], E_ADD, dt)};
-    phase(i5m, 2, nullptr, 0, sd, 0.0f, 0.0f, N, LD);
+    phase<K>(i5m, 2, nullptr, 0, sd, Beam{}, N, LD);
     // T++ = T21_inv T++ -> T3; R+- = D r-+ D + T21_inv Rt; J+ = j0+ + T21 vb
     const Job i6m[4] = {job(T[2], Tpp, T[3]),
                         tjob(U[2], Tpp, T[2], dTpp, U[3]),
@@ -495,7 +544,7 @@ __global__ void __launch_bounds__(VSM_THREADS, 1) mt_kernel(const Args a) {
                         tjob(U[2], T[1], T[2], U[1], dRpm, E_SGN, dr)};
     const Job i6v[2] = {job(T[2], vb, Jp, E_ADD, jp),
                         tjob(U[2], vb, T[2], dvb, dJp, E_ADD, djp)};
-    phase(i6m, 4, i6v, 2, sd, 0.0f, 0.0f, N, LD);
+    phase<K>(i6m, 4, i6v, 2, sd, Beam{}, N, LD);
     float* tmp = Tpp;
     Tpp = T[3];
     T[3] = tmp;
@@ -506,7 +555,7 @@ __global__ void __launch_bounds__(VSM_THREADS, 1) mt_kernel(const Args a) {
   __syncthreads();
 
   const size_t mo = (qn * s + pt) * NN;
-  const size_t vo = (qn * s + pt) * N;
+  const size_t vo = (qn * s + pt) * NK;
   for (int e = tid; e < NN; e += nt) {
     const int i = e / N;
     const int idx = i * LD + e - i * N;
@@ -522,28 +571,29 @@ __global__ void __launch_bounds__(VSM_THREADS, 1) mt_kernel(const Args a) {
       a.Tmm[po] = Tmm[idx];
     }
   }
-  for (int i = tid; i < N; i += nt) {
-    a.tJp[vo + i] = dJp[i];
-    a.tJm[vo + i] = dJm[i];
+  for (int e = tid; e < NK; e += nt) {
+    a.tJp[vo + e] = dJp[e];
+    a.tJm[vo + e] = dJm[e];
     if (q == 0) {
-      a.Jp[static_cast<size_t>(pt) * N + i] = Jp[i];
-      a.Jm[static_cast<size_t>(pt) * N + i] = Jm[i];
+      a.Jp[static_cast<size_t>(pt) * NK + e] = Jp[e];
+      a.Jm[static_cast<size_t>(pt) * NK + e] = Jm[e];
     }
   }
 }
 
-size_t smem_floats(int N) {
+size_t smem_floats(int N, int K) {
   const int LD = (N + 3) & ~3;
+  const int VS = (N * K + 3) & ~3;
   return static_cast<size_t>(VSM_NMAT) * N * LD +
-         static_cast<size_t>(VSM_NVEC + 3) * LD;
+         static_cast<size_t>(VSM_NVEC) * VS + 3 * static_cast<size_t>(LD);
 }
 
 }  // namespace
 
 extern "C" {
 
-size_t vsm_fused_moment_mt_smem_bytes(int N) {
-  return smem_floats(N) * sizeof(float);
+size_t vsm_fused_moment_mt_smem_bytes(int N, int K) {
+  return smem_floats(N, K) * sizeof(float);
 }
 
 const char* vsm_error_string(int code) {
@@ -559,10 +609,11 @@ int vsm_fused_moment_mt_f32(
     const float* dw, const float* dEm1, const float* ddt, const float* djp,
     const float* djms, const float* dek, float* Rmp, float* Rpm, float* Tpp,
     float* Tmm, float* Jp, float* Jm, float* tRmp, float* tRpm, float* tTpp,
-    float* tTmm, float* tJp, float* tJm, int s, int N, int C, int nz, int P,
-    int ndoubl, const int* sched, int ns_inter, void* stream) {
-  if (N < 1 || N > VSM_MAX_N || C < 1 || s < 0 || nz < 0 || P < 1 ||
-      P > 65535 || ndoubl < 0 || ndoubl > VSM_MAX_DOUBL || ns_inter < 0)
+    float* tTmm, float* tJp, float* tJm, int s, int N, int C, int K, int nz,
+    int P, int ndoubl, const int* sched, int ns_inter, void* stream) {
+  if (N < 1 || N > VSM_MAX_N || K < 1 || K > VSM_MAX_K || C < 1 || s < 0 ||
+      nz < 0 || P < 1 || P > 65535 || ndoubl < 0 || ndoubl > VSM_MAX_DOUBL ||
+      ns_inter < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.Zpp = Zpp;
@@ -603,14 +654,15 @@ int vsm_fused_moment_mt_f32(
   a.ndoubl = ndoubl;
   a.ns_inter = ns_inter;
   for (int i = 0; i < VSM_MAX_DOUBL; ++i) a.sched[i] = i < ndoubl ? sched[i] : 0;
-  const size_t smem = vsm_fused_moment_mt_smem_bytes(N);
+  const size_t smem = vsm_fused_moment_mt_smem_bytes(N, K);
+  void (*kernel)(const Args) = K == 1 ? mt_kernel<1> : mt_kernel<2>;
   cudaError_t err = cudaFuncSetAttribute(
-      mt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (s > 0)
-    mt_kernel<<<dim3(s, P), VSM_THREADS, smem,
-                static_cast<cudaStream_t>(stream)>>>(a);
+    kernel<<<dim3(s, P), VSM_THREADS, smem,
+             static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,6 +5,9 @@
   the same profile and arguments as the JAX package's
   ``__graft_entry__._flagship_model``; ``aerosol=True`` adds its log-normal
   Mie aerosol (the Jacobian scene of ``scripts/bench_lin.py``).
+* The thermal Jacobian scene ``thermal_lin_model``: the aerosol flagship
+  moved to the mid-wave window (2500 cm^-1) with each layer's Planck
+  emission as a second source.
 * The RRS+SIF scene of the JAX package's RRS bench
   (``scripts/bench_rrs.py:23-36``): an 8-layer Rayleigh column over a
   Lambertian floor with surface SIF, IQU, 0.6 cm^-1 spacing.
@@ -18,6 +21,7 @@ import numpy as np
 from .core.model import (Parameters, RTAerosol, ScatteringParams,
                          SurfaceDescriptor, model_from_parameters)
 from .scattering.stokes import STOKES_IQU, STOKES_IQUV
+from .solar import add_thermal_emission
 
 # ocean_coxmunk profile: layer temperatures [K] and half-level pressures [hPa]
 FLAGSHIP_T = np.array([
@@ -31,34 +35,28 @@ FLAGSHIP_P = np.array([
     131.00, 176.85, 236.64, 314.58, 418.87, 557.76, 735.00, 800.12, 849.00,
     912.00, 980.00])
 FLAGSHIP_NU0 = 19417.0          # first wavenumber [cm^-1], 0.05 cm^-1 steps
+#: The flagship's Mie aerosol (RTAerosol keywords: tau_ref 0.15 at 700 hPa,
+#: r_mode 0.12 um, sigma_g 1.5, n = 1.4 - 0.003i) and its Mie quadrature
+#: (300 radius nodes to r_max 10 um, untruncated; lambda_ref is the band's
+#: first wavelength).
+FLAGSHIP_AEROSOL = dict(tau_ref=0.15, p0=700.0, sigma_p=60.0,
+                        mu_log=float(np.log(0.12)),
+                        sigma_log=float(np.log(1.5)), n_r=1.4, n_i=0.003)
+FLAGSHIP_MIE = dict(nquad_radius=300, r_max=10.0)
+#: First wavenumber of the thermal Jacobian scene [cm^-1]: 4 um, the
+#: mid-wave window where solar and Planck sources are of one order.
+THERMAL_NU0 = 2500.0
 
 
-def flagship_model(n_spec=256, dtype=np.float32, nstreams=8,
-                   surface="coxmunk", nz=None, fused=None, aerosol=False):
-    """RTModel of the flagship scene (``surface="lambertian"`` swaps the
-    ocean for a 0.05-albedo Lambertian floor). ``fused`` overrides the
-    execution strategy (None = the band kernel for f32 on CUDA).
-    ``aerosol=True`` adds one log-normal Mie aerosol (tau_ref 0.15 at
-    700 hPa, r_mode 0.12 um, sigma_g 1.5, n = 1.4 - 0.003i, 300 radius
-    nodes, untruncated): 7 aerosol and 1 wind Jacobian parameters."""
-    if surface == "coxmunk":
-        surf = SurfaceDescriptor("CoxMunkSurface", [], {"wind_speed": 5.0})
-    else:
-        surf = SurfaceDescriptor("LambertianSurfaceScalar", [0.05])
-    scat = None
-    if aerosol:
-        scat = ScatteringParams(
-            rt_aerosols=[RTAerosol(tau_ref=0.15, p0=700.0, sigma_p=60.0,
-                                   mu_log=float(np.log(0.12)),
-                                   sigma_log=float(np.log(1.5)),
-                                   n_r=1.4, n_i=0.003)],
-            nquad_radius=300, r_max=10.0, lambda_ref=1e4 / FLAGSHIP_NU0)
-    params = Parameters(
-        scattering_params=scat,
-        spec_bands=[FLAGSHIP_NU0 + 0.05 * np.arange(n_spec)],
-        surfaces=[surf],
+def flagship_params(n_spec=256, dtype=np.float32, nstreams=8, nz=None,
+                    fused=None, nu0=FLAGSHIP_NU0):
+    """``Parameters`` keywords of the flagship, less ``surfaces``,
+    ``polarization`` and ``scattering_params`` (plain data, so the JAX
+    package's ``Parameters`` takes them too): 0.05 cm^-1 steps from
+    ``nu0``, sza 30, nine view angles."""
+    return dict(
+        spec_bands=[nu0 + 0.05 * np.arange(n_spec)],
         nstreams=nstreams,
-        polarization=STOKES_IQUV,
         sza=30.0,
         vza=[60.0, 45.0, 30.0, 15.0, 0.0, 15.0, 30.0, 45.0, 60.0],
         vaz=[180.0, 180.0, 180.0, 180.0, 0.0, 0.0, 0.0, 0.0, 0.0],
@@ -68,7 +66,53 @@ def flagship_model(n_spec=256, dtype=np.float32, nstreams=8,
         depol=-1.0,
         float_type=dtype,
         fused=fused)
-    return model_from_parameters(params)
+
+
+def _flagship_aerosol(nu0):
+    return ScatteringParams(rt_aerosols=[RTAerosol(**FLAGSHIP_AEROSOL)],
+                            lambda_ref=1e4 / nu0, **FLAGSHIP_MIE)
+
+
+def flagship_model(n_spec=256, dtype=np.float32, nstreams=8,
+                   surface="coxmunk", nz=None, fused=None, aerosol=False):
+    """RTModel of the flagship scene (``surface="lambertian"`` swaps the
+    ocean for a 0.05-albedo Lambertian floor). ``fused`` overrides the
+    execution strategy (None = the band kernel for f32 on CUDA).
+    ``aerosol=True`` adds ``FLAGSHIP_AEROSOL``: 7 aerosol and 1 wind
+    Jacobian parameters."""
+    if surface == "coxmunk":
+        surf = SurfaceDescriptor("CoxMunkSurface", [], {"wind_speed": 5.0})
+    else:
+        surf = SurfaceDescriptor("LambertianSurfaceScalar", [0.05])
+    return model_from_parameters(Parameters(
+        scattering_params=_flagship_aerosol(FLAGSHIP_NU0) if aerosol
+        else None,
+        surfaces=[surf], polarization=STOKES_IQUV,
+        **flagship_params(n_spec, dtype, nstreams, nz, fused)))
+
+
+def thermal_lin_model(n_spec=1024, dtype=np.float32, thermal=True):
+    """RTModel of the thermal Jacobian scene: ``flagship_model(aerosol=
+    True)``'s column, aerosol, Cox-Munk ocean (wind 5), IQUV and nstreams 8
+    (N = 52), 33 layers and P = 8 (7 aerosol + wind), with its grid from
+    ``THERMAL_NU0`` = 2500 cm^-1 (4 um, 0.05 cm^-1 steps; the aerosol's
+    lambda_ref moved with it) and, with ``thermal``, ``add_thermal_emission``
+    at the profile's own layer temperatures (``FLAGSHIP_T``): a K = 2
+    (solar + Planck) scene. At 2500 cm^-1 B(250 K) is ~0.1 mW m^-2 sr^-1
+    (cm^-1)^-1, of the order of the solar term; at the flagship's 19417
+    cm^-1 it is ~1e-34.
+
+    The JAX package builds the same scene from the same ``Parameters``
+    keywords (``flagship_params(..., nu0=THERMAL_NU0)`` and the aerosol
+    ``FLAGSHIP_AEROSOL`` with ``FLAGSHIP_MIE``) and its own
+    ``solar.add_thermal_emission``."""
+    model = model_from_parameters(Parameters(
+        scattering_params=_flagship_aerosol(THERMAL_NU0),
+        surfaces=[SurfaceDescriptor("CoxMunkSurface", [],
+                                    {"wind_speed": 5.0})],
+        polarization=STOKES_IQUV,
+        **flagship_params(n_spec, dtype, nu0=THERMAL_NU0)))
+    return add_thermal_emission(model) if thermal else model
 
 
 def rrs_sif_model(n_spec=256, dtype=np.float32, nstreams=8,
@@ -154,3 +198,24 @@ def lin_ref_model(dtype=np.float32, surface="coxmunk"):
         scattering_params=ScatteringParams(
             rt_aerosols=[RTAerosol(**LIN_REF_AEROSOL)], **LIN_REF_MIE),
         **lin_ref_params(dtype)))
+
+
+#: Seed and range of the per-layer thermal source of the small thermal
+#: Jacobian scene (``data/lin_thermal_ref_f64.npz``).
+LIN_THERMAL_SEED, LIN_THERMAL_RANGE = 5, (0.05, 0.5)
+
+
+def lin_thermal_b(nz, n_spec):
+    """(nz, n_spec) thermal source of the small thermal Jacobian scene:
+    uniform in ``LIN_THERMAL_RANGE`` from ``LIN_THERMAL_SEED``."""
+    return np.random.default_rng(LIN_THERMAL_SEED).uniform(
+        *LIN_THERMAL_RANGE, (nz, n_spec))
+
+
+def lin_thermal_model(dtype=np.float32):
+    """``lin_ref_model()`` (Cox-Munk) with the seeded thermal source
+    ``lin_thermal_b``: a K = 2 scene of N = 21 and 8 parameters."""
+    model = lin_ref_model(dtype)
+    model.bands[0].thermal_b = lin_thermal_b(model.profile.nz,
+                                             model.bands[0].n_spec)
+    return model

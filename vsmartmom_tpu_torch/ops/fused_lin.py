@@ -1,10 +1,15 @@
 """Multitangent band path for Jacobian runs: one Fourier moment's composite
 plus the forward-mode tangents of that composite for P parameters.
 
-Counterpart of ``vsmartmom_tpu/ops/fused_lin.py``. The JAX package gets
-its tangent kernel from ``jax.linearize`` of the forward body traced inside
-the Pallas kernel; here the tangent algebra is written out by hand in
-``csrc/fused_lin.cu`` (kernel K2) and its plain version is forward-mode AD
+Counterpart of ``vsmartmom_tpu/ops/fused_lin.py`` (K = 1, solar) and of
+the tangent kernel K1' that Pallas's JVP rule builds from
+``vsmartmom_tpu/ops/fused_band.py::fused_moment`` for thermal scenes
+(K = 2, solar + Planck; ``vsmartmom_tpu/core/linearization.py`` dispatches
+it once per parameter). The JAX package gets both tangent kernels from AD
+of the forward body traced inside the Pallas kernel; here the tangent
+algebra is written out by hand in ``csrc/fused_lin.cu`` (kernel K2, one
+launch per moment for all P parameters and K <= 2 source columns) and its
+plain version is forward-mode AD
 (``torch.func.jvp``) of ``fused_band.moment_body_reference`` on the same
 operands, so the two can never describe different derivatives:
 
@@ -23,9 +28,15 @@ operands, so the two can never describe different derivatives:
   loop (one launch per moment up to ``m_scat`` for all P tangents, the
   Beer-law shortcut above it) and the surface tail with its tangent.
 
-Left behind from the TPU kernel: the tangent chunks (padded to equal size
-for one Mosaic compile per shape) and the in-kernel dot-mode switch; K2 runs
-exact-f32 products and K = 1 (solar-only) scenes, as the JAX kernel does.
+The thermal source ``thermal_b`` carries no tangent (the layout has no
+temperature parameter, as in the JAX package): the thermal column's
+tangent comes through tau and scat_w by way of ``moment_args``'s
+``th_base`` and ``band_operands``' ``j_th``.
+
+Left behind from the TPU kernels: the tangent chunks (padded to equal size
+for one Mosaic compile per shape), the in-kernel dot-mode switch and the
+one-dispatch-per-parameter loop of the thermal route; K2 runs exact-f32
+products, K <= 2.
 """
 
 import ctypes
@@ -40,10 +51,12 @@ from ..core.types import SolverConfig, SolverInputs, resolve_device
 from .fused_band import BandOperands, band_operands, moment_body_reference
 from .fused_rt import norm_sched
 
-#: Largest stream count N the CUDA kernel takes: the primal and one tangent
-#: chain in lockstep hold twenty N x N f32 operators in shared memory
-#: (216 KB at N = 52, inside the 227 KB a block may opt in to).
+#: Largest stream count N and source count K the CUDA kernel takes: the
+#: primal and one tangent chain in lockstep hold twenty N x N f32 operators
+#: and fourteen (N, K) vectors in shared memory (222,768 B at N = 52, K = 2,
+#: inside the 232,448 B a block may opt in to).
 KERNEL_MAX_N = 52
+KERNEL_MAX_K = 2
 KERNEL_MAX_DOUBL = 32
 
 
@@ -101,9 +114,10 @@ def _check_kernel_operands(ops: BandOperands, dops: TangentOperands,
     tensors = [(name, getattr(ops, name), want[name]) for name in want]
     tensors += [(f"d{name}", getattr(dops, name), (P,) + want[name])
                 for name in TangentOperands._fields]
-    if N > KERNEL_MAX_N or K != 1 or P < 1:
+    if N > KERNEL_MAX_N or not 1 <= K <= KERNEL_MAX_K or P < 1:
         raise ValueError(f"the multitangent kernel takes N <= {KERNEL_MAX_N},"
-                         f" K = 1 and P >= 1, got N={N}, K={K}, P={P}")
+                         f" K <= {KERNEL_MAX_K} and P >= 1, got N={N}, K={K},"
+                         f" P={P}")
     if len(ns_sched) > KERNEL_MAX_DOUBL:
         raise ValueError(f"the kernel takes at most {KERNEL_MAX_DOUBL} "
                          f"doubling steps, got {len(ns_sched)}")
@@ -129,9 +143,10 @@ def _launch_kernel(ops: BandOperands, dops: TangentOperands, ns_sched,
     from .cuda_build import load
     s, N = ops.Em1.shape[1], ops.Em1.shape[2]
     nz, C, P = ops.Em1.shape[0], ops.Z_pp.shape[0], dops.Z_pp.shape[0]
+    K = ops.j0_p.shape[-1]
     lib = load("fused_lin")
     fn = lib.vsm_fused_moment_mt_f32
-    fn.argtypes = [ctypes.c_void_p] * 30 + [ctypes.c_int] * 6 + \
+    fn.argtypes = [ctypes.c_void_p] * 30 + [ctypes.c_int] * 7 + \
         [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.vsm_error_string.argtypes = [ctypes.c_int]
@@ -139,17 +154,18 @@ def _launch_kernel(ops: BandOperands, dops: TangentOperands, ns_sched,
     dev = ops.Em1.device
     f32 = torch.float32
     mat = [torch.empty((s, N, N), dtype=f32, device=dev) for _ in range(4)]
-    vec = [torch.empty((s, N, 1), dtype=f32, device=dev) for _ in range(2)]
+    vec = [torch.empty((s, N, K), dtype=f32, device=dev) for _ in range(2)]
     tmat = [torch.empty((P, s, N, N), dtype=f32, device=dev)
             for _ in range(4)]
-    tvec = [torch.empty((P, s, N, 1), dtype=f32, device=dev)
+    tvec = [torch.empty((P, s, N, K), dtype=f32, device=dev)
             for _ in range(2)]
     sched = (ctypes.c_int * max(len(ns_sched), 1))(*ns_sched)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*(x.data_ptr() for x in ops), *(x.data_ptr() for x in dops),
                 *(x.data_ptr() for x in (*mat, *vec, *tmat, *tvec)),
-                s, N, C, nz, P, len(ns_sched), sched, int(ns_inter), stream)
+                s, N, C, K, nz, P, len(ns_sched), sched, int(ns_inter),
+                stream)
     if rc != 0:
         raise RuntimeError("fused_lin kernel launch failed: "
                            + lib.vsm_error_string(rc).decode())
@@ -164,7 +180,9 @@ def fused_moment_multitangent(ops: BandOperands, dops: TangentOperands,
     CUDA tensors launch ``csrc/fused_lin.cu`` (counted in
     ``fused_moment_multitangent.launches``), which replaces the TPU kernel
     ``vsmartmom_tpu/ops/fused_lin.py::fused_moment_multitangent`` ->
-    ``_mt_kernel``. Its design is a grid over (point, tangent): each block
+    ``_mt_kernel`` at K = 1 and, at K = 2, K1' (the JVP of
+    ``vsmartmom_tpu/ops/fused_band.py::fused_moment``). Its design is a
+    grid over (point, tangent): each block
     runs K1's layer loop for the primal and one tangent chain in lockstep in
     shared memory, so the primal is recomputed once per tangent. CPU tensors
     run the plain version."""
@@ -195,8 +213,9 @@ def _cast(inputs: SolverInputs, dtype, dev) -> SolverInputs:
 def multitangent_args(inputs: SolverInputs, tangents, config: SolverConfig,
                       m: int, device=None):
     """(ops, dops, ns_sched, ns_inter): the arguments of
-    ``fused_moment_multitangent`` for moment ``m`` of a K = 1 band and the
-    given list of SolverInputs-shaped tangents, in ``config.dtype``."""
+    ``fused_moment_multitangent`` for moment ``m`` of a band with
+    ``config.n_sources`` source columns and the given list of
+    SolverInputs-shaped tangents, in ``config.dtype``."""
     dev = resolve_device(device)
     dtype = config.torch_dtype
     inp = _cast(inputs, dtype, dev)
@@ -218,14 +237,11 @@ def multitangent_args(inputs: SolverInputs, tangents, config: SolverConfig,
 def rt_solve_multitangent(inputs: SolverInputs, tangents, config: SolverConfig,
                           device=None):
     """Forward solve plus P parameter tangents through the multitangent
-    band path (K = 1 configurations). ``tangents`` is a list of P
+    band path (K = 1 or K = 2 configurations). ``tangents`` is a list of P
     ``SolverInputs``-shaped tangents. Each Fourier moment up to ``m_scat``
     is one launch for all P tangents; the moments above it take
     ``rt_solve``'s Beer-law shortcut and its jvp. Returns (R, T, dR, dT)
     tensors: R/T (nVZA, ns, s), dR/dT (P, nVZA, ns, s)."""
-    if config.n_sources != 1:
-        raise NotImplementedError("the multitangent path is solar-only "
-                                  "(K = 1)")
     dev = resolve_device(device)
     dtype = config.torch_dtype
     inp = _cast(inputs, dtype, dev)
