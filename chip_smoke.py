@@ -94,8 +94,12 @@ a miss:
    one JSON line per call site with each case's device time (the timed
    calls queued behind a sleeping kernel, ``probes.common.time_ms``),
    bound, plain and library times, its error against the plain version and
-   against the f64 product. Gates: every kernel time the device's work
-   alone; dot and lane chains against their plain versions <= 1e-5 of
+   against the f64 product; one line per dot and lane case with its launch
+   plan (grid, threads, dynamic shared memory, resident blocks per SM from
+   ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, slabs or points in
+   flight per SM) and its kernel's ptxas registers and spills. Gates: every
+   kernel time the device's work alone; each host plan the launch the C
+   side makes of it; dot and lane chains against their plain versions <= 1e-5 of
    max|plain| at lengths 1, 8 and the whole chain (a TF32 chain at length
    1 only: its drift is recorded), each chain's last step <= 1e-5 and
    equal bit for bit to the kernel's own chain; the layout cases exact;
@@ -598,6 +602,64 @@ def probe_failures(site, case):
     return bad + common.chain_failures(case)
 
 
+def ptxas_report(log):
+    """{kernel entry: (registers, spill store bytes, spill load bytes)} from
+    nvcc's ``-Xptxas -v`` report of one library."""
+    import re
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = [None, None, None]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            out[entry][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry][0] = int(m.group(1))
+    return out
+
+
+def case_kernel(case):
+    """The kernel entry a dot or lane case launches (its mangled-name
+    fragment in ptxas's report)."""
+    plan = case["plan"]
+    if case["form"] == "lane":
+        return "lane_chain_kernel"
+    if case["mode"] == "fp32":
+        return "simt_chain_kernel"
+    from vsmartmom_tpu_torch.ops.probe_dots import tf32_depth
+    mode = {"tf32": 1, "3xtf32": 2}[case["mode"]]
+    return (f"wg_chain_kernelILi{mode}ELi{plan['cols']}"
+            f"ELi{tf32_depth(case['shape'][1])}ELi{plan['rows'] // 64}E")
+
+
+def plan_line(site, case, report):
+    """One printed line of a case's launch plan, and the misses: the host
+    plan must be the launch the C side makes of it."""
+    plan = case["plan"]
+    regs = [v for k, v in report.items() if case_kernel(case) in k]
+    regs, st, ld = regs[0] if regs else (None, None, None)
+    per_block = (plan["threads"] // 128 if case["mode"] != "fp32"
+                 and case["form"] != "lane" else max(plan["points"], 1))
+    slabs = (plan["blocks_per_sm"] * per_block
+             if plan.get("blocks_per_sm") is not None else None)
+    line = (f"  plan {site} {case['case']}: grid {tuple(plan['grid'])} "
+            f"({plan['blocks']} blocks), {plan['threads']} threads, "
+            f"{plan['smem']} B shared, {plan.get('blocks_per_sm')} "
+            f"blocks/SM, {slabs} "
+            f"{'points' if case['form'] == 'lane' else 'slabs'} in flight/SM; rows x cols {plan['rows']} x {plan['cols']}; "
+            f"{case_kernel(case)}: {regs} registers, spills {st} / {ld} B")
+    same = (plan.get("c_grid") == plan["grid"]
+            and plan.get("c_threads") == plan["threads"]
+            and plan.get("c_smem") == plan["smem"])
+    bad = [] if same else [f"{case['case']}: host plan {plan} is not the "
+                           f"C launch"]
+    return line, bad
+
+
 def probe_entry(site, replaces, cases, launches):
     """The kernels-line entry of one probe call site: its headline case
     (the first fp32 case; P5 one pass over its sixteen cases; P7 the full
@@ -629,8 +691,10 @@ def probes_phase(smi):
     site. Returns the nine kernels-line entries."""
     import importlib
 
+    from vsmartmom_tpu_torch.ops import cuda_build
     from vsmartmom_tpu_torch.probes import SITES
     counted = launch_counted()
+    report = ptxas_report(cuda_build.BUILD_LOG.get("probe_dots", (0, ""))[1])
     entries = []
     for module, sites in SITES.items():
         mod = importlib.import_module(f"vsmartmom_tpu_torch.probes.{module}")
@@ -656,6 +720,11 @@ def probes_phase(smi):
                               "replaces": replaces, "device": result["device"],
                               "cases": cases}), flush=True)
             bad = [m for c in cases for m in probe_failures(site, c)]
+            for case in cases:
+                if PROBE_KERNELS[site] in ("dot_chain", "lane_dot_chain"):
+                    line, miss = plan_line(site, case, report)
+                    print(line, flush=True)
+                    bad += miss
             if bad:
                 fail(f"probe {site}: " + "; ".join(bad))
             entries.append(probe_entry(site, replaces, cases,
@@ -931,7 +1000,10 @@ def main():
     print(f"build: {sources} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, (_, log) in cuda_build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            # probe_dots' 26 kernels are reported case by case (probes).
+            if ("wgmma" in line or "Performance" in line or (
+                    name != "probe_dots"
+                    and ("registers" in line or "spill" in line))):
                 print(f"  {name}: {line.strip()}")
 
     # ---- 2. kernel vs plain at the main path's shapes ----

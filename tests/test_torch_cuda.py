@@ -491,23 +491,30 @@ def test_ms_kernel_route_matches_plain_route(cuda):
 PROBE_GATE = 1e-5
 
 
-def _probe_pair(cuda, form, n, seed):
+def _probe_pair(cuda, form, n, seed, batch=4):
+    """x (batch, n, n) and y (batch, n, c), c = 3n + 5 for sum and single
+    (not a multiple of any column slab)."""
     g = np.random.default_rng(seed)
-    c = 3 * n if form == "sum" else n
-    x = g.random((4, n, n)) / n
-    y = g.standard_normal((4, n, c))
+    c = 3 * n + 5 if form in ("sum", "single") else n
+    x = g.random((batch, n, n)) / n
+    y = g.standard_normal((batch, n, c))
     if form == "left":
-        x = 0.2 * g.standard_normal((4, n, n)) / np.sqrt(n)
+        x = 0.2 * g.standard_normal((batch, n, n)) / np.sqrt(n)
     return (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (x, y))
 
 
-@pytest.mark.parametrize("n", [52, 104])
+@pytest.mark.parametrize("batch", [1, 2048])
+@pytest.mark.parametrize("n", [1, 13, 52, 100, 104, 128])
 @pytest.mark.parametrize("mode", ["fp32", "tf32", "3xtf32"])
 @pytest.mark.parametrize("form", ["right", "left", "sum", "single"])
-def test_dot_chain_matches_plain_version(cuda, form, mode, n):
+def test_dot_chain_matches_plain_version(cuda, form, mode, n, batch):
+    """Every form and mode at ragged widths, batch 1 and 2048, against the
+    plain version (a TF32 chain at its last step, from the kernel's own
+    step before: its drift is not gated); each chain equals its own last
+    step from its result one step shorter, bit for bit."""
     from vsmartmom_tpu_torch.ops.probe_dots import (dot_chain,
                                                     dot_chain_reference)
-    x, y = _probe_pair(cuda, form, n, seed=n)
+    x, y = _probe_pair(cuda, form, n, seed=n, batch=batch)
     kw = dict(form=form, mode=mode, scale=0.5 if form == "right" else 1.0)
     if form in ("right", "left"):
         kw["chain"] = 3
@@ -518,29 +525,57 @@ def test_dot_chain_matches_plain_version(cuda, form, mode, n):
     torch.cuda.synchronize()
     assert dot_chain.launches == before + 1
     assert torch.isfinite(out).all()
-    if mode == "tf32" and form in ("right", "left"):
+    if form in ("right", "left"):
         prev = dot_chain(x, y, **dict(kw, chain=2))
         a, b = (prev, y) if form == "right" else (x, prev)
         one = dot_chain(a, b, **dict(kw, chain=1))
         assert torch.equal(one, out)
+    if mode == "tf32" and form in ("right", "left"):
         ref = dot_chain_reference(a, b, **dict(kw, chain=1))
     else:
         ref = dot_chain_reference(x, y, **kw)
     assert _rel(out, ref) <= PROBE_GATE
 
 
-@pytest.mark.parametrize("s,chain", [(100, 1), (100, 3), (2048, 2)])
-def test_lane_dot_chain_matches_plain_version(cuda, s, chain):
-    """The (N, N, s) chain at N = 52, s a multiple of the block's 16 points
-    and not."""
+@pytest.mark.parametrize("n,s,chain", [
+    (52, 100, 1), (52, 100, 3), (52, 2048, 2), (52, 101, 3), (52, 1, 2),
+    (13, 6, 3), (13, 2, 1), (64, 7, 2)])
+def test_lane_dot_chain_matches_plain_version(cuda, n, s, chain):
+    """The (n, n, s) chain with s a multiple of the block's points and not,
+    s below them, chain 1 and longer; a chain equals its own last step bit
+    for bit."""
     from vsmartmom_tpu_torch.ops.probe_dots import (lane_dot_chain,
                                                     lane_dot_chain_reference)
-    a = torch.from_numpy((np.random.default_rng(s).random((52, 52, s)) / 52)
+    a = torch.from_numpy((np.random.default_rng(s).random((n, n, s)) / n)
                          .astype(np.float32)).to(cuda)
     out = lane_dot_chain(a, a, chain, 0.25)
     torch.cuda.synchronize()
     ref = lane_dot_chain_reference(a, a, chain, 0.25)
     assert torch.isfinite(out).all() and _rel(out, ref) <= PROBE_GATE
+    if chain > 1:
+        prev = lane_dot_chain(a, a, chain - 1, 0.25)
+        assert torch.equal(lane_dot_chain(prev, a, 1, 0.25), out)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "tf32", "3xtf32"])
+def test_dot_chain_plan_is_the_c_launch(cuda, mode):
+    """The host plan is the launch the C side makes of it, and at least one
+    block of it is resident on an SM."""
+    from vsmartmom_tpu_torch.ops.probe_dots import (dot_chain_plan,
+                                                    lane_dot_chain_plan,
+                                                    launch_info)
+    for batch, n, c, form in [(2048, 52, 52, "right"), (2048, 104, 104,
+                                                         "right"),
+                              (512, 104, 104, "left"), (512, 104, 312, "sum"),
+                              (8, 104, 104, "single"), (3, 13, 44, "sum")]:
+        plan = dot_chain_plan(batch, n, c, form, mode)
+        grid, threads, smem, per_sm = launch_info("dot", batch, n, c, form,
+                                                  mode, plan)
+        assert (grid, threads, smem) == (plan.grid, plan.threads, plan.smem)
+        assert per_sm >= 1
+    plan = lane_dot_chain_plan(52, 2048)
+    assert launch_info("lane", 52, 2048, plan)[:3] == (
+        plan.grid, plan.threads, plan.smem)
 
 
 @pytest.mark.parametrize("case", range(16))

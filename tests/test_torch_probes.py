@@ -431,11 +431,12 @@ def test_dot_chain_launcher_refuses(monkeypatch, case, match):
 
 @pytest.mark.parametrize("case,match", [
     ("cpu", "CUDA"), ("f64", "float32"), ("shape", "shape"),
-    ("chain", ">= 1")])
+    ("chain", ">= 1"), ("wide", "n <= 64")])
 def test_lane_dot_chain_launcher_refuses(monkeypatch, case, match):
     from vsmartmom_tpu_torch.ops.probe_dots import _launch_lane_dot_chain
     _no_build(monkeypatch)
-    x = torch.zeros((6, 6, 4), dtype=torch.float64 if case == "f64"
+    n = 65 if case == "wide" else 6
+    x = torch.zeros((n, n, 4), dtype=torch.float64 if case == "f64"
                     else torch.float32)
     a = x[:, :, :3] if case == "shape" else x
     with pytest.raises(ValueError, match=match):
@@ -470,6 +471,97 @@ def test_band_launcher_refuses(monkeypatch, case, match):
     aux = torch.zeros((8, N + (case == "shape")), dtype=dtype)
     with pytest.raises(ValueError, match=match):
         _launch_band("bad" if case == "stage" else "full", tau, Em1, aux)
+
+
+# ------------------------------------------------------------ launch plans
+
+_FORMS = ("right", "left", "sum", "single")
+
+
+@pytest.mark.parametrize("mode", ["fp32", "tf32", "3xtf32"])
+def test_dot_chain_plan_fills_the_card_for_one_small_batch(mode):
+    """P6's single product of (8, 104, 104) runs as >= 112 blocks (the
+    batch alone gave 8), each within the shared-memory limit."""
+    from vsmartmom_tpu_torch.ops.probe_dots import (SMEM_LIMIT,
+                                                    dot_chain_plan)
+    plan = dot_chain_plan(8, 104, 104, "single", mode)
+    assert plan.blocks >= 112 and plan.smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("form,modes", [
+    ("right", ("fp32", "tf32", "3xtf32")), ("left", ("fp32", "tf32", "3xtf32")),
+    ("sum", ("fp32", "tf32"))])
+def test_dot_chain_plan_keeps_two_slabs_per_sm_at_104(form, modes):
+    """At n = 104 (P1, P2, P3's modes) at least two row or column slabs are
+    in flight per SM by shared memory: two resident blocks, or one block of
+    two warpgroups that share y (right) or the column slab (left)."""
+    from vsmartmom_tpu_torch.ops.probe_dots import dot_chain_plan
+    c = 312 if form == "sum" else 104
+    for mode in modes:
+        plan = dot_chain_plan(512, 104, c, form, mode)
+        per_block = plan.threads // 128 if mode != "fp32" else 1
+        assert plan.resident_by_smem * per_block >= 2, (mode, plan)
+
+
+@pytest.mark.parametrize("n", [1, 13, 52, 100, 104, 128])
+def test_dot_chain_plan_covers_every_shape(n):
+    """Every form and mode has a plan at the ragged widths, batch 1 and
+    2048: its blocks cover the output, a chain's block holds all its
+    columns (right) or rows (left), and it fits the kernels' limits."""
+    from vsmartmom_tpu_torch.ops.probe_dots import (SMEM_LIMIT,
+                                                    dot_chain_plan,
+                                                    tf32_depth)
+    for form in _FORMS:
+        c = 3 * n + 5 if form in ("sum", "single") else n
+        for mode in ("fp32", "tf32", "3xtf32"):
+            for batch in (1, 2048):
+                p = dot_chain_plan(batch, n, c, form, mode)
+                assert p.grid[0] == batch and p.smem <= SMEM_LIMIT
+                assert p.rows * p.grid[1] >= n and p.cols * p.grid[2] >= c
+                assert p.rows * (p.grid[1] - 1) < n
+                assert p.cols * (p.grid[2] - 1) < c
+                if form == "right":
+                    assert p.grid[2] == 1
+                if form == "left":
+                    assert p.grid[1] == 1
+                if mode == "fp32":
+                    assert p.rows % 4 == 0 and p.cols % 8 == 0
+                    assert p.threads <= 256
+                else:
+                    depth = tf32_depth(n)
+                    assert p.rows == 64 or (p.rows == 128 and depth >= 104)
+                    assert p.cols in (16, depth)
+                    assert p.threads == 2 * p.rows
+
+
+@pytest.mark.parametrize("n,s", [(52, 2048), (52, 101), (52, 1), (13, 6),
+                                 (64, 5)])
+def test_lane_dot_chain_plan(n, s):
+    """At least two points per block, blocks covering s (also s < P and s
+    not a multiple of P), a block's x, a and step output within shared
+    memory, and at n = 52 room for two blocks per SM."""
+    from vsmartmom_tpu_torch.ops.probe_dots import (SMEM_LIMIT,
+                                                    lane_dot_chain_plan)
+    p = lane_dot_chain_plan(n, s)
+    assert p.points >= 2 and p.grid[0] * p.points >= s
+    assert (p.grid[0] - 1) * p.points < s
+    assert p.smem <= SMEM_LIMIT and p.threads <= 512
+    if n == 52:
+        assert p.resident_by_smem >= 2
+
+
+@pytest.mark.parametrize("args,match", [
+    ((8, 130, 130, "right", "fp32"), "n <= 128"),
+    ((8, 52, 56, "right", "tf32"), "c == n"),
+    ((8, 52, 52, "cube", "fp32"), "form"),
+    ((8, 52, 52, "sum", "bf16"), "mode")])
+def test_dot_chain_plan_refuses(monkeypatch, args, match):
+    """The plan refuses operands the kernels do not take, before any
+    build."""
+    from vsmartmom_tpu_torch.ops.probe_dots import dot_chain_plan
+    _no_build(monkeypatch)
+    with pytest.raises(ValueError, match=match):
+        dot_chain_plan(*args)
 
 
 def test_wrappers_run_the_plain_versions_on_the_cpu():

@@ -13,8 +13,10 @@ import time
 import torch
 
 from ..ops.probe_dots import (MODE_OF_PRECISION, dot_chain,
-                              dot_chain_reference, lane_dot_chain,
-                              lane_dot_chain_reference, matmul_tf32)
+                              dot_chain_plan, dot_chain_reference,
+                              lane_dot_chain, lane_dot_chain_plan,
+                              lane_dot_chain_reference, launch_info,
+                              matmul_tf32)
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): FP32 outside the tensor cores,
 #: TF32 on them (3xtf32 does three TF32 products per useful one), and HBM3.
@@ -156,6 +158,21 @@ def library_lane_chain(x, a, chain, scale):
         return xs.permute(1, 2, 0).contiguous()
 
 
+def plan_fields(plan, dev, kind, *args):
+    """A case's launch plan: the host plan's rows and columns (or points)
+    per block, grid, threads and dynamic shared bytes, and on the card what
+    the C side makes of it (``c_grid``, ``c_threads``, ``c_smem``, which
+    must agree) with its resident blocks per SM."""
+    out = {"rows": plan.rows, "cols": plan.cols, "points": plan.points,
+           "grid": list(plan.grid), "threads": plan.threads,
+           "smem": plan.smem, "blocks": plan.blocks}
+    if dev.type == "cuda":
+        grid, threads, smem, per_sm = launch_info(kind, *args, plan)
+        out.update(c_grid=list(grid), c_threads=threads, c_smem=smem,
+                   blocks_per_sm=per_sm)
+    return out
+
+
 def _lengths(form, chain):
     if form in ("sum", "single") or chain == 1:
         return [chain]
@@ -243,11 +260,13 @@ def dot_case(label, precision, x, y, form, chain=1, scale=1.0, ndot=1,
         step)
     batch, n, c = x.shape[0], x.shape[1], y.shape[-1]
     flops = 2.0 * batch * n * n * c * (ndot if form == "sum" else chain)
+    plan = dot_chain_plan(batch, n, c, form, mode)
     return {"case": label, "precision": str(precision), "mode": mode,
             "form": form, "shape": list(y.shape), "chain": chain,
             "ndot": ndot, **timing(run.ms, flops, nbytes(x, y, run.out),
                                    PEAK_FLOPS[mode]),
-            **timed_fields(run, plain, library, check_calls), **checks}
+            **timed_fields(run, plain, library, check_calls), **checks,
+            "plan": plan_fields(plan, dev, "dot", batch, n, c, form, mode)}
 
 
 def lane_case(label, x, a, chain, scale):
@@ -274,11 +293,13 @@ def lane_case(label, x, a, chain, scale):
                       lane_dot_chain_reference(prev, a, 1, scale)))
     n, s = x.shape[0], x.shape[2]
     flops = 2.0 * n ** 3 * s * chain
+    plan = lane_dot_chain_plan(n, s)
     return {"case": label, "precision": "highest", "mode": "fp32",
             "form": "lane", "shape": list(x.shape), "chain": chain,
             **timing(run.ms, flops, nbytes(x, a, run.out),
                      PEAK_FLOPS["fp32"]),
-            **timed_fields(run, plain, library, check_calls), **checks}
+            **timed_fields(run, plain, library, check_calls), **checks,
+            "plan": plan_fields(plan, dev, "lane", n, s)}
 
 
 def chain_failures(case, gate=GATE):

@@ -3,7 +3,11 @@ at N = 52, as a chain of CHAIN products per point scaled by 0.25, in two
 formulations: row-major (s, N, N) products in shared-memory tiles at each
 dot mode (P8, ``mxu_kernel``) and the spectral-axis-last (N, N, s) lane
 chain (P9, ``vpu_kernel``). On the TPU this was the compute ceiling of the
-fused RT kernels; here the fp32 case is the product loop of K1, K4 and K5.
+fused RT kernels; here the fp32 case is the product loop of K1, K4 and K5
+in isolation (4 x 8 register tiles, A k-major), the tf32 and 3xtf32 cases
+the wgmma tile of ``csrc/hopper_mma.cuh`` that their redesigns would take,
+and P9 the same fp32 loop behind the lane layout's loads (the chain kept
+on chip, P8 fp32 its yardstick).
 Both chains underflow f32 to zero before their 64th step (each step scales
 by ~0.125), so they are also checked at 8 steps (``common.CHECK_AT``).
 """

@@ -2,9 +2,12 @@
 axis last: (N, N, S) operands, C[i,j,s] = sum_k x[i,k,s] a[k,j,s], chained
 NREP times with a scale of 1.0000001, in true FP32. The layout of the
 reference's batched products (vSmartMOM.jl's gpu_batched_cuda.jl); on the
-TPU it ran on the VPU. Here it asks how lane batching compares with
-dot_chain's shared-memory tiles on the same work (``dotperf``'s P8 fp32
-case at the same N and S).
+TPU it ran on the VPU, each lane block's whole chain kept in VMEM. Here it
+asks what the spectral-axis-last layout costs once the chain stays on chip:
+``lane_dot_chain`` stages a few neighbouring points' x and a in shared
+memory, runs every step there with dot_chain's fp32 product loop and writes
+once, so the layout's price is its strided loads and stores, to be read
+against ``dotperf``'s P8 fp32 case at the same N and S.
 """
 
 import numpy as np
