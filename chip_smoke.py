@@ -28,7 +28,9 @@ a miss:
    the aerosol flagship's (N = 52, nz = 33, C = 2, ndoubl = 11, the probed
    schedule, all P = 8 tangents, a 64-point slice, m = 0, 1, 15): primal
    <= 1e-4 of max|ref| per output, each parameter's tangent outputs
-   <= 2e-4 of that parameter's max|ref| over the three moments;
+   <= 2e-4 of that parameter's max|ref| over the three moments; the
+   kernel's and the f32 plain version's primal against the plain version
+   in f64 on the same operands are printed beside it (no gate);
 3. main paths, each with every launch counter set to 0 just before and read
    just after:
    * ``rt_run`` of the flagship (nSpec = 4096, f32, 4 chunks of 1024): R and
@@ -64,7 +66,13 @@ a miss:
    points/s (best of 2 after a warm-up, tangents prebuilt), the host
    seconds of the scene and tangent builds, and K2's time against its bound
    at the least work (the primal once, two products per tangent product),
-   with the kernel's own count (the primal again per tangent) beside it.
+   with the kernel's own count beside it: groups + 2P primal moments a
+   point, the primal once per cluster of up to 4 tangents (P = 8: two
+   groups of 4, 18 against the least 17); K2's launch plan (cluster size,
+   groups, shared memory, resident clusters from
+   ``cudaOccupancyMaxActiveClusters``, ptxas registers and spills of each
+   K instance, which must agree with ``fused_lin.mt_plan``) and the cluster
+   barriers a block passes per launch;
 
 5. multisensor (``ms_phase``) — K5 against ``doubling_reference`` on the
    flagship's stash of one moment (33 layers x nSpec 1024 points, moment 0
@@ -111,7 +119,8 @@ a miss:
    nz = 33, C = 2, K = 2, P = 8) — K1' against its plain version on a
    64-point slice at m = 0, 1 and m_max (primal <= 1e-4, each parameter's
    tangents <= 2e-4 of its max; the thermal column of J0_p and J0_m
-   non-zero at m = 0 and exactly zero, tangents too, above it); the K = 2
+   non-zero at m = 0 and exactly zero, tangents too, above it; the primal
+   against the f64 plain version printed, as for K2); the K = 2
    shared memory inside the 232,448 B opt-in; ``rt_run_lin`` at nSpec 1024
    counted (K2 launched m_scat + 1 times at K = 2, no other kernel), R, T,
    dR, dT finite, dR (9, 4, 1024, 8); on the slice the kernel route
@@ -122,10 +131,9 @@ a miss:
    (1e-4); the small thermal scene against the stored JAX CPU f64
    reference (``data/lin_thermal_ref_f64.npz``, the K = 1 phase's gates
    with its 1.01 control); timing: a warm-up on the slice, then one timed
-   solve at nSpec 1024 (one, not the best of 2: a second would add ~36 s
-   to a phase of ~2.5 minutes), K1''s time per launch, its plain
-   version's and its bound at the least work (the K2 count with the
-   second source column).
+   solve at nSpec 1024 (one, not the best of 2), K1''s time per launch,
+   its plain version's and its bound at the least work (the K2 count with
+   the second source column), its plan and barrier count as K2's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel. Without CUDA it exits non-zero and prints no result.
@@ -245,6 +253,19 @@ def mt_errors(outs, refs):
     e_abs = max(float((a - b).abs().max()) for o, r in zip(outs, refs)
                 for a, b in zip((*o[0], *o[1]), (*r[0], *r[1])))
     return e_prim, e_tan, e_abs
+
+
+def primal_f64_errors(args, kernel, plain):
+    """One moment's primal composite against the plain version run in f64
+    on the same operands: (the kernel's max|d| / max|ref| over outputs, the
+    f32 plain version's), to tell rounding from a less accurate route."""
+    from vsmartmom_tpu_torch.ops import fused_band
+    ops, _, sched, inter = args
+    ref = fused_band.moment_body_reference(
+        ops._replace(**{f: getattr(ops, f).double() for f in ops._fields}),
+        sched, inter)
+    return (max(rel(a.double(), b) for a, b in zip(kernel, ref)),
+            max(rel(a.double(), b) for a, b in zip(plain, ref)))
 
 
 def layer_flops(N, K, ns_sched, ns_inter=None):
@@ -602,19 +623,62 @@ def probe_failures(site, case):
     return bad + common.chain_failures(case)
 
 
+def mt_plan_report(config, n_par):
+    """K2's launch plan at a Jacobian scene's (N, K, P), printed and
+    returned: the host plan (``fused_lin.mt_plan``), which must be the C
+    side's, the clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``, at least 1), ptxas's registers and
+    spills of the K instance, the kernel's own work (groups + 2P primal
+    moments a point) and the cluster barriers a block passes a launch (one
+    a product phase: per layer 3 a doubling step, 2 a Newton-Schulz
+    iteration, 6 + 2 ns_inter for the adding; one before the first remote
+    store and one after the last)."""
+    from vsmartmom_tpu_torch.ops import cuda_build, fused_lin
+    from vsmartmom_tpu_torch.ops.fused_rt import norm_sched
+    K = config.n_sources
+    plan = fused_lin.mt_plan(config.N, K, n_par)
+    info = fused_lin.mt_launch_info(config.N, K, n_par)
+    report = ptxas_report(cuda_build.BUILD_LOG.get("fused_lin", (0, ""))[1])
+    regs = [v for k, v in report.items() if f"mt_kernelILi{K}E" in k]
+    regs, st, ld = regs[0] if regs else (None, None, None)
+    sched = norm_sched(config.ns_sched or None, config.ndoubl)
+    barriers = config.nz * (3 * config.ndoubl + 2 * sum(sched)
+                            + 2 * config.ns_inter + 6) + 2
+    out = {k: plan[k] for k in ("cluster", "groups", "threads", "smem",
+                                "tiles", "work")}
+    out.update(max_clusters=info["max_clusters"], registers=regs,
+               spill_stores=st, spill_loads=ld, cluster_barriers=barriers)
+    print(f"  plan K2 N={config.N} K={K} P={n_par}: {plan['groups']} "
+          f"cluster(s) of {plan['cluster']} blocks a point, "
+          f"{plan['threads']} threads, {plan['smem']} B shared, "
+          f"{info['max_clusters']} clusters resident, {plan['tiles']} tiles "
+          f"a product; mt_kernel<{K}>: {regs} registers, spills {st} / {ld} "
+          f"B; {plan['work']} primal moments a point; {barriers} cluster "
+          f"barriers a block", flush=True)
+    bad = [k for k in ("cluster", "groups", "threads", "smem", "tiles")
+           if info[k] != plan[k]]
+    if bad or not info["max_clusters"] >= 1:
+        fail(f"K2 plan {plan} against the C side's {info}")
+    return out
+
+
 def ptxas_report(log):
     """{kernel entry: (registers, spill store bytes, spill load bytes)} from
-    nvcc's ``-Xptxas -v`` report of one library."""
+    nvcc's ``-Xptxas -v`` report of one library (the entry's own function
+    properties, not those of a device function it calls)."""
     import re
-    out, entry = {}, None
+    out, entry, props = {}, None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            entry = m.group(1)
+            entry = props = m.group(1)
             out[entry] = [None, None, None]
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if m and entry:
+        if m and entry and props == entry:
             out[entry][1:] = [int(m.group(1)), int(m.group(2))]
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
@@ -798,12 +862,13 @@ def thermal_lin_phase(dev, smi):
     sl_tans = [spectral_slice(t, config, 0, THERMAL_SLICE)[0] for t in tans]
 
     # K1' against its plain version; the thermal column at m > 0 is zero.
-    outs, refs, th_max = [], [], 0.0
+    outs, refs, th_max, f64_errs = [], [], 0.0, []
     for m in (0, 1, config.m_max):
         args = fused_lin.multitangent_args(sl[0], sl_tans, sl[1], m, dev)
         outs.append(fused_lin.fused_moment_multitangent(*args))
         torch.cuda.synchronize()
         refs.append(fused_lin.moment_multitangent_reference(*args))
+        f64_errs.append(primal_f64_errors(args, outs[-1][0], refs[-1][0]))
         (*_, Jp, Jm), (*_, dJp, dJm) = outs[-1]
         th = [x[..., 1] for x in (Jp, Jm, dJp, dJm)]
         if m == 0:
@@ -817,8 +882,9 @@ def thermal_lin_phase(dev, smi):
     print(f"K1' vs plain (nSpec={THERMAL_SLICE}, m=0,1,{config.m_max}): "
           f"primal={k1p_prim:.2e} tangents per parameter "
           + " ".join(f"{e:.2e}" for e in k1p_tan)
-          + f"; thermal column max at m=0 {th_max:.4g}, exactly 0 above",
-          flush=True)
+          + f"; thermal column max at m=0 {th_max:.4g}, exactly 0 above"
+          f"; primal vs f64 plain: kernel {max(e[0] for e in f64_errs):.2e},"
+          f" f32 plain {max(e[1] for e in f64_errs):.2e}", flush=True)
     if not (np.isfinite(k1p_prim) and k1p_prim <= GATE
             and all(np.isfinite(e) and e <= TAN_GATE for e in k1p_tan)):
         fail(f"K1' vs moment_multitangent_reference: primal {k1p_prim}, "
@@ -928,6 +994,7 @@ def thermal_lin_phase(dev, smi):
     p_ms = cuda_time_ms(
         lambda: fused_lin.moment_multitangent_reference(*args), reps=2)
     out = fused_lin._launch_kernel(*args)
+    plan = mt_plan_report(config, n_par)
     primal_flops = moment_flops(config, THERMAL_N_SPEC)
     flops = (1 + 2 * n_par) * primal_flops
     n_bytes = nbytes(*args[0], *args[1], *out[0], *out[1])
@@ -945,10 +1012,12 @@ def thermal_lin_phase(dev, smi):
         "k1prime_launch": {"n_spec": THERMAL_N_SPEC, "kernel_ms": k_ms,
                            "plain_ms": p_ms, "bound_ms": bound,
                            "bound_share": bound / k_ms, "flops": flops,
-                           "flops_kernel": 3 * n_par * primal_flops,
+                           "flops_kernel": plan["work"] * primal_flops,
                            "bytes": n_bytes,
-                           "achieved_tflops_kernel": 3 * n_par
-                           * primal_flops / k_ms / 1e9}}), flush=True)
+                           "achieved_tflops": flops / k_ms / 1e9,
+                           "achieved_tflops_kernel": plan["work"]
+                           * primal_flops / k_ms / 1e9,
+                           "plan": plan}}), flush=True)
     return {"name": "fused_moment_multitangent[K1']", "route": "cuda",
             "source": "vsmartmom_tpu_torch/csrc/fused_lin.cu",
             "replaces": "vsmartmom_tpu/ops/fused_band.py:469",
@@ -1111,17 +1180,21 @@ def main():
     lin_slice = spectral_slice(lin_inputs, lin_config, 0, LIN_SLICE)
     slice_tans = [spectral_slice(t, lin_config, 0, LIN_SLICE)[0]
                   for t in lin_tans]
-    outs, refs = [], []
+    outs, refs, f64_errs = [], [], []
     for m in (0, 1, lin_config.m_max):
         args = fused_lin.multitangent_args(lin_slice[0], slice_tans,
                                            lin_slice[1], m, dev)
         outs.append(fused_lin.fused_moment_multitangent(*args))
         torch.cuda.synchronize()
         refs.append(fused_lin.moment_multitangent_reference(*args))
+        f64_errs.append(primal_f64_errors(args, outs[-1][0], refs[-1][0]))
     k2_prim, k2_tan, k2_abs_err = mt_errors(outs, refs)
     print(f"K2 vs plain (nSpec={LIN_SLICE}, m=0,1,{lin_config.m_max}): "
           f"primal={k2_prim:.2e} tangents per parameter "
-          + " ".join(f"{e:.2e}" for e in k2_tan), flush=True)
+          + " ".join(f"{e:.2e}" for e in k2_tan)
+          + f"; primal vs f64 plain: kernel "
+          f"{max(e[0] for e in f64_errs):.2e}, f32 plain "
+          f"{max(e[1] for e in f64_errs):.2e}", flush=True)
     if not (np.isfinite(k2_prim) and k2_prim <= GATE
             and all(np.isfinite(e) and e <= TAN_GATE for e in k2_tan)):
         fail(f"fused_moment_multitangent vs moment_multitangent_reference: "
@@ -1367,6 +1440,7 @@ def main():
     k2_plain_ms = cuda_time_ms(
         lambda: fused_lin.moment_multitangent_reference(*args), reps=2)
     out = fused_lin._launch_kernel(*args)
+    k2_plan = mt_plan_report(lin_config, n_par)
     primal_flops = moment_flops(lin_config, LIN_N_SPEC)
     k2_flops = (1 + 2 * n_par) * primal_flops
     k2_bytes = sum(x.numel() * x.element_size()
@@ -1384,10 +1458,12 @@ def main():
         "mt_launch": {"n_spec": LIN_N_SPEC, "kernel_ms": k2_ms,
                       "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
                       "bound_share": k2_bound / k2_ms, "flops": k2_flops,
-                      "flops_kernel": 3 * n_par * primal_flops,
+                      "flops_kernel": k2_plan["work"] * primal_flops,
                       "bytes": k2_bytes,
-                      "achieved_tflops_kernel": 3 * n_par * primal_flops
-                      / k2_ms / 1e9}}), flush=True)
+                      "achieved_tflops": k2_flops / k2_ms / 1e9,
+                      "achieved_tflops_kernel": k2_plan["work"]
+                      * primal_flops / k2_ms / 1e9,
+                      "plan": k2_plan}}), flush=True)
     k5_entry = ms_phase(dev, smi)
     k4_entry = layer_chain_phase(dev, smi, inputs, config)
     probe_entries = probes_phase(smi)

@@ -253,14 +253,99 @@ def test_mt_kernel_matches_plain_version(cuda, scene, N):
 
 
 def test_mt_kernel_shared_memory_fits_at_k2(cuda):
-    """The K = 2 layout at the widest N the kernel takes stays inside the
-    232,448 B of shared memory a block may opt in to."""
+    """The C side's shared memory of a block is the host plan's at every
+    width and source count the kernel takes, and the K = 2 layout at the
+    widest N stays inside the 232,448 B a block may opt in to."""
     from vsmartmom_tpu_torch.ops import cuda_build
+    from vsmartmom_tpu_torch.ops.fused_lin import mt_plan
     fn = cuda_build.load("fused_lin").vsm_fused_moment_mt_smem_bytes
     fn.restype = ctypes.c_size_t
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    assert fn(52, 1) == 20 * 52 * 52 * 4 + (14 * 52 + 3 * 52) * 4
-    assert fn(52, 2) == 222768 <= 232448
+    for N in range(1, 53):
+        for K in (1, 2):
+            assert fn(N, K) == mt_plan(N, K, 8)["smem"] <= 232448, (N, K)
+    assert fn(52, 2) == 222768
+
+
+@pytest.mark.parametrize("P", [1, 3, 8, 11])
+@pytest.mark.parametrize("K", [1, 2])
+def test_mt_plan_is_the_c_launch(cuda, P, K):
+    """The host plan is the C side's, and the card can hold its
+    clusters."""
+    from vsmartmom_tpu_torch.ops import fused_lin
+    plan = fused_lin.mt_plan(52, K, P)
+    info = fused_lin.mt_launch_info(52, K, P)
+    for key in ("cluster", "groups", "threads", "smem", "tiles"):
+        assert info[key] == plan[key], key
+    assert info["max_clusters"] >= 1
+
+
+@pytest.mark.parametrize("P", [1, 3, 8, 11],
+                         ids=["P1", "P3", "P8", "P11"])
+@pytest.mark.parametrize("scene,N", [("small", 21), ("flagship", 52),
+                                     ("small_thermal", 21), ("thermal", 52)])
+def test_mt_kernel_at_every_cluster_size(cuda, scene, N, P):
+    """K2 / K1' with P tangents against its plain version at moments 0 and
+    1: primal <= 1e-4, each parameter's tangents <= 2e-4 of its own max.
+    Clusters of 1 and 3, two groups of 4 at P = 8 and three at P = 11
+    (one rank idle). The scene's 8 tangents are sliced, or repeated at
+    P = 11; a repeated tangent, computed in another group, comes out bit
+    for bit as its original, and the primal is the same bits at every P
+    (each primal element is computed by one block of a cluster and copied
+    to the others)."""
+    from vsmartmom_tpu_torch.ops.fused_lin import (
+        fused_moment_multitangent, moment_multitangent_reference,
+        multitangent_args)
+    inputs, config, tangents = _lin_setup(cuda, scene)
+    assert config.N == N
+    tans = (tangents + tangents)[:P]
+    outs, refs = [], []
+    for m in (0, 1):
+        args = multitangent_args(inputs, tans, config, m, cuda)
+        outs.append(fused_moment_multitangent(*args))
+        torch.cuda.synchronize()
+        refs.append(moment_multitangent_reference(*args))
+        assert all(torch.isfinite(x).all() for x in (*outs[-1][0],
+                                                      *outs[-1][1]))
+        if P == 11:
+            for a in outs[-1][1]:
+                assert torch.equal(a[8:], a[:3])
+        one = fused_moment_multitangent(*multitangent_args(
+            inputs, tans[:1], config, m, cuda))
+        for a, b in zip(outs[-1][0], one[0]):
+            assert torch.equal(a, b)
+    e_prim, e_tan = _mt_errors(outs, refs)
+    assert e_prim <= GATE and max(e_tan) <= 2e-4, (e_prim, e_tan)
+
+
+@pytest.mark.parametrize("case", ["cluster", "groups", "smem", "tile_gap",
+                                  "vec_short", "row_down"])
+def test_mt_launch_refuses_a_foreign_plan(cuda, monkeypatch, case):
+    """The C side launches only its own cluster size, group count and
+    shared memory, and primal slabs that cut each output into consecutive
+    slabs from 0 to its end."""
+    from vsmartmom_tpu_torch.ops import fused_lin
+    inputs, config, tangents = _lin_setup(cuda, "small")
+    args = fused_lin.multitangent_args(inputs, tangents, config, 0, cuda)
+    plan = fused_lin.mt_plan(config.N, 1, len(tangents))
+    if case == "cluster":
+        c = 2 * plan["cluster"] if plan["cluster"] < 8 else 4
+        plan.update(cluster=c, groups=-(-len(tangents) // c), **{
+            k: fused_lin._slabs(plan[k][-1], c)
+            for k in ("tile_slab", "vec_slab", "row_slab")})
+    elif case == "groups":
+        plan["groups"] = 3
+    elif case == "smem":
+        plan["smem"] += 16
+    elif case == "tile_gap":
+        plan["tile_slab"][-1] += 1
+    elif case == "vec_short":
+        plan["vec_slab"][-1] -= 1
+    else:
+        plan["row_slab"][2] = plan["row_slab"][1] - 1
+    monkeypatch.setattr(fused_lin, "mt_plan", lambda *a: plan)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused_lin._launch_kernel(*args)
 
 
 @pytest.mark.parametrize("case,match", [
@@ -586,6 +671,20 @@ def test_layout_cases_are_exact(cuda, case):
                                                       layout_op_reference)
     from vsmartmom_tpu_torch.probes.layout_ops import inputs
     ins = inputs(case, cuda)
+    out = layout_op(case, *ins)
+    torch.cuda.synchronize()
+    assert torch.equal(out, layout_op_reference(case, *ins))
+
+
+@pytest.mark.parametrize("n", [21, 24])
+@pytest.mark.parametrize("case", [0, 6, 7, 8])
+def test_layout_copy_cases_are_exact_at_any_width(cuda, case, n):
+    """The copy cases (squeeze, reshape merge and split, minor concat) on
+    their float4 path (N = 24) and their float path (N = 21)."""
+    from vsmartmom_tpu_torch.ops.probe_layout import (layout_op,
+                                                      layout_op_reference)
+    from vsmartmom_tpu_torch.probes.layout_ops import inputs
+    ins = inputs(case, cuda, b=6, n=n)
     out = layout_op(case, *ins)
     torch.cuda.synchronize()
     assert torch.equal(out, layout_op_reference(case, *ins))

@@ -362,6 +362,24 @@ def test_band_bisect_full_stage_is_finite_at_one_layer(band_probe,
     assert _rel(out, ref) <= RTOL
 
 
+@pytest.mark.parametrize("case", range(16))
+def test_layout_yardstick_writes_the_output(case):
+    """P5's library yardstick does the kernel's work: a new contiguous
+    tensor equal to the case's output, never a view of an input (seven of
+    the sixteen expressions are views)."""
+    from vsmartmom_tpu_torch.ops.probe_layout import (CASES,
+                                                      layout_op_reference)
+    from vsmartmom_tpu_torch.probes.layout_ops import (inputs, shares_input,
+                                                       written_out)
+    ins = inputs(case, torch.device("cpu"))
+    out = written_out(CASES[case], ins)()
+    assert out.is_contiguous() and not shares_input(out, ins)
+    assert torch.equal(out, layout_op_reference(case, *ins))
+    each = [inputs(i, torch.device("cpu")) for i in range(len(CASES))]
+    assert sum(shares_input(c.plain(*x), x) for c, x in zip(CASES, each)) \
+        == 7
+
+
 # ------------------------------------------------------------ probe modules
 
 @pytest.mark.parametrize("module,kw", [

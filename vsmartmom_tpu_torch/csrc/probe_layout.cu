@@ -12,7 +12,11 @@
 // (B, N, 2N) out): a launch moves ~0.1 MB at B = 32, N = 24, so every case is
 // bound by the launch, not by bytes or operations. Design: one thread per
 // output element in a grid-stride loop; the two dots and the reduction sum
-// their N terms in index order.
+// their N terms in index order. The three pure copies (squeeze, reshape
+// merge and split) and the minor-axis concat move a float4 a thread where
+// N is a multiple of 4 and the pointers are 16-byte aligned (copy4_kernel):
+// with a float a thread they read 0.2-0.5 us slower than PyTorch's own
+// vectorized copy of the same bytes (H100 80GB HBM3, probes phase).
 
 #include <cuda_runtime.h>
 
@@ -111,6 +115,27 @@ __global__ void layout_kernel(int which, const float* __restrict__ x,
   }
 }
 
+// out = x (mode 0) or, for the minor-axis concat, out[row] = [x[row],
+// y[row]] with n4 float4 per input row (mode 1); total4 float4 outputs.
+__global__ void copy4_kernel(int mode, const float4* __restrict__ x,
+                             const float4* __restrict__ y,
+                             float4* __restrict__ out, int n4, int total4) {
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total4;
+       e += gridDim.x * blockDim.x) {
+    if (mode == 0) {
+      out[e] = x[e];
+    } else {
+      const int row = e / (2 * n4);
+      const int j = e - row * 2 * n4;
+      out[e] = j < n4 ? x[row * n4 + j] : y[row * n4 + j - n4];
+    }
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -126,8 +151,19 @@ int vsm_layout_case_f32(int which, const float* x, const float* y,
                         float* out, int B, int N, int total, void* stream) {
   if (which < 0 || which >= C_COUNT || B < 1 || N < 1 || total < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (total > 0) {
-    const int threads = 256;
+  const bool copy = which == C_SQUEEZE || which == C_MERGE ||
+                    which == C_SPLIT || which == C_CONCAT_MINOR;
+  const int threads = 256;
+  if (total > 0 && copy && N % 4 == 0 && total % 4 == 0 && aligned16(x) &&
+      aligned16(y) && aligned16(out)) {
+    const int total4 = total / 4;
+    int blocks = (total4 + threads - 1) / threads;
+    if (blocks > 1024) blocks = 1024;
+    copy4_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        which == C_CONCAT_MINOR ? 1 : 0, reinterpret_cast<const float4*>(x),
+        reinterpret_cast<const float4*>(y), reinterpret_cast<float4*>(out),
+        N / 4, total4);
+  } else if (total > 0) {
     int blocks = (total + threads - 1) / threads;
     if (blocks > 1024) blocks = 1024;
     layout_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -8,8 +8,10 @@ the tangent kernel K1' that Pallas's JVP rule builds from
 it once per parameter). The JAX package gets both tangent kernels from AD
 of the forward body traced inside the Pallas kernel; here the tangent
 algebra is written out by hand in ``csrc/fused_lin.cu`` (kernel K2, one
-launch per moment for all P parameters and K <= 2 source columns) and its
-plain version is forward-mode AD
+cluster launch per moment for all P parameters and K <= 2 source columns:
+each cluster of up to 4 blocks computes one spectral point's primal once
+and one tangent per block, laid out by ``mt_plan``) and its plain version is
+forward-mode AD
 (``torch.func.jvp``) of ``fused_band.moment_body_reference`` on the same
 operands, so the two can never describe different derivatives:
 
@@ -33,10 +35,12 @@ temperature parameter, as in the JAX package): the thermal column's
 tangent comes through tau and scat_w by way of ``moment_args``'s
 ``th_base`` and ``band_operands``' ``j_th``.
 
-Left behind from the TPU kernels: the tangent chunks (padded to equal size
-for one Mosaic compile per shape), the in-kernel dot-mode switch and the
-one-dispatch-per-parameter loop of the thermal route; K2 runs exact-f32
-products, K <= 2.
+Kept from the TPU kernel: one primal for all P tangents (the JAX kernel
+replays its tangents against one ``jax.linearize``; here a cluster shares
+the primal's products). Left behind: the tangent chunks (padded to equal
+size for one Mosaic compile per shape), the in-kernel dot-mode switch and
+the one-dispatch-per-parameter loop of the thermal route; K2 runs
+exact-f32 products, K <= 2.
 """
 
 import ctypes
@@ -51,13 +55,90 @@ from ..core.types import SolverConfig, SolverInputs, resolve_device
 from .fused_band import BandOperands, band_operands, moment_body_reference
 from .fused_rt import norm_sched
 
-#: Largest stream count N and source count K the CUDA kernel takes: the
-#: primal and one tangent chain in lockstep hold twenty N x N f32 operators
-#: and fourteen (N, K) vectors in shared memory (222,768 B at N = 52, K = 2,
-#: inside the 232,448 B a block may opt in to).
+#: Largest stream count N and source count K the CUDA kernel takes: each
+#: block of a cluster holds a copy of the primal chain and its own tangent
+#: chain, twenty N x N f32 operators and fourteen (N, K) vectors in shared
+#: memory (222,768 B at N = 52, K = 2, inside the 232,448 B a block may opt
+#: in to).
 KERNEL_MAX_N = 52
 KERNEL_MAX_K = 2
 KERNEL_MAX_DOUBL = 32
+#: Blocks of one cluster at most: ``VSM_CLUSTER`` of csrc/fused_lin.cu,
+#: fixed when it is built (on an H100 clusters of 2, 4 and 8 read within 2%
+#: of each other; PERF.md).
+KERNEL_CLUSTER = 4
+KERNEL_THREADS = 384
+#: Shared memory one block may opt in to on an H100 (bytes).
+SMEM_OPT_IN = 232448
+
+
+def smem_bytes(N: int, K: int) -> int:
+    """A block's dynamic shared memory: twenty N x N operators with rows
+    padded to a float4, fourteen (N, K) vectors padded to a float4 and
+    three rows (csrc/fused_lin.cu, smem_floats)."""
+    LD = -(-N // 4) * 4
+    VS = -(-(N * K) // 4) * 4
+    return 4 * (20 * N * LD + 14 * VS + 3 * LD)
+
+
+def _slabs(total: int, parts: int):
+    """[r total // parts for r in 0..parts]: the bounds of rank r's slab."""
+    return [r * total // parts for r in range(parts + 1)]
+
+
+def mt_plan(N: int, K: int, P: int) -> dict:
+    """The launch plan of K2 for width N, K source columns and P tangents:
+
+    * ``groups`` = ceil(P / KERNEL_CLUSTER) clusters per spectral point,
+      each of ``cluster`` = ceil(P / groups) blocks; the kernel gives block
+      rank r of group g tangent g * cluster + r (a rank past P repeats
+      tangent P - 1 and writes nothing of it);
+    * every N x N product is cut into ``tiles`` 4 x 8 tiles; rank r
+      computes tiles ``tile_slab[r]:tile_slab[r + 1]`` of every primal
+      product, elements ``vec_slab[r]:vec_slab[r + 1]`` of every primal
+      (N, K) source product, and writes rows ``row_slab[r]:row_slab[r + 1]``
+      of the primal outputs (group 0 only);
+    * ``threads`` a block and ``smem`` bytes of dynamic shared memory;
+    * ``work``: primal moments of work per point, groups + 2P (the primal
+      once per group, two products per tangent product).
+
+    The launch refuses a cluster, group count or shared-memory size that
+    ``csrc/fused_lin.cu``'s own plan does not give, and runs these slabs.
+    Raises ValueError for N > 52, K outside 1..2 or P < 1."""
+    if not (1 <= N <= KERNEL_MAX_N and 1 <= K <= KERNEL_MAX_K and P >= 1):
+        raise ValueError(f"the multitangent kernel takes N <= {KERNEL_MAX_N},"
+                         f" K <= {KERNEL_MAX_K} and P >= 1, got N={N}, K={K},"
+                         f" P={P}")
+    groups = -(-P // KERNEL_CLUSTER)
+    cluster = -(-P // groups)
+    tiles = -(-N // 4) * -(-N // 8)
+    return {"cluster": cluster, "groups": groups, "threads": KERNEL_THREADS,
+            "smem": smem_bytes(N, K), "tiles": tiles,
+            "work": groups + 2 * P,
+            "tile_slab": _slabs(tiles, cluster),
+            "vec_slab": _slabs(N * K, cluster),
+            "row_slab": _slabs(N, cluster)}
+
+
+def mt_launch_info(N: int, K: int, P: int) -> dict:
+    """The C side's plan of (N, K, P) on the current card (builds the
+    kernel): cluster, groups, threads, smem, tiles and ``max_clusters``,
+    the clusters that can be resident at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    from .cuda_build import load
+    lib = load("fused_lin")
+    fn = lib.vsm_fused_moment_mt_info
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 6)()
+    rc = fn(N, K, P, info)
+    if rc != 0:
+        lib.vsm_error_string.argtypes = [ctypes.c_int]
+        lib.vsm_error_string.restype = ctypes.c_char_p
+        raise RuntimeError("fused_lin plan query failed: "
+                           + lib.vsm_error_string(rc).decode())
+    return dict(zip(("cluster", "groups", "threads", "smem", "tiles",
+                     "max_clusters"), info))
 
 
 class TangentOperands(NamedTuple):
@@ -114,10 +195,7 @@ def _check_kernel_operands(ops: BandOperands, dops: TangentOperands,
     tensors = [(name, getattr(ops, name), want[name]) for name in want]
     tensors += [(f"d{name}", getattr(dops, name), (P,) + want[name])
                 for name in TangentOperands._fields]
-    if N > KERNEL_MAX_N or not 1 <= K <= KERNEL_MAX_K or P < 1:
-        raise ValueError(f"the multitangent kernel takes N <= {KERNEL_MAX_N},"
-                         f" K <= {KERNEL_MAX_K} and P >= 1, got N={N}, K={K},"
-                         f" P={P}")
+    mt_plan(N, K, P)
     if len(ns_sched) > KERNEL_MAX_DOUBL:
         raise ValueError(f"the kernel takes at most {KERNEL_MAX_DOUBL} "
                          f"doubling steps, got {len(ns_sched)}")
@@ -138,16 +216,20 @@ def _check_kernel_operands(ops: BandOperands, dops: TangentOperands,
 
 def _launch_kernel(ops: BandOperands, dops: TangentOperands, ns_sched,
                    ns_inter: int):
-    """One launch of csrc/fused_lin.cu on the current stream."""
+    """One cluster launch of csrc/fused_lin.cu on the current stream, on
+    the plan ``mt_plan`` makes (its cluster, groups, shared memory and
+    primal slabs)."""
     _check_kernel_operands(ops, dops, ns_sched)
     from .cuda_build import load
     s, N = ops.Em1.shape[1], ops.Em1.shape[2]
     nz, C, P = ops.Em1.shape[0], ops.Z_pp.shape[0], dops.Z_pp.shape[0]
     K = ops.j0_p.shape[-1]
+    plan = mt_plan(N, K, P)
     lib = load("fused_lin")
     fn = lib.vsm_fused_moment_mt_f32
     fn.argtypes = [ctypes.c_void_p] * 30 + [ctypes.c_int] * 7 + \
-        [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
+        [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.vsm_error_string.argtypes = [ctypes.c_int]
     lib.vsm_error_string.restype = ctypes.c_char_p
@@ -160,12 +242,15 @@ def _launch_kernel(ops: BandOperands, dops: TangentOperands, ns_sched,
     tvec = [torch.empty((P, s, N, K), dtype=f32, device=dev)
             for _ in range(2)]
     sched = (ctypes.c_int * max(len(ns_sched), 1))(*ns_sched)
+    words = [plan["cluster"], plan["groups"], plan["smem"],
+             *plan["tile_slab"], *plan["vec_slab"], *plan["row_slab"]]
+    c_plan = (ctypes.c_int * len(words))(*words)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*(x.data_ptr() for x in ops), *(x.data_ptr() for x in dops),
                 *(x.data_ptr() for x in (*mat, *vec, *tmat, *tvec)),
                 s, N, C, K, nz, P, len(ns_sched), sched, int(ns_inter),
-                stream)
+                c_plan, stream)
     if rc != 0:
         raise RuntimeError("fused_lin kernel launch failed: "
                            + lib.vsm_error_string(rc).decode())
@@ -181,10 +266,14 @@ def fused_moment_multitangent(ops: BandOperands, dops: TangentOperands,
     ``fused_moment_multitangent.launches``), which replaces the TPU kernel
     ``vsmartmom_tpu/ops/fused_lin.py::fused_moment_multitangent`` ->
     ``_mt_kernel`` at K = 1 and, at K = 2, K1' (the JVP of
-    ``vsmartmom_tpu/ops/fused_band.py::fused_moment``). Its design is a
-    grid over (point, tangent): each block
-    runs K1's layer loop for the primal and one tangent chain in lockstep in
-    shared memory, so the primal is recomputed once per tangent. CPU tensors
+    ``vsmartmom_tpu/ops/fused_band.py::fused_moment``). Its design is one
+    thread-block cluster per (spectral point, group of up to 4 tangents),
+    as ``mt_plan`` lays it out: each block runs K1's layer loop on a copy of
+    the primal chain and on its own tangent chain in shared memory, and the
+    cluster computes each primal product once, every block a slab of it
+    stored into all the copies through distributed shared memory, so a
+    point costs groups + 2P primal moments of work (18 at P = 8, against
+    the least 1 + 2P = 17). It is bound by FP32 operations. CPU tensors
     run the plain version."""
     ns_sched = tuple(ns_sched)
     if ops.Em1.device.type == "cpu":
