@@ -30,7 +30,11 @@ a miss:
    <= 1e-4 of max|ref| per output, each parameter's tangent outputs
    <= 2e-4 of that parameter's max|ref| over the three moments; the
    kernel's and the f32 plain version's primal against the plain version
-   in f64 on the same operands are printed beside it (no gate);
+   in f64 on the same operands are printed beside it (no gate for K2;
+   K1's composite from f64 must be within ``F64_RATIO`` = 2x of the f32
+   plain version's, at every flagship moment and the K = 2 case); K1's
+   launch shape as the C side reports it (threads, dynamic shared memory,
+   blocks an SM by shared memory);
 3. main paths, each with every launch counter set to 0 just before and read
    just after:
    * ``rt_run`` of the flagship (nSpec = 4096, f32, 4 chunks of 1024): R and
@@ -75,26 +79,34 @@ a miss:
    barriers a block passes per launch;
 
 5. multisensor (``ms_phase``) — K5 against ``doubling_reference`` on the
-   flagship's stash of one moment (33 layers x nSpec 1024 points, moment 0
-   and moment 15, where Z = 0 and r must stay exactly zero), <= 1e-4 per
-   output; ``rt_run_ms`` of the flagship (nSpec 1024, levels 0, 16, 33)
+   flagship's stash of one moment (33 layers x nSpec 1024 points): moment 0
+   (every layer scatters: the dense ladder) <= 1e-4 per output and within
+   2x of the f32 plain version's distance from the plain version in f64;
+   moment 15 (Z = 0 above m_scat: the O(N) path) bit for bit with r
+   exactly zero; ``rt_run_ms`` of the flagship (nSpec 1024, levels 0, 16, 33)
    and of the MS bench scene (``rrs_sif_model`` at nSpec 256, levels 0, 4,
    8; scripts/bench_ms.py), each counted: K5 launched m_max + 1 times and
-   no other kernel; per level the kernel route against the plain (LU) route
+   no other kernel, each launch's blocks that vote for the O(N) path
+   counted on its operands and its device time read (a launch whose every
+   block does must run in under a quarter of the fastest dense one); per
+   level the kernel route against the plain (LU) route
    <= 1e-4 of max, and level 0 against the band path's rt_solve R and T
    <= 1e-4; ``ms_pts_per_s`` (best of 3 after a warm-up, synchronised), a
    device-time split of one more solve (CUDA events around the stash, K5,
    the interactions and the interface solves), and K5's time per launch
-   against its plain version and its bound;
+   against its plain version and its bound at moment 0 (operations) and at
+   moment 15 (bytes: the O(N) path), each on its own line and in K5's
+   kernels entry (``z0``) with the launches of its path in the counted
+   run, and K5's resident blocks per SM from the C side;
 6. layer chain (``layer_chain_phase``) — the flagship's elemental operators
    of moments 0..m_scat at nSpec 1024 chained through K4 over all 33
    layers from the vacuum composite, counted (3 x 33 launches), against the
    plain chain <= 1e-4 per output and against K1's composite of the same
    moment <= 1e-4 of max per output; the chain's time beside K1's for the
    same moments, and K4's time per launch against its plain version and
-   its bound. K5 against its plain version and K4's chain against the plain
-   chain must be exactly equal (their device code lives in
-   ``csrc/rt_device.cuh``, shared with the band-stage kernel);
+   its bound. K4's chain against the plain chain must be exactly equal
+   (its device code lives in ``csrc/rt_device.cuh``, shared with the
+   band-stage kernel);
 7. probes (``probes_phase``) — each probe module's ``run()`` at its
    script's own shapes with every launch counter set to 0 just before and
    read just after (it must equal the wrapper calls the cases report: one
@@ -139,6 +151,7 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel. Without CUDA it exits non-zero and prints no result.
 """
 
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -154,6 +167,11 @@ import torch
 FP32_PEAK_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 GATE = 1e-4
+#: A kernel's distance from the plain version run in f64 on the same
+#: operands may be at most this many times the f32 plain version's (K1 and
+#: K5's dense ladder sum their products in another order than the plain
+#: version's matmuls).
+F64_RATIO = 2.0
 IE_GATE = 5e-3
 TAN_GATE = 2e-4
 #: The aerosol-height parameters of the small Jacobian scene: their f32 dR
@@ -255,17 +273,33 @@ def mt_errors(outs, refs):
     return e_prim, e_tan, e_abs
 
 
-def primal_f64_errors(args, kernel, plain):
-    """One moment's primal composite against the plain version run in f64
-    on the same operands: (the kernel's max|d| / max|ref| over outputs, the
-    f32 plain version's), to tell rounding from a less accurate route."""
+def f64_errors(ops, sched, inter, kernel, plain):
+    """One moment's composite against the plain version run in f64 on the
+    same operands (``BandOperands``): (the kernel's max|d| / max|ref| over
+    outputs, the f32 plain version's), to tell rounding from a less
+    accurate route."""
     from vsmartmom_tpu_torch.ops import fused_band
-    ops, _, sched, inter = args
     ref = fused_band.moment_body_reference(
         ops._replace(**{f: getattr(ops, f).double() for f in ops._fields}),
         sched, inter)
     return (max(rel(a.double(), b) for a, b in zip(kernel, ref)),
             max(rel(a.double(), b) for a, b in zip(plain, ref)))
+
+
+def primal_f64_errors(args, kernel, plain):
+    """``f64_errors`` of K2's primal (``multitangent_args``)."""
+    ops, _, sched, inter = args
+    return f64_errors(ops, sched, inter, kernel, plain)
+
+
+def band_f64_errors(args, kw, kernel, plain):
+    """``f64_errors`` of one K1 launch (``band_moment_args``)."""
+    from vsmartmom_tpu_torch.ops import fused_band
+    ops = fused_band.band_operands(*args, **{
+        k: kw[k] for k in ("ndoubl", "n_stokes", "i_mu0_start",
+                           "n_sources")})
+    sched = fused_band.norm_sched(kw["ns_sched"] or None, kw["ndoubl"])
+    return f64_errors(ops, sched, kw["ns_inter"], kernel, plain)
 
 
 def layer_flops(N, K, ns_sched, ns_inter=None):
@@ -308,6 +342,43 @@ class DeviceSplit:
                 for k, v in self.spans.items()}
 
 
+class K5Paths:
+    """Which ladder each K5 launch of a run took. Per launch: its points (one
+    block each), how many of them the kernel's vote sends down the O(N)
+    path (r all zero and t diagonal, counted on the launch's operands on
+    the device) and the launch's device time (CUDA events around
+    ``fused_rt._launch_doubling``)."""
+
+    def __init__(self):
+        self.spans = []
+
+    def wrap(self, fn):
+        def traced(r, t, *rest):
+            nonzero = (t != 0).sum((1, 2))
+            diag = (t.diagonal(dim1=1, dim2=2) != 0).sum(1)
+            z0 = ((r == 0).flatten(1).all(1) & (nonzero == diag)).sum()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(r, t, *rest)
+            e1.record()
+            self.spans.append((r.shape[0], z0, e0, e1))
+            return out
+        return traced
+
+    def summary(self):
+        """Launches whose every block took the O(N) path, whose none did,
+        and the rest, each with its device times (ms)."""
+        torch.cuda.synchronize()
+        out = {"z0": [], "dense": [], "mixed": []}
+        for points, z0, e0, e1 in self.spans:
+            z0 = int(z0)
+            kind = ("z0" if z0 == points else "dense" if z0 == 0
+                    else "mixed")
+            out[kind].append(e0.elapsed_time(e1))
+        return out
+
+
 def best_of_3(fn):
     """Host seconds of fn() (synchronised): (best of 3 after a warm-up,
     all four)."""
@@ -347,7 +418,7 @@ def ms_phase(dev, smi):
     from vsmartmom_tpu_torch import flagship_model, rrs_sif_model, rt_run_ms
     from vsmartmom_tpu_torch.core import multisensor, solver
     from vsmartmom_tpu_torch.core.types import SolverInputs
-    from vsmartmom_tpu_torch.ops import fused_rt
+    from vsmartmom_tpu_torch.ops import cuda_build, fused_rt
     counted = launch_counted()
 
     scenes = {"flagship": (flagship_model(n_spec=MS_N_SPEC), MS_LEVELS),
@@ -360,9 +431,10 @@ def ms_phase(dev, smi):
     sched = fused_rt.norm_sched(config.ns_sched or None, config.ndoubl)
     inp = SolverInputs(*(x.to(torch.float32) for x in inputs))
 
-    # K5 against its plain version: moment 0 and moment m_max (Z = 0 above
-    # m_scat: r must stay exactly zero), nz x nSpec points each.
-    k5_abs_err, k5_ops = 0.0, None
+    # K5 against its plain version at moment 0 (every layer scatters: the
+    # dense ladder, <= 1e-4 and the f64 gate) and at moment m_max (Z = 0
+    # above m_scat: the O(N) path, bit for bit, r exactly zero).
+    k5_abs_err, k5_ops, k5_f64 = 0.0, {}, None
     for m in (0, config.m_max):
         layer_data, kw = multisensor.layer_batch_args(inp, config, m)
         d = kw.pop("d_vec")[:, None]
@@ -375,29 +447,47 @@ def ms_phase(dev, smi):
                                                 out, ref)}
         k5_abs_err = max([k5_abs_err] + [float((a - b).abs().max())
                                          for a, b in zip(out, ref)])
-        print(f"K5 vs plain m={m} ({r_mp.shape[0]} points): " + " ".join(
-            f"{n}={e:.2e}" for n, e in errs.items()), flush=True)
+        line = f"K5 vs plain m={m} ({r_mp.shape[0]} points): " + " ".join(
+            f"{n}={e:.2e}" for n, e in errs.items())
+        if m <= config.m_scat:
+            ref64 = fused_rt.doubling_reference(
+                *(x.double() for x in ops), config.ndoubl, sched)
+            k5_f64 = (max(rel(a.double(), b) for a, b in zip(out, ref64)),
+                      max(rel(a.double(), b) for a, b in zip(ref, ref64)))
+            line += (f"; vs f64 plain: kernel {k5_f64[0]:.2e}, f32 plain "
+                     f"{k5_f64[1]:.2e}")
+        else:
+            same = all(torch.equal(a, b) for a, b in zip(out, ref))
+            line += f"; bit for bit {same}"
+        print(line, flush=True)
         if not all(np.isfinite(e) and e <= GATE for e in errs.values()):
             fail(f"fused_doubling vs doubling_reference at m={m}: {errs}")
-        if m > config.m_scat and not bool((out[0] == 0).all()):
-            fail(f"K5 gave a non-zero reflection for Z = 0 at m={m}")
-        if m == 0:
-            k5_ops = ops
+        if m <= config.m_scat and not k5_f64[0] <= F64_RATIO * k5_f64[1]:
+            fail(f"fused_doubling at m={m} is {k5_f64[0]} from f64, over "
+                 f"{F64_RATIO}x the f32 plain version's {k5_f64[1]}")
+        if m > config.m_scat and not (same and bool((out[0] == 0).all())):
+            fail(f"K5 at m={m} (Z = 0) not bit-identical to plain, or r "
+                 "not exactly zero")
+        k5_ops[m] = ops
         del out, ref
-    if k5_abs_err != 0:
-        fail(f"K5 vs plain is {k5_abs_err}, not bit-identical as before the "
-             "move of its device code into csrc/rt_device.cuh")
 
     result = {}
     for name, (model, levels) in scenes.items():
         inputs, config = built[name]
-        for fn in counted.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        uwJ, dwJ = rt_run_ms(model, levels, device=dev)
-        torch.cuda.synchronize()
-        e2e_s = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counted.items()}
+        paths = K5Paths()
+        launch_doubling = fused_rt._launch_doubling
+        fused_rt._launch_doubling = paths.wrap(launch_doubling)
+        try:
+            for fn in counted.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            uwJ, dwJ = rt_run_ms(model, levels, device=dev)
+            torch.cuda.synchronize()
+            e2e_s = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counted.items()}
+        finally:
+            fused_rt._launch_doubling = launch_doubling
+        k5_paths = paths.summary()
         want = {k: 0 for k in counted}
         want["fused_doubling"] = config.m_max + 1
         print(f"main path: rt_run_ms {name} nSpec={config.n_spec} levels "
@@ -405,6 +495,19 @@ def ms_phase(dev, smi):
               flush=True)
         if launches != want:
             fail(f"rt_run_ms {name} launches {launches}, want {want}")
+        # The O(N) path shows in the device time: a launch whose every
+        # block voted for it runs in well under a quarter of a dense one.
+        print("K5 paths in that run (by the operands' vote): " + " ".join(
+            f"{k} {len(v)} launches ({', '.join(f'{x:.3f}' for x in v)} "
+            "ms)" for k, v in k5_paths.items()), flush=True)
+        if sum(map(len, k5_paths.values())) != launches["fused_doubling"]:
+            fail(f"rt_run_ms {name}: K5 spans {k5_paths} do not match "
+                 f"{launches['fused_doubling']} launches")
+        if k5_paths["z0"] and k5_paths["dense"] and \
+                max(k5_paths["z0"]) > 0.25 * min(k5_paths["dense"]):
+            fail(f"rt_run_ms {name}: a Z = 0 launch took "
+                 f"{max(k5_paths['z0'])} ms against a dense launch's "
+                 f"{min(k5_paths['dense'])} ms: not the O(N) path")
         shape = (len(levels), len(config.vza_idx), config.n_stokes,
                  config.n_spec)
         if uwJ.shape != shape or not (np.isfinite(uwJ).all()
@@ -449,6 +552,7 @@ def ms_phase(dev, smi):
             "ms_pts_per_s": config.n_spec / solve_s, "ms_solve_s": solve_s,
             "ms_solve_all_s": times, "rt_run_ms_e2e_s": e2e_s,
             "n_spec": config.n_spec, "levels": levels, "launches": launches,
+            "k5_paths_ms": k5_paths,
             "device_split_ms": {
                 "stash (elemental + K5)": split_ms["_make_added_layer"],
                 "K5": split_ms["fused_doubling"],
@@ -457,32 +561,51 @@ def ms_phase(dev, smi):
                 "solve (host clock)": split_ms["solve"]}}
 
     inputs, config = built["flagship"]
-    k5_ms = cuda_time_ms(lambda: fused_rt._launch_doubling(*k5_ops, sched),
-                         reps=3)
-    k5_plain_ms = cuda_time_ms(lambda: fused_rt.doubling_reference(
-        *k5_ops, config.ndoubl, sched), reps=2)
-    out = fused_rt._launch_doubling(*k5_ops, sched)
-    n_pts = k5_ops[0].shape[0]
-    k5_flops = layer_flops(config.N, config.n_sources, sched) * n_pts
-    k5_ops_ms = k5_flops / FP32_PEAK_FLOPS * 1e3
-    k5_mem_ms = nbytes(*k5_ops, *out) / HBM_BYTES_PER_S * 1e3
-    k5_bound = max(k5_ops_ms, k5_mem_ms)
-    print(json.dumps({
-        "card": smi, "ms": result,
-        "k5_launch": {"points": n_pts, "kernel_ms": k5_ms,
-                      "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
-                      "bound_share": k5_bound / k5_ms, "flops": k5_flops,
-                      "bytes": nbytes(*k5_ops, *out),
-                      "achieved_tflops": k5_flops / k5_ms / 1e9}}),
-        flush=True)
+    # K5 per launch at moment 0 (the dense ladder, bound by operations:
+    # layer_flops) and at m_max (Z = 0: the O(N) ladder, 7 K + 1 operations
+    # a row and step, bound by the bytes of its operands and outputs).
+    k5 = {}
+    for m, ops in k5_ops.items():
+        ms = cuda_time_ms(lambda: fused_rt._launch_doubling(*ops, sched),
+                          reps=3)
+        plain_ms = cuda_time_ms(lambda: fused_rt.doubling_reference(
+            *ops, config.ndoubl, sched), reps=2)
+        out = fused_rt._launch_doubling(*ops, sched)
+        n_pts = ops[0].shape[0]
+        if m <= config.m_scat:
+            flops = layer_flops(config.N, config.n_sources, sched) * n_pts
+        else:
+            flops = (7.0 * config.n_sources + 1) * config.N \
+                * config.ndoubl * n_pts
+        nb = nbytes(*ops, *out)
+        ops_ms = flops / FP32_PEAK_FLOPS * 1e3
+        mem_ms = nb / HBM_BYTES_PER_S * 1e3
+        bound = max(ops_ms, mem_ms)
+        k5[m] = {"m": m, "points": n_pts, "kernel_ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound,
+                 "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
+                 "bound_share": bound / ms, "flops": flops, "bytes": nb,
+                 "launches": len(result["flagship"]["k5_paths_ms"][
+                     "dense" if m <= config.m_scat else "z0"])}
+        del out
+    dense, z0 = k5[0], k5[config.m_max]
+    dense["f64_kernel_plain"] = k5_f64
+    lib = cuda_build.load("fused_rt")
+    blocks_per_sm = {K: lib.vsm_fused_doubling_blocks_per_sm(config.N, K)
+                     for K in (1, 2)}
+    print(json.dumps({"card": smi, "ms": result,
+                      "k5_launch": {"dense": dense, "z0": z0,
+                                    "blocks_per_sm": blocks_per_sm}}),
+          flush=True)
     return {"name": "fused_doubling", "route": "cuda",
             "source": "vsmartmom_tpu_torch/csrc/fused_rt.cu",
             "replaces": "vsmartmom_tpu/ops/fused_rt.py:425",
             "launches": result["flagship"]["launches"]["fused_doubling"],
-            "max_abs_err": k5_abs_err, "ms": k5_ms, "plain_ms": k5_plain_ms,
-            "bound_ms": k5_bound,
-            "bound_by": "operations" if k5_ops_ms >= k5_mem_ms else "bytes",
-            "library_ms": None}
+            "max_abs_err": k5_abs_err, "ms": dense["kernel_ms"],
+            "plain_ms": dense["plain_ms"], "bound_ms": dense["bound_ms"],
+            "bound_by": dense["bound_by"], "library_ms": None,
+            "z0": {k: z0[k] for k in ("m", "launches", "kernel_ms",
+                                      "plain_ms", "bound_ms", "bound_by")}}
 
 
 def layer_chain_phase(dev, smi, inputs, config):
@@ -1087,6 +1210,16 @@ def main():
     names = ("R_mp", "R_pm", "T_pp", "T_mm", "J0_p", "J0_m")
     max_abs_err = 0.0
     moment_args = []
+    lib = cuda_build.load("fused_band")
+    lib.vsm_fused_moment_smem_bytes.restype = ctypes.c_size_t
+    k1_plan = {"threads": lib.vsm_fused_moment_threads(),
+               "smem_bytes": {K: lib.vsm_fused_moment_smem_bytes(config.N, K)
+                              for K in (1, 2)},
+               "blocks_per_sm": {
+                   K: lib.vsm_fused_moment_blocks_per_sm(config.N, K)
+                   for K in (1, 2)}}
+    print(f"K1 launch at N={config.N}: {json.dumps(k1_plan)}", flush=True)
+    k1_f64 = []
     for m in range(config.m_scat + 1):
         args = band_moment_args(*chunk0, m, dev)
         moment_args.append(args)
@@ -1096,10 +1229,16 @@ def main():
         errs = {n: rel(a, b) for n, a, b in zip(names, out, ref)}
         max_abs_err = max([max_abs_err] + [float((a - b).abs().max())
                                            for a, b in zip(out, ref)])
+        k1_f64.append(band_f64_errors(*args, out, ref))
         print(f"kernel vs plain m={m}: " + " ".join(
-            f"{n}={e:.2e}" for n, e in errs.items()), flush=True)
+            f"{n}={e:.2e}" for n, e in errs.items()) + "; vs f64 plain: "
+            f"kernel {k1_f64[-1][0]:.2e}, f32 plain {k1_f64[-1][1]:.2e}",
+            flush=True)
         if not all(np.isfinite(e) and e <= GATE for e in errs.values()):
             fail(f"fused_moment vs moment_reference at m={m}: {errs}")
+        if not k1_f64[-1][0] <= F64_RATIO * k1_f64[-1][1]:
+            fail(f"fused_moment at m={m} is {k1_f64[-1][0]} from f64, over "
+                 f"{F64_RATIO}x the f32 plain version's {k1_f64[-1][1]}")
     m2 = flagship_model(n_spec=64, nstreams=8)
     m2.bands[0].thermal_b = np.random.default_rng(0).uniform(
         0.1, 1.0, (m2.profile.nz, 64))
@@ -1110,10 +1249,15 @@ def main():
         torch.cuda.synchronize()
         ref = fused_band.moment_reference(*args[0], **args[1])
         errs = {n: rel(a, b) for n, a, b in zip(names, out, ref)}
+        e64 = band_f64_errors(*args, out, ref)
         print(f"kernel vs plain K=2 m={m}: " + " ".join(
-            f"{n}={e:.2e}" for n, e in errs.items()), flush=True)
+            f"{n}={e:.2e}" for n, e in errs.items()) + "; vs f64 plain: "
+            f"kernel {e64[0]:.2e}, f32 plain {e64[1]:.2e}", flush=True)
         if not all(np.isfinite(e) and e <= GATE for e in errs.values()):
             fail(f"K=2 fused_moment vs moment_reference at m={m}: {errs}")
+        if not e64[0] <= F64_RATIO * e64[1]:
+            fail(f"K=2 fused_moment at m={m} is {e64[0]} from f64, over "
+                 f"{F64_RATIO}x the f32 plain version's {e64[1]}")
 
     rrs_model = rrs_sif_model(n_spec=RRS_N_SPEC)
     rrs_inputs, rrs_config, *rrs = inelastic_setup(rrs_model, device=dev)
@@ -1374,8 +1518,10 @@ def main():
         "rt_run_e2e_s": e2e_s, "n_spec": N_SPEC_TOTAL,
         "moment_launch": {"n_spec": N_CHUNK, "kernel_ms": k_ms,
                           "plain_ms": p_ms, "bound_ms": bound_ms,
+                          "bound_share": bound_ms / k_ms,
                           "flops": flops, "bytes": nbytes,
-                          "achieved_tflops": flops / k_ms / 1e9}}),
+                          "achieved_tflops": flops / k_ms / 1e9,
+                          "plan": k1_plan, "f64_kernel_plain": k1_f64}}),
         flush=True)
 
     times = []

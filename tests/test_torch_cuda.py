@@ -30,22 +30,42 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def _model(n_spec, thermal=False):
+def _model(n_spec, thermal=False, nstreams=4):
     from vsmartmom_tpu_torch import flagship_model
-    model = flagship_model(n_spec=n_spec, nstreams=4)
+    model = flagship_model(n_spec=n_spec, nstreams=nstreams)
     if thermal:
         model.bands[0].thermal_b = np.random.default_rng(5).uniform(
             0.05, 0.5, (model.profile.nz, n_spec))
     return model
 
 
+def _band_f64_errors(args, kw, out, ref):
+    """K1's composite and its f32 plain version's against the plain version
+    run in f64 on the same operands (max over outputs of max|d| / max|ref|)."""
+    from vsmartmom_tpu_torch.ops import fused_band
+    ops = fused_band.band_operands(*args, **{
+        k: kw[k] for k in ("ndoubl", "n_stokes", "i_mu0_start",
+                           "n_sources")})
+    ref64 = fused_band.moment_body_reference(
+        ops._replace(**{f: getattr(ops, f).double() for f in ops._fields}),
+        fused_band.norm_sched(kw["ns_sched"] or None, kw["ndoubl"]),
+        kw["ns_inter"])
+    return (max(_rel(a.double(), b) for a, b in zip(out, ref64)),
+            max(_rel(a.double(), b) for a, b in zip(ref, ref64)))
+
+
 @pytest.mark.parametrize("thermal", [False, True], ids=["K1", "K2"])
-def test_kernel_matches_plain_version(cuda, thermal):
+@pytest.mark.parametrize("nstreams,N", [(4, 36), (8, 52)])
+def test_kernel_matches_plain_version(cuda, thermal, nstreams, N):
+    """K1 against its plain version at every scattering moment; at the
+    flagship's N = 52 its distance from the plain version run in f64 is at
+    most twice the f32 plain version's (chip_smoke.py's F64_RATIO)."""
     from vsmartmom_tpu_torch.core.solver import band_moment_args
     from vsmartmom_tpu_torch.ops.fused_band import (fused_moment,
                                                     moment_reference)
-    inputs, config = _model(37, thermal).build_band(0, device=cuda)
+    inputs, config = _model(37, thermal, nstreams).build_band(0, device=cuda)
     assert config.fused and config.n_sources == (2 if thermal else 1)
+    assert config.N == N
     for m in range(config.m_scat + 1):
         args, kw = band_moment_args(inputs, config, m, cuda)
         out = fused_moment(*args, **kw)
@@ -53,14 +73,20 @@ def test_kernel_matches_plain_version(cuda, thermal):
         ref = moment_reference(*args, **kw)
         for a, b in zip(out, ref):
             assert torch.isfinite(a).all() and _rel(a, b) <= GATE
+        if N == 52:
+            kernel, plain = _band_f64_errors(args, kw, out, ref)
+            assert kernel <= 2.0 * plain, (m, kernel, plain)
 
 
-@pytest.mark.parametrize("pol,nstreams,N", [("STOKES_I", 4, 10),
-                                             ("STOKES_IQU", 4, 30),
-                                             ("STOKES_IQUV", 11, 64)])
-def test_kernel_takes_any_width(cuda, pol, nstreams, N):
+@pytest.mark.parametrize("thermal", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("pol,nstreams,n_vza,N", [("STOKES_I", 4, 6, 10),
+                                                  ("STOKES_IQU", 2, 5, 21),
+                                                  ("STOKES_IQU", 4, 6, 30),
+                                                  ("STOKES_IQUV", 11, 6, 64)])
+def test_kernel_takes_any_width(cuda, pol, nstreams, n_vza, N, thermal):
     """Stream counts that are no multiple of 4 (the kernel's float4 rows
-    pad only its shared-memory stride) and the largest N it takes."""
+    pad only its shared-memory stride; N = 21 is odd) and the largest N it
+    takes, with one and two source columns."""
     from vsmartmom_tpu_torch import (Parameters, SurfaceDescriptor,
                                      model_from_parameters)
     from vsmartmom_tpu_torch.core.solver import band_moment_args
@@ -68,15 +94,20 @@ def test_kernel_takes_any_width(cuda, pol, nstreams, N):
     from vsmartmom_tpu_torch.ops.fused_band import (fused_moment,
                                                     moment_reference)
     from vsmartmom_tpu_torch.scattering import stokes
+    vza = [75.0, 60.0, 45.0, 30.0, 15.0, 0.0]
+    vza = vza[:n_vza - 1] + vza[-1:]
     model = model_from_parameters(Parameters(
         spec_bands=[19417.0 + 0.05 * np.arange(21)],
         surfaces=[SurfaceDescriptor("LambertianSurfaceScalar", [0.05])],
         nstreams=nstreams, polarization=getattr(stokes, pol), sza=30.0,
-        vza=[75.0, 60.0, 45.0, 30.0, 15.0, 0.0], vaz=[0.0] * 6,
-        obs_alt=1000.0,
+        vza=vza, vaz=[0.0] * len(vza), obs_alt=1000.0,
         T=FLAGSHIP_T, p=FLAGSHIP_P, float_type=np.float32))
+    if thermal:
+        model.bands[0].thermal_b = np.random.default_rng(7).uniform(
+            0.05, 0.5, (model.profile.nz, 21))
     inputs, config = model.build_band(0, device=cuda)
     assert config.N == N and config.fused
+    assert config.n_sources == (2 if thermal else 1)
     for m in range(config.m_scat + 1):
         args, kw = band_moment_args(inputs, config, m, cuda)
         out = fused_moment(*args, **kw)
@@ -84,6 +115,33 @@ def test_kernel_takes_any_width(cuda, pol, nstreams, N):
         ref = moment_reference(*args, **kw)
         for a, b in zip(out, ref):
             assert torch.isfinite(a).all() and _rel(a, b) <= GATE
+
+
+@pytest.mark.parametrize("N", [21, 52, 64])
+def test_band_kernel_launch_shape_is_the_c_side_s(cuda, N):
+    """The launch shape the C side reports (csrc/fused_band.cu): whole warps
+    and shared memory of ten N x N matrices at a float4-aligned row stride,
+    eight (N, K) vectors and the D diagonal; the resident blocks per SM
+    from the CUDA occupancy calculator for K1 and K5 (csrc/fused_rt.cu):
+    at the flagship's N = 52 two blocks of each share an SM at K = 1 and
+    2, and at least one fits at every width."""
+    from vsmartmom_tpu_torch.ops import cuda_build
+    lib = cuda_build.load("fused_band")
+    k5 = cuda_build.load("fused_rt")
+    lib.vsm_fused_moment_smem_bytes.restype = ctypes.c_size_t
+    assert lib.vsm_fused_moment_threads() % 32 == 0
+    LD = (N + 3) // 4 * 4
+    for K in (1, 2):
+        VS = (N * K + 3) // 4 * 4
+        smem = lib.vsm_fused_moment_smem_bytes(N, K)
+        assert smem == 4 * (10 * N * LD + 8 * VS + LD)
+        blocks = (lib.vsm_fused_moment_blocks_per_sm(N, K),
+                  k5.vsm_fused_doubling_blocks_per_sm(N, K))
+        assert min(blocks) >= 1, blocks
+        if N == 52:
+            assert blocks == (2, 2), blocks
+    assert lib.vsm_fused_moment_blocks_per_sm(65, 1) < 0
+    assert k5.vsm_fused_doubling_blocks_per_sm(52, 3) < 0
 
 
 def test_kernel_path_matches_plain_path(cuda):
@@ -501,8 +559,9 @@ def test_doubling_kernel_matches_plain_version(cuda, K, ndoubl, ek_form):
 
 def test_doubling_kernel_keeps_an_absorbing_layer_exact(cuda):
     """Moment 15 of the flagship (above m_scat, Z = 0): r = 0 and t
-    diagonal; with the seed I + 0 or with NS iterations r stays exactly
-    zero and t exactly diagonal, with no NaN from a zero row."""
+    diagonal, the kernel's O(N) path; with the seed I + 0 or with NS
+    iterations every output equals the plain version's bit for bit (r
+    exactly zero, t exactly diagonal), with no NaN from a zero row."""
     from vsmartmom_tpu_torch.ops.fused_rt import (doubling_reference,
                                                   fused_doubling)
     (r, t, jp, jm, ek, _), config = _layer_inputs(cuda, 2, m=15)
@@ -513,8 +572,62 @@ def test_doubling_kernel_keeps_an_absorbing_layer_exact(cuda):
         torch.cuda.synchronize()
         assert (out[0] == 0).all() and (out[1][:, off] == 0).all()
         ref = doubling_reference(r, t, jp, jm, ek, 8, sched)
-        for a, b in zip(out[1:], ref[1:]):
-            assert torch.isfinite(a).all() and _rel(a, b) <= GATE
+        for a, b in zip(out, ref):
+            assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+def _misaligned(x):
+    """x's values in a tensor whose data starts 4 bytes past a 16-byte
+    boundary (contiguous, so the wrapper passes it on as it is)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("layout", ["N52", "N21", "N52-misaligned"])
+@pytest.mark.parametrize("K", [1, 2])
+def test_doubling_kernel_mixes_absorbing_and_scattering_blocks(cuda, K,
+                                                               layout):
+    """One launch over scattering layers (moment 0), absorbing ones (moment
+    15: r = 0, t diagonal) and layers with r = 0 but t not diagonal (moment
+    0's t): each block picks its own path on the device. Each block matches
+    the plain version; the absorbing ones bit for bit; the r = 0 blocks
+    with off-diagonal t took the dense ladder (the O(N) path would zero
+    their off-diagonal t). At N = 52 the kernel loads, votes and stores by
+    float4; N = 21 (the leading 21 x 21 block of each operator: odd, so
+    N N % 4 != 0) and operands 4 bytes off a 16-byte boundary take its
+    scalar load-and-vote and diagonal-store code."""
+    from vsmartmom_tpu_torch.ops.fused_rt import (doubling_reference,
+                                                  fused_doubling)
+    (r0, t0, jp0, jm0, ek0, _), config = _layer_inputs(cuda, K, m=0)
+    (r1, t1, jp1, jm1, ek1, _), _ = _layer_inputs(cuda, K, m=15)
+    n = 40                                  # points of each kind
+    ops = [torch.cat([a[:n], b[:n], c[n:2 * n]]).contiguous()
+           for a, b, c in zip((r0, t0, jp0, jm0, ek0),
+                              (r1, t1, jp1, jm1, ek1),
+                              (torch.zeros_like(r0), t0, jp0, jm0, ek0))]
+    N = 21 if layout == "N21" else 52
+    if N != 52:
+        ops = [x[:, :N, :N].contiguous() for x in ops[:2]] + \
+            [x[:, :N].contiguous() for x in ops[2:4]] + [ops[4]]
+    if layout.endswith("misaligned"):
+        ops = [_misaligned(x) for x in ops]
+    off = ~torch.eye(N, dtype=torch.bool, device=cuda)
+    assert (ops[1][2 * n:][:, off] != 0).any()
+    assert (ops[0][n:] == 0).all() and (ops[1][n:2 * n][:, off] == 0).all()
+    sched = config.ns_sched
+    out = fused_doubling(*ops, 8, ns_sched=sched)
+    torch.cuda.synchronize()
+    ref = doubling_reference(*ops, 8, sched)
+    for a, b in zip(out, ref):
+        assert torch.isfinite(a).all()
+        assert _rel(a[:n], b[:n]) <= GATE
+        assert torch.equal(a[n:2 * n], b[n:2 * n])
+        assert _rel(a[2 * n:], b[2 * n:]) <= GATE
+    assert (out[0][n:2 * n] == 0).all()
+    assert (out[1][2 * n:][:, off] != 0).any()
 
 
 @pytest.mark.parametrize("K,ndoubl,ek_form", [

@@ -165,3 +165,71 @@ def test_build_name_hashes_the_shared_headers(monkeypatch, tmp_path):
     assert cuda_build._target("k") not in (first, second)
     (tmp_path / "k.cu").write_text('#include "shared.cuh"\n// edited\n')
     assert cuda_build._target("k") not in (first, second)
+
+
+def _diagonal_ladder(r, t, jp, jm, ek, ndoubl):
+    """The doubling ladder of a purely absorbing layer (r = 0, t diagonal),
+    the O(N) closed form K5 runs there: S = r r = 0, so the NS inverse is
+    I at any schedule, tt_gp = t and X = 0; per step, each product rounded
+    on its own, t_ii <- t_ii^2, jm <- jm + t_ii (jm ek),
+    jp <- jp ek + t_ii jp, ek <- ek^2, and r stays 0."""
+    tii = torch.diagonal(t, dim1=-2, dim2=-1)
+    for _ in range(ndoubl):
+        tt = tii[..., None]
+        jm = jm + tt * (jm * ek)
+        jp = jp * ek + tt * jp
+        ek = ek * ek
+        tii = tii * tii
+    return torch.zeros_like(r), torch.diag_embed(tii), jp, jm
+
+
+def test_absorbing_layer_ladder_is_the_diagonal_closed_form():
+    """The flagship's layers at m = m_max (above m_scat, Z = 0) through
+    ``doubling_reference`` equal the diagonal closed form bit for bit in
+    f32, at a schedule with and without NS iterations; in f64 the closed
+    form matches the JAX package's ``_doubling_math`` within 1e-12."""
+    import jax.numpy as jnp
+    from vsmartmom_tpu.ops.fused_rt import _doubling_math
+    from vsmartmom_tpu_torch.core.multisensor import layer_batch_args
+    from vsmartmom_tpu_torch.core.solver import layer_batch
+    from vsmartmom_tpu_torch.core.types import SolverInputs
+    from vsmartmom_tpu_torch.flagship import flagship_model
+    from vsmartmom_tpu_torch.ops.fused_rt import doubling_reference, ek_to_rows
+    inputs, config = flagship_model(n_spec=2, nstreams=8).build_band(
+        0, device="cpu")
+    assert config.N == 52 and config.m_scat < config.m_max
+    inp = SolverInputs(*(torch.as_tensor(x).float() for x in inputs))
+    layer_data, kw = layer_batch_args(inp, config, config.m_max)
+    d = kw.pop("d_vec")[:, None]
+    r, t, jp, jm, ek = layer_batch(layer_data, **kw)
+    ops = [x.float().contiguous() for x in
+           (r * d, t, jp, jm * d, ek_to_rows(ek, config.N))]
+    off = ~torch.eye(config.N, dtype=torch.bool)
+    assert (ops[0] == 0).all() and (ops[1][:, off] == 0).all()
+    n = config.ndoubl
+    closed = _diagonal_ladder(*ops, n)
+    for sched in ((0,) * n, (0, 1, 2, 0, 3, 0, 1, 2)[:n]):
+        ref = doubling_reference(*ops, n, sched)
+        for a, b in zip(closed, ref):
+            assert torch.equal(a, b)
+    ops64 = [x.double() for x in ops]
+    closed = _diagonal_ladder(*ops64, n)
+    ref = [np.asarray(x) for x in _doubling_math(
+        *(jnp.asarray(x.numpy()) for x in ops64), (0, 2) + (0,) * (n - 2))]
+    for a, b in zip(closed, ref):
+        scale = max(float(np.abs(b).max()), 1e-300)
+        assert float(np.abs(a.numpy() - b).max()) <= 1e-12 * scale
+
+
+def test_tile_variant_patches_match_the_sources():
+    """The patches of tools/variants.py behind PERF.md's split of K1's time
+    (no product loop, empty phases, no epilogues, no vector jobs, one A /
+    B address a warp) still apply to csrc/ and change what they name."""
+    from tools import variants
+    from vsmartmom_tpu_torch.ops.cuda_build import SRC_DIR
+    built = variants.variant_files("tile", "built", SRC_DIR)
+    for name in ("nomac", "empty", "epist", "novec", "bcasta", "bcastb"):
+        files = variants.variant_files("tile", name, SRC_DIR)
+        assert set(files) == set(built)
+        assert [f for f in files if files[f] != built[f]] == \
+            ["fp32_tile.cuh"], name

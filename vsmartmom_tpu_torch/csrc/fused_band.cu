@@ -1,4 +1,4 @@
-// Whole-moment band kernel for Hopper (sm_90a): one Fourier moment of the
+// Whole-moment band kernel K1 for Hopper (sm_90a): one Fourier moment of the
 // adding-doubling solve over all layers, one thread block per spectral point.
 //
 // Replaces the TPU kernel vsmartmom_tpu/ops/fused_band.py::fused_moment ->
@@ -16,27 +16,45 @@
 // Design. The TPU kernel's sequential "arbitrary" layer grid axis becomes a
 // loop over layers inside the block; the composite (R-+, R+-, T++, T--, J+,
 // J-) and every ladder temporary stay in shared memory for the whole moment:
-// ten N x N f32 matrices (10.8 KB each at N = 52) plus a few N x K vectors,
-// ~111 KB at N = 52, K = 1 (dynamic shared memory, opted in per launch).
-// Global memory sees the per-layer row tables in and the composite out once.
+// ten N x N f32 matrices (10.8 KB each at N = 52) plus eight N x K vectors
+// and the D diagonal, 110,032 B at N = 52, K = 1 (111,696 B at K = 2;
+// dynamic shared memory, opted in per launch), so two blocks of 6 warps
+// share an SM. Global memory sees the per-layer row tables in and the
+// composite out once. K (1 solar, 2 solar + thermal source columns) is a
+// template argument.
 //
 // Bound. Per point and layer the ladder and adding are ~(2k + 5) N x N x N
 // products per doubling step, so the kernel is bound by FP32 operations, not
-// bytes (a few KB of row tables per ~20 MFLOP). The products are plain FP32
-// FMA loops over shared memory: each thread owns a 4 x 4 output tile, reads
-// B rows as float4 and A as scalars, so a k-step issues 5 shared loads for
-// 16 FMAs. Tensor cores (3xTF32 / bf16x3 with the Beer-diagonal
-// compensation), wgmma and TMA are later work.
+// bytes (a few KB of row tables per ~20 MFLOP). Every product runs on the
+// FP32 register tiles of csrc/fp32_tile.cuh (shared with K5): one lane a
+// 4 x 8 tile over the whole depth in phases of two or three products (12
+// shared loads per 128 FMA), a 4 x 4 tile in one-product phases, so every
+// phase keeps 5-6 of the block's warps busy (the adding's two
+// three-product phases take two rounds). The ladder is the header's; the
+// adding runs one phase before its NS inverse and four after. The
+// elementwise passes ride in the phases: the unstar in the epilogue of the
+// last doubling step (D r, D jm), the flip to t-- = D t D in front of the
+// adding's first phase, and t++ is never formed again (T21 = t++ + t++ Ru
+// is computed as D (D t-- D + t-- (D Ru)), the same products up to sign).
+// Tensor cores (3xTF32, after a solver-level parity run), wgmma and TMA
+// are later work.
 
 #include <cuda_runtime.h>
+
+#include "fp32_tile.cuh"
 
 #define VSM_MAX_N 64
 #define VSM_MAX_K 2
 #define VSM_MAX_DOUBL 32
 #define VSM_NMAT 10
-#define VSM_NVEC 7
+#define VSM_NVEC 8
+// Threads of a block: 6 warps, two blocks an SM at N <= 52 (<= 168
+// registers a thread).
+#define VSM_THREADS 192
 
 namespace {
+
+using namespace fp32_tile;
 
 struct Args {
   const float* Zpp;   // (C, N, N) phase matrices of this moment
@@ -55,195 +73,44 @@ struct Args {
   float* Tmm;
   float* Jp;          // (s, N, K)
   float* Jm;
-  int s, N, C, K, nz, ndoubl, ns_inter;
+  int s, N, C, nz, ndoubl, ns_inter;
   int sched[VSM_MAX_DOUBL];
 };
 
-enum { E_ST = 0, E_ACC, E_NS, E_ADD, E_SGN, E_EK };
+// Matrix slots of the composite (T++ moves between slots) and vector slots.
+enum { RMP = 0, RPM = 1, TPP0 = 2, TMM = 3 };
+enum { VJP = 0, VJM = 1, Vjp = 2, Vjm = 3, Va = 4, Vb = 5, Vc = 6, Vek = 7 };
 
-// One output panel of a product phase: C = epi(A @ B) (matrices) or
-// y = epi(A @ x) (N x K vectors). E is the epilogue's extra operand.
-struct Out {
-  const float* B;
-  float* C;
-  const float* E;
-  int epi;
-};
-
-__device__ __forceinline__ Out mk(const float* B, float* C, int epi,
-                                  const float* E = nullptr) {
-  Out o;
-  o.B = B;
-  o.C = C;
-  o.E = E;
-  o.epi = epi;
-  return o;
-}
-
-__device__ __forceinline__ float epilogue(int epi, float acc, float* C,
-                                          const float* E, int idx, int i,
-                                          int j, const float* d,
-                                          const float* ek) {
-  switch (epi) {
-    case E_ACC: return C[idx] + acc;
-    case E_NS: return (i == j ? 2.0f : 0.0f) - E[idx] + acc;
-    case E_ADD: return E[idx] + acc;
-    case E_SGN: return d[i] * d[j] * E[idx] + acc;
-    case E_EK: return C[idx] * ek[j] + acc;
-    default: return acc;
-  }
-}
-
-// Block-wide product phase with one left operand A (n x n, leading dim LD):
-// up to two matrix panels (4 x 4 register tiles per thread) and up to two
-// vector panels (one output per thread). Outputs never alias A or a B.
-// The caller synchronises afterwards.
-__device__ void product(const float* __restrict__ A, Out m0, Out m1, int nm,
-                        Out v0, Out v1, int nv, const float* d,
-                        const float* ek, int n, int LD, int K) {
-  const int tg = (n + 3) >> 2;
-  const int tiles = tg * tg;
-  for (int t = threadIdx.x; t < nm * tiles; t += blockDim.x) {
-    const bool second = t >= tiles;
-    const Out o = second ? m1 : m0;
-    const int tt = second ? t - tiles : t;
-    const int ti = tt / tg;
-    const int i0 = ti << 2;
-    const int j0 = (tt - ti * tg) << 2;
-    const float* a0 = A + min(i0, n - 1) * LD;
-    const float* a1 = A + min(i0 + 1, n - 1) * LD;
-    const float* a2 = A + min(i0 + 2, n - 1) * LD;
-    const float* a3 = A + min(i0 + 3, n - 1) * LD;
-    float acc[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < n; ++k) {
-      const float4 b = *reinterpret_cast<const float4*>(o.B + k * LD + j0);
-      const float av[4] = {a0[k], a1[k], a2[k], a3[k]};
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        acc[r][0] = fmaf(av[r], b.x, acc[r][0]);
-        acc[r][1] = fmaf(av[r], b.y, acc[r][1]);
-        acc[r][2] = fmaf(av[r], b.z, acc[r][2]);
-        acc[r][3] = fmaf(av[r], b.w, acc[r][3]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + r;
-      if (i >= n) break;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = j0 + c;
-        if (j < n) {
-          const int idx = i * LD + j;
-          o.C[idx] = epilogue(o.epi, acc[r][c], o.C, o.E, idx, i, j, d, ek);
-        }
-      }
-    }
-  }
-  const int nk = n * K;
-  for (int t = threadIdx.x; t < nv * nk; t += blockDim.x) {
-    const bool second = t >= nk;
-    const Out o = second ? v1 : v0;
-    const int tt = second ? t - nk : t;
-    const int i = tt / K;
-    const int s = tt - i * K;
-    const float* a = A + i * LD;
-    float acc = 0.0f;
-    for (int k = 0; k < n; ++k) acc = fmaf(a[k], o.B[k * K + s], acc);
-    o.C[tt] = epilogue(o.epi, acc, o.C, o.E, tt, i, s, d, ek);
-  }
-}
-
-__device__ __forceinline__ void product1(const float* A, Out m0,
-                                         const float* d, int n, int LD,
-                                         int K) {
-  product(A, m0, m0, 1, m0, m0, 0, d, nullptr, n, LD, K);
-}
-
-// (I - S)^-1 by Newton-Schulz from the seed I + S: m <- m (2I - m + S m).
-// T[0] holds S on entry; on return T[0] holds the inverse and T[1..3] are
-// free. 0 iterations = the seed alone, formed in place.
-__device__ void ns_inverse(float* T[4], int iters, const float* d, int n,
-                           int LD, int K) {
-  float* S = T[0];
-  if (iters == 0) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) S[i * LD + i] += 1.0f;
-    __syncthreads();
-    return;
-  }
-  float* m = T[1];
-  float* c = T[2];
-  float* nm = T[3];
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
-    const int i = e / n;
-    const int j = e - i * n;
-    m[i * LD + j] = S[i * LD + j] + (i == j ? 1.0f : 0.0f);
-  }
-  __syncthreads();
-  for (int it = 0; it < iters; ++it) {
-    product1(S, mk(m, c, E_NS, m), d, n, LD, K);   // c = 2I - m + S m
-    __syncthreads();
-    product1(m, mk(c, nm, E_ST), d, n, LD, K);     // nm = m c
-    __syncthreads();
-    float* tmp = m;
-    m = nm;
-    nm = tmp;
-  }
-  T[0] = m;
-  T[1] = S;
-  T[2] = c;
-  T[3] = nm;
-}
-
-__global__ void __launch_bounds__(256)
-    moment_kernel(const Args a) {
+template <int K>
+__global__ void __launch_bounds__(VSM_THREADS, 2) moment_kernel(const Args a) {
   extern __shared__ __align__(16) float smem[];
-  const int N = a.N, K = a.K, C = a.C;
+  const int N = a.N, C = a.C;
   const int LD = (N + 3) & ~3;           // float4-aligned rows
   const int MS = N * LD;
-  const int VS = (N * K + 3) & ~3;
-  const int NN = N * N;
   const int NK = N * K;
+  const int VS = (NK + 3) & ~3;
+  const int NN = N * N;
   const int pt = blockIdx.x;             // spectral point of this block
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
 
-  float* Rmp = smem;
-  float* Rpm = smem + MS;
-  float* Tpp = smem + 2 * MS;
-  float* Tmm = smem + 3 * MS;
-  float* r = smem + 4 * MS;
-  float* t = smem + 5 * MS;
-  float* T[4] = {smem + 6 * MS, smem + 7 * MS, smem + 8 * MS, smem + 9 * MS};
   float* V = smem + VSM_NMAT * MS;
-  float* Jp = V;
-  float* Jm = V + VS;
-  float* jp = V + 2 * VS;
-  float* jm = V + 3 * VS;
-  float* va = V + 4 * VS;
-  float* vb = V + 5 * VS;
-  float* vc = V + 6 * VS;
-  float* sE = V + VSM_NVEC * VS;         // Em1 row of the layer
-  float* sd = sE + LD;                   // D diagonal
+  float* sd = V + VSM_NVEC * VS;         // D diagonal
+  set_ctx(smem, V, sd, V + Vek * VS, N, K);
 
   // Vacuum composite: R = 0, T = I, J = 0.
   for (int e = tid; e < NN; e += nt) {
     const int i = e / N;
     const int j = e - i * N;
     const int idx = i * LD + j;
-    Rmp[idx] = 0.0f;
-    Rpm[idx] = 0.0f;
-    Tpp[idx] = (i == j) ? 1.0f : 0.0f;
-    Tmm[idx] = (i == j) ? 1.0f : 0.0f;
+    smem[RMP * MS + idx] = 0.0f;
+    smem[RPM * MS + idx] = 0.0f;
+    smem[TPP0 * MS + idx] = (i == j) ? 1.0f : 0.0f;
+    smem[TMM * MS + idx] = (i == j) ? 1.0f : 0.0f;
   }
   for (int e = tid; e < NK; e += nt) {
-    Jp[e] = 0.0f;
-    Jm[e] = 0.0f;
+    V[VJP * VS + e] = 0.0f;
+    V[VJM * VS + e] = 0.0f;
   }
   for (int i = tid; i < N; i += nt) sd[i] = a.dvec[i];
 
@@ -251,21 +118,36 @@ __global__ void __launch_bounds__(256)
   const float* GA = a.geom + NN;
   const float* TO = a.geom + 2 * NN;
   const float* TS = a.geom + 3 * NN;
+  const bool starred = a.ndoubl > 0;     // else the layer is used as built
+  int Tpp = TPP0;
+  Ladder L;
+  L.r = 4;
+  L.t = 5;
+  L.T[0] = 6;
+  L.T[1] = 7;
+  L.T[2] = 8;
+  L.T[3] = 9;
+  L.jp = Vjp;
+  L.jm = Vjm;
+  L.va = Va;
+  L.vb = Vb;
+  L.vc = Vc;
 
   for (int z = 0; z < a.nz; ++z) {
     const size_t zs = static_cast<size_t>(z) * a.s + pt;
-    __syncthreads();
-    for (int i = tid; i < N; i += nt) sE[i] = a.Em1[zs * N + i];
+    __syncthreads();                     // sd, the vacuum / last composite
+    // ---- row tables and the elemental assembly: r* = D r-+ (r-+ when
+    // there is no doubling), t++, j0+, D j0- (j0-), ek per row ----
     for (int e = tid; e < NK; e += nt) {
-      jp[e] = a.jp[zs * NK + e];
-      jm[e] = a.jms[zs * NK + e];
+      const float d = starred ? 1.0f : sd[e / K];
+      V[Vjp * VS + e] = a.jp[zs * NK + e];
+      V[Vjm * VS + e] = d * a.jms[zs * NK + e];
+      V[Vek * VS + e] = a.ek[zs * K + e % K];
     }
     const float dt = a.dt[zs];
-    float ek[VSM_MAX_K];
-    for (int s = 0; s < K; ++s) ek[s] = a.ek[zs * K + s];
-    __syncthreads();
-
-    // ---- elemental assembly: starred r* = D r-+, and t++ ----
+    const float* Em1 = a.Em1 + zs * N;
+    float* r = smem + L.r * MS;
+    float* t = smem + L.t * MS;
     for (int e = tid; e < NN; e += nt) {
       const int i = e / N;
       const int j = e - i * N;
@@ -275,104 +157,68 @@ __global__ void __launch_bounds__(256)
         wpp = fmaf(wc, a.Zpp[c * NN + e], wpp);
         wmp = fmaf(wc, a.Zmp[c * NN + e], wmp);
       }
-      const float em_i = sE[i], em_j = sE[j];
+      const float em_i = Em1[i], em_j = Em1[j];
       const float Ei = 1.0f + em_i, Ej = 1.0f + em_j;
       const float one_m_EE = -(em_i + em_j + em_i * em_j);
-      r[i * LD + j] = sd[i] * wmp * RG[e] * one_m_EE;
+      const int idx = i * LD + j;
+      r[idx] = (starred ? sd[i] : 1.0f) * wmp * RG[e] * one_m_EE;
       // t_off ratio expm1(dt (mu_i - mu_j)/(mu_i mu_j)) with the 1/delta,
       // weight and same-mu masks folded into TO/TS.
       const float x = dt * GA[e];
-      t[i * LD + j] = wpp * (expm1f(x) * Ej * TO[e] + (dt * TS[e]) * Ej) +
-                      (i == j ? Ei : 0.0f);
+      t[idx] = wpp * (expm1f(x) * Ej * TO[e] + (dt * TS[e]) * Ej) +
+               (i == j ? Ei : 0.0f);
     }
     __syncthreads();
 
-    // ---- doubling ladder on starred operators ----
-    for (int step = 0; step < a.ndoubl; ++step) {
-      // S = r r; jm_e = jm * ek
-      product1(r, mk(r, T[0], E_ST), sd, N, LD, K);
-      for (int e = tid; e < NK; e += nt) va[e] = jm[e] * ek[e % K];
-      __syncthreads();
-      ns_inverse(T, a.sched[step], sd, N, LD, K);            // T[0] = gp
-      // tt_gp = t gp; X = r [t | jp | jm_e] folded into rt, c3, c4
-      product1(t, mk(T[0], T[1], E_ST), sd, N, LD, K);
-      product(r, mk(t, T[2], E_ST), mk(t, T[2], E_ST), 1,
-              mk(jp, vb, E_ADD, va), mk(va, vc, E_ADD, jp), 2, sd, ek, N, LD,
-              K);
-      __syncthreads();
-      // Y = tt_gp [t | rt | c3 | c4]
-      product(T[1], mk(t, T[3], E_ST), mk(T[2], r, E_ACC), 2,
-              mk(vb, jm, E_ACC), mk(vc, jp, E_EK), 2, sd, ek, N, LD, K);
-      __syncthreads();
-      float* tmp = t;
-      t = T[3];
-      T[3] = tmp;
-      for (int s = 0; s < K; ++s) ek[s] *= ek[s];
-    }
+    // ---- doubling ladder on starred operators; its last step unstars:
+    // r-+ = D r*, j0- = D j-* ----
+    ladder<K>(L, a.ndoubl, a.sched, true);
 
-    // ---- unstar: r-+ = D r*, j0- = D j-* ----
-    for (int e = tid; e < NN; e += nt) {
-      const int i = e / N;
-      r[i * LD + e - i * N] *= sd[i];
-    }
-    for (int e = tid; e < NK; e += nt) jm[e] *= sd[e / K];
-    __syncthreads();
-
-    // ---- adding onto the composite ----
-    product1(r, mk(Rpm, T[0], E_ST), sd, N, LD, K);           // r-+ R+-
-    __syncthreads();
-    ns_inverse(T, a.ns_inter, sd, N, LD, K);                  // T[0] = inv1
-    product1(Tmm, mk(T[0], T[1], E_ST), sd, N, LD, K);        // T01_inv
-    product(r, mk(Tpp, T[2], E_ST), mk(Tpp, T[2], E_ST), 1,   // rT,
-            mk(Jp, va, E_ADD, jm), mk(Jp, va, E_ADD, jm), 1,  // rJ + j0-
-            sd, ek, N, LD, K);
-    product1(T[0], mk(r, T[3], E_ST), sd, N, LD, K);          // u = inv1 r
-    for (int e = tid; e < NN; e += nt) {                      // t-- = D t D
+    // ---- adding onto the composite (Sanghavi 2014 Eqs. 23-28, one NS
+    // inverse, push-through identity for the second factor) ----
+    t = smem + L.t * MS;
+    for (int e = tid; e < NN; e += nt) {          // rides: t-- = D t D
       const int i = e / N;
       const int j = e - i * N;
       t[i * LD + j] *= sd[i] * sd[j];
     }
-    __syncthreads();
-    product(T[1], mk(t, Tmm, E_ST), mk(T[2], Rmp, E_ACC), 2,  // T--, R-+,
-            mk(va, Jm, E_ACC), mk(va, Jm, E_ACC), 1,          // J-
-            sd, ek, N, LD, K);
-    product(Rpm, mk(T[3], T[0], E_ST), mk(T[3], T[0], E_ST), 1,  // Ru,
-            mk(jm, vb, E_ADD, Jp), mk(jm, vb, E_ADD, Jp), 1,     // J+ + Rj
-            sd, ek, N, LD, K);
-    __syncthreads();
-    product1(Rpm, mk(t, T[1], E_ST), sd, N, LD, K);           // Rt
-    __syncthreads();
-    for (int e = tid; e < NN; e += nt) {                      // back to t++
-      const int i = e / N;
-      const int j = e - i * N;
-      t[i * LD + j] *= sd[i] * sd[j];
-    }
-    __syncthreads();
-    product1(t, mk(T[0], T[2], E_ADD, t), sd, N, LD, K);      // T21_inv
-    __syncthreads();
-    product(T[2], mk(Tpp, T[3], E_ST), mk(T[1], Rpm, E_SGN, r), 2,  // T++, R+-,
-            mk(vb, Jp, E_ADD, jp), mk(vb, Jp, E_ADD, jp), 1,         // J+
-            sd, ek, N, LD, K);
-    __syncthreads();
-    float* tmp = Tpp;
-    Tpp = T[3];
-    T[3] = tmp;
+    int S = L.T[0], m = L.T[1], c = L.T[2], nm = L.T[3];
+    phase1<K>(job(L.r, RPM, S, E_SEED, m));       // r-+ R+-, seed
+    ns_inverse<K>(S, m, c, nm, a.ns_inter);       // m = inv1
+    // T01 = T-- inv1, rT = r-+ T++, u = inv1 r-+; rJ + j0- = j0- + r-+ J+
+    phase<K>(3, job(TMM, m, S), job(L.r, Tpp, c), job(m, L.r, nm), 1,
+             job(L.r, VJP, Va, E_ADD, L.jm), 0);
+    // T-- = T01 t--, R-+ += T01 rT, D Ru = D R+- u; J- += T01 (rJ + j0-),
+    // J+ + Rj = J+ + R+- j0-
+    phase<K>(3, job(S, L.t, TMM), job(S, c, RMP, E_ACC),
+             job(RPM, nm, m, E_ROWD), 2, job(S, Va, VJM, E_ACC),
+             job(RPM, L.jm, Vb, E_ADD, VJP));
+    // Rt = R+- t--; T21 = t++ + t++ Ru = D (D t-- D + t-- (D Ru))
+    phase<K>(2, job(RPM, L.t, nm), job(L.t, m, c, E_SGND, L.t), 0, 0, 0, 0);
+    // T++ = T21 T++, R+- = r+- + T21 Rt (r+- = D r-+ D); J+ = j0+ +
+    // T21 (J+ + Rj)
+    phase<K>(2, job(c, Tpp, S), job(c, nm, RPM, E_SGN, L.r), 0, 1,
+             job(c, Vb, VJP, E_ADD, L.jp), 0);
+    L.T[0] = Tpp;
+    L.T[1] = m;
+    L.T[2] = c;
+    L.T[3] = nm;
+    Tpp = S;
   }
-  __syncthreads();
 
   const size_t mo = static_cast<size_t>(pt) * NN;
   for (int e = tid; e < NN; e += nt) {
     const int i = e / N;
     const int idx = i * LD + e - i * N;
-    a.Rmp[mo + e] = Rmp[idx];
-    a.Rpm[mo + e] = Rpm[idx];
-    a.Tpp[mo + e] = Tpp[idx];
-    a.Tmm[mo + e] = Tmm[idx];
+    a.Rmp[mo + e] = smem[RMP * MS + idx];
+    a.Rpm[mo + e] = smem[RPM * MS + idx];
+    a.Tpp[mo + e] = smem[Tpp * MS + idx];
+    a.Tmm[mo + e] = smem[TMM * MS + idx];
   }
   const size_t vo = static_cast<size_t>(pt) * NK;
   for (int e = tid; e < NK; e += nt) {
-    a.Jp[vo + e] = Jp[e];
-    a.Jm[vo + e] = Jm[e];
+    a.Jp[vo + e] = V[VJP * VS + e];
+    a.Jm[vo + e] = V[VJM * VS + e];
   }
 }
 
@@ -380,7 +226,31 @@ size_t smem_floats(int N, int K) {
   const int LD = (N + 3) & ~3;
   const int VS = (N * K + 3) & ~3;
   return static_cast<size_t>(VSM_NMAT) * N * LD +
-         static_cast<size_t>(VSM_NVEC) * VS + 2 * LD;
+         static_cast<size_t>(VSM_NVEC) * VS + LD;
+}
+
+template <int K>
+int launch(const Args& a, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      moment_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (a.s > 0) moment_kernel<K><<<a.s, VSM_THREADS, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of moment_kernel<K> with `smem` dynamic shared bytes that one SM
+// holds at once (registers and shared memory), or minus a CUDA error code.
+template <int K>
+int resident(size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      moment_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, moment_kernel<K>, VSM_THREADS, smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 }  // namespace
@@ -391,10 +261,17 @@ size_t vsm_fused_moment_smem_bytes(int N, int K) {
   return smem_floats(N, K) * sizeof(float);
 }
 
-int vsm_fused_moment_threads(int N) {
-  const int tg = (N + 3) / 4;
-  const int th = ((tg * tg + 31) / 32) * 32;
-  return th < 64 ? 64 : (th > 256 ? 256 : th);
+// Threads of a block of the launch (the same at every N and K).
+int vsm_fused_moment_threads() { return VSM_THREADS; }
+
+// Blocks of the launch at (N, K) resident on one SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a CUDA error
+// code.
+int vsm_fused_moment_blocks_per_sm(int N, int K) {
+  if (N < 1 || N > VSM_MAX_N || K < 1 || K > VSM_MAX_K)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = vsm_fused_moment_smem_bytes(N, K);
+  return K == 1 ? resident<1>(smem) : resident<2>(smem);
 }
 
 const char* vsm_error_string(int code) {
@@ -434,20 +311,13 @@ int vsm_fused_moment_f32(const float* Zpp, const float* Zmp, const float* geom,
   a.s = s;
   a.N = N;
   a.C = C;
-  a.K = K;
   a.nz = nz;
   a.ndoubl = ndoubl;
   a.ns_inter = ns_inter;
   for (int i = 0; i < VSM_MAX_DOUBL; ++i) a.sched[i] = i < ndoubl ? sched[i] : 0;
   const size_t smem = vsm_fused_moment_smem_bytes(N, K);
-  cudaError_t err = cudaFuncSetAttribute(
-      moment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (s > 0)
-    moment_kernel<<<s, vsm_fused_moment_threads(N), smem,
-                    static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return K == 1 ? launch<1>(a, smem, st) : launch<2>(a, smem, st);
 }
 
 }  // extern "C"

@@ -1,12 +1,16 @@
-// Device code shared by the per-layer kernels (csrc/fused_rt.cu, K4 and K5)
-// and the band-body probe (csrc/band_stages.cu): the register-tiled FP32
-// product phases, the Newton-Schulz inverse, the doubling ladder on starred
-// operators (_doubling_math of vsmartmom_tpu/ops/fused_rt.py) and the adding
-// step (_interaction_math), each a device function working on one block's
-// shared memory. Both sources include this header, so the algebra has one
-// copy outside the whole-moment band kernel (csrc/fused_band.cu keeps its
-// own). The build hashes every csrc/*.cuh into each library's name
-// (ops/cuda_build.py), so an edit here rebuilds both.
+// Device code of the per-layer step kernel K4 (csrc/fused_rt.cu,
+// layer_kernel) and the band-stage probe (csrc/band_stages.cu): the
+// register-tiled FP32 product phases (a 4 x 4 output tile per thread, B
+// rows read as float4 and A as scalars: 5 shared loads per 16 FMA), the
+// Newton-Schulz inverse, the doubling ladder on starred operators
+// (_doubling_math of vsmartmom_tpu/ops/fused_rt.py) and the adding step
+// (_interaction_math), each a device function working on one block's shared
+// memory. K1 (csrc/fused_band.cu) and K5 (doubling_kernel) run the same
+// algebra on csrc/fp32_tile.cuh's 4 x 8 tiles instead; K4 and the probe
+// stay here so that K4's chain keeps its bit-for-bit match with its plain
+// chain, until they move onto that header. The build hashes every
+// csrc/*.cuh into each library's name (ops/cuda_build.py), so an edit here
+// rebuilds every source.
 
 #pragma once
 

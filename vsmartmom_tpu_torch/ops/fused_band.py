@@ -247,8 +247,9 @@ def fused_moment(Z_pp_m, Z_mp_m, tau, scat_w, Em1, Em1_0, att, ek_sol,
     It is bound by FP32 operations, O(ndoubl N^3) per point and layer
     against O(N K) bytes of row tables; its design keeps the composite and
     the ladder temporaries in shared memory for the whole moment, one block
-    per spectral point, and runs the products as register-tiled FP32 FMA
-    loops. CPU tensors run ``moment_body_reference``.
+    per spectral point, and runs the products on the register-tiled FP32
+    loops of ``csrc/fp32_tile.cuh`` (shared with K5). CPU tensors run
+    ``moment_body_reference``.
     """
     if pack != 1:
         raise ValueError("the port runs one spectral point per operator "

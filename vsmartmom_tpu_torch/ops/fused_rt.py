@@ -258,12 +258,15 @@ def fused_doubling(r, t, jp, jm, expk, ndoubl, ns_sched=None,
     CUDA tensors launch K5 of ``csrc/fused_rt.cu`` (counted in
     ``fused_doubling.launches``), which replaces the TPU kernel
     ``vsmartmom_tpu/ops/fused_rt.py::fused_doubling`` -> ``_doubling_kernel``.
-    It is bound by FP32 operations, (2k + 5) N^3 FMAs per point and step
-    against O(N^2) bytes per point; its design keeps r, t, the sources and
-    the NS and product temporaries (six N x N matrices, 67 KB at N = 52) in
-    shared memory for the whole ladder, one block per point, with
-    register-tiled FP32 FMA products as in K1. CPU tensors run
-    ``doubling_reference``.
+    A scattering layer is bound by FP32 operations, (2k + 5) N^3 FMAs per
+    point and step against O(N^2) bytes per point; its design keeps r, t,
+    the sources and the NS and product temporaries (six N x N matrices,
+    67 KB at N = 52) in shared memory for the whole ladder, one block per
+    point, with K1's register-tiled FP32 products (``csrc/fp32_tile.cuh``).
+    A purely absorbing layer (r = 0 and t diagonal, every moment above
+    m_scat) is found on the device after the load and runs the ladder's
+    O(N) closed form, the plain version's values bit for bit; it is bound
+    by the bytes of r and t. CPU tensors run ``doubling_reference``.
     """
     _refuse_tpu_modes(dot_mode)
     ns_sched = norm_sched(ns_sched, ndoubl)
