@@ -21,10 +21,15 @@ a miss:
    on the card at its main path's shapes, gate max|d| / max|ref| <= 1e-4 on
    every output: K1 at the flagship's (N = 52, nz = 33, ndoubl = 8, the
    probed Newton-Schulz schedule, nSpec = 1024, moments m = 0..2) and a
-   small K = 2 (thermal source) case; K3 at the RRS+SIF scene's (N = 36,
-   nz = 8, 58 Raman shifts x nSpec 256 = 14,848 pairs, the coarse ie
-   ladder, m = 0..2) and a small I-only case (N = 6) whose shifts run off
-   the band edge for most pairs, which must come out exactly zero; K2 at
+   small K = 2 (thermal source) case; K3 (its diagonal and pair launches)
+   at the RRS+SIF scene's (N = 36, nz = 8, 58 Raman shifts x nSpec 256 =
+   14,848 pairs, the coarse ie ladder, m = 0..2) and a small I-only case
+   (N = 6) whose shifts run off the band edge for most pairs, which must
+   come out exactly zero, against the dense plain version and the split
+   one (``moment_rrs_split_reference``, the launches' own algebra), and
+   within ``F64_RATIO`` of the f32 plain version's distance from the plain
+   version in f64; its launch shapes (threads, shared memory, pool,
+   resident blocks an SM of each launch); K2 at
    the aerosol flagship's (N = 52, nz = 33, C = 2, ndoubl = 11, the probed
    schedule, all P = 8 tangents, a 64-point slice, m = 0, 1, 15): primal
    <= 1e-4 of max|ref| per output, each parameter's tangent outputs
@@ -43,7 +48,8 @@ a miss:
      flagship at nSpec = 16 against the stored JAX CPU f64 reference
      (``vsmartmom_tpu_torch/data/flagship_ref_f64.npz``, <= 1e-4);
    * ``rt_run_inelastic`` of the RRS+SIF scene (nSpec = 256): K1 and K3
-     launched once per moment; R, T, ieR, ieT finite; the kernel path
+     (a call, and its diagonal launch) once per moment; R, T, ieR, ieT
+     finite; the kernel path
      against the port's plain ``rt_solve_rrs``, R <= 1e-4 and ieR <= 5e-3
      of max (the JAX bench's gate: the coarse ie ladder is by design), the
      total R + ieR <= 1e-4 of max|R|, and with ``ie_fullres=True``
@@ -65,8 +71,12 @@ a miss:
    after a warm-up, synced with ``torch.cuda.synchronize``), and per kernel
    launch its time, its plain version's time and its bound:
    max(FLOPs / FP32 peak, bytes / HBM rate), K3's at the least work that
-   gives its outputs (``rrs_flops``), with the kernel's own count and the
-   dense one printed beside it; the Jacobian solve's points/s and tangent
+   gives its outputs (``rrs_flops``: off-grid pairs need none), for the
+   call and for each of its two launches, with the former one-launch
+   kernel's block count and the
+   dense one printed beside it, the store's bytes and the diagonal
+   launch's store against its plain version (``diagonal_store``); the
+   Jacobian solve's points/s and tangent
    points/s (best of 2 after a warm-up, tangents prebuilt), the host
    seconds of the scene and tangent builds, and K2's time against its bound
    at the least work (the primal once, two products per tangent product),
@@ -104,9 +114,11 @@ a miss:
    plain chain <= 1e-4 per output and against K1's composite of the same
    moment <= 1e-4 of max per output; the chain's time beside K1's for the
    same moments, and K4's time per launch against its plain version and
-   its bound. K4's chain against the plain chain must be exactly equal
-   (its device code lives in ``csrc/rt_device.cuh``, shared with the
-   band-stage kernel);
+   its bound, and its resident blocks an SM. K4 runs K5's ladder and K1's
+   adding on ``csrc/fp32_tile.cuh``: its chain's matrices must equal the
+   plain chain's bit for bit, its sources (four partial sums a row) be
+   within ``F64_RATIO`` of the f32 plain chain's distance from the plain
+   chain in f64;
 7. probes (``probes_phase``) — each probe module's ``run()`` at its
    script's own shapes with every launch counter set to 0 just before and
    read just after (it must equal the wrapper calls the cases report: one
@@ -230,24 +242,31 @@ def moment_flops(config, n_spec):
     return 2.0 * N * N * cols * config.nz * n_spec
 
 
-def rrs_flops(ops, n_points, ns_sched, ns_inter, count="least"):
-    """FP32 operations (an FMA is two) of one fused_moment_rrs launch over
-    P = nR x n_points (shift, point) pairs: the matrix and vector products
-    of the ladder and the adding (the moment_flops count) on the (2N, 2N)
-    block-lower-triangular pair operators, counted three ways:
+def rrs_flops(ops, n_points, n_pairs, ns_sched, ns_inter, count="least"):
+    """FP32 operations (an FMA is two) of one fused_moment_rrs call over
+    P = nR x n_points (shift, point) pairs, n_pairs of them on the grid:
+    the matrix and vector products of the ladder and the adding (the
+    moment_flops count) on the (2N, 2N) block-lower-triangular pair
+    operators, counted four ways:
 
-    * "least", the bound's: the least work giving the same outputs. Only
-      the (2,1) block is a pair's own, 2 N^3 FMAs per product and 2 N^2
-      per product column. The diagonal blocks are elastic ladders and
-      composites of one grid point (l1 = i, l0 = i + shift), so they are
-      needed once per point: N^3 and N^2 per point;
-    * "block", the kernel's: every pair's three blocks, 4 N^3 and 3 N^2;
+    * "least", the bound's and the kernels': the least work giving the
+      same outputs. Only the (2,1) block is a pair's own, 2 N^3 FMAs per
+      product and 2 N^2 per product column, and an off-grid pair's is
+      exactly zero (no work). The diagonal blocks are elastic ladders and
+      composites of one grid point (l1 = i, l0 = i + shift), needed once
+      per point: N^3 and N^2 per point;
+    * "pairs" and "points": its two parts, the pair launch's and the
+      diagonal launch's;
+    * "block", the former one-launch kernel's: every pair's three blocks,
+      4 N^3 and 3 N^2;
     * "dense": 8 N^3 and 4 N^2 per pair."""
     nz, P, Np = ops.Em1.shape
     N = Np // 2
     mat, vec = {
-        "least": (2 * N ** 3 * P + N ** 3 * n_points,
-                  2 * N ** 2 * P + N ** 2 * n_points),
+        "least": (2 * N ** 3 * n_pairs + N ** 3 * n_points,
+                  2 * N ** 2 * n_pairs + N ** 2 * n_points),
+        "pairs": (2 * N ** 3 * n_pairs, 2 * N ** 2 * n_pairs),
+        "points": (N ** 3 * n_points, N ** 2 * n_points),
         "block": (4 * N ** 3 * P, 3 * N ** 2 * P),
         "dense": (Np ** 3 * P, Np ** 2 * P)}[count]
     n_mat = sum(2 * k + 5 for k in ns_sched) + 2 * ns_inter + 11
@@ -399,6 +418,7 @@ def launch_counted():
         fused_rrs, fused_rt, probe_dots, probe_layout
     return {"fused_moment": fused_band.fused_moment,
             "fused_moment_rrs": fused_rrs.fused_moment_rrs,
+            "rrs_diagonal": fused_rrs._launch_diagonal,
             "fused_moment_multitangent": fused_lin.fused_moment_multitangent,
             "fused_doubling": fused_rt.fused_doubling,
             "fused_layer_step": fused_rt.fused_layer_step,
@@ -635,10 +655,11 @@ def layer_chain_phase(dev, smi, inputs, config):
         layers.append((r_mp * d[:, None], t_pp, jp, jm * d[:, None], expk,
                        d))
 
-    def chain(step):
+    def chain(step, dtype=torch.float32):
         comps = []
-        for r, t, jp, jm, ek, d in layers:
-            comp = identity_composite(s, N, torch.float32, dev, K)
+        for lay in layers:
+            r, t, jp, jm, ek, d = (x.to(dtype) for x in lay)
+            comp = identity_composite(s, N, dtype, dev, K)
             for z in range(nz):
                 comp = step(comp, r[z], t[z], jp[z], jm[z], ek[z], d,
                             config.ndoubl, sched, config.ns_inter)
@@ -657,25 +678,38 @@ def layer_chain_phase(dev, smi, inputs, config):
     if launches != want:
         fail(f"layer chain launches {launches}, want {want}")
     plain = chain(fused_rt.layer_step_reference)
+    plain64 = chain(fused_rt.layer_step_reference, torch.float64)
     names = ("R_mp", "R_pm", "T_pp", "T_mm", "J0_p", "J0_m")
     k4_abs_err = 0.0
+    k4_f64 = []
     k1_args = [solver.band_moment_args(inputs, config, m, dev)
                for m in range(len(layers))]
-    for m, (o, p, a) in enumerate(zip(out, plain, k1_args)):
+    for m, (o, p, q, a) in enumerate(zip(out, plain, plain64, k1_args)):
         k1 = fused_band.fused_moment(*a[0], **a[1])
         e_p = {n: rel(x, y) for n, x, y in zip(names, o, p)}
         e_k1 = {n: rel(x, y) for n, x, y in zip(names, o, k1)}
         k4_abs_err = max([k4_abs_err] + [float((x - y).abs().max())
                                          for x, y in zip(o, p)])
+        # The matrices round as the plain chain's; the sources (four
+        # partial sums a row) within 2x of its distance from f64.
+        same = [bool(torch.equal(x, y)) for x, y in zip(o[:4], p[:4])]
+        e64 = (max(rel(x.double(), z) for x, z in zip(o[4:], q[4:])),
+               max(rel(y.double(), z) for y, z in zip(p[4:], q[4:])))
+        k4_f64.append(e64)
         print(f"K4 chain m={m} vs plain chain: " + " ".join(
             f"{n}={e:.2e}" for n, e in e_p.items()) + "; vs K1: " + " ".join(
-            f"{n}={e:.2e}" for n, e in e_k1.items()), flush=True)
+            f"{n}={e:.2e}" for n, e in e_k1.items()) + "; matrices "
+            f"bit-identical: {all(same)}; J vs f64 plain chain: kernel "
+            f"{e64[0]:.2e}, f32 plain {e64[1]:.2e}", flush=True)
         if not all(np.isfinite(e) and e <= GATE
                    for e in (*e_p.values(), *e_k1.values())):
             fail(f"K4 chain at m={m}: vs plain {e_p}, vs K1 {e_k1}")
-    if k4_abs_err != 0:
-        fail(f"K4 chain vs plain chain is {k4_abs_err}, not bit-identical as "
-             "before the move of its device code into csrc/rt_device.cuh")
+        if not all(same):
+            fail(f"K4 chain's matrices at m={m} are not the plain chain's "
+                 f"bit for bit: {dict(zip(names, same))}")
+        if not e64[0] <= F64_RATIO * e64[1]:
+            fail(f"K4 chain's sources at m={m} are {e64[0]} from f64, over "
+                 f"{F64_RATIO}x the f32 plain chain's {e64[1]}")
 
     chain_ms = cuda_time_ms(lambda: chain(fused_rt.fused_layer_step),
                             reps=3)
@@ -699,6 +733,8 @@ def layer_chain_phase(dev, smi, inputs, config):
         "card": smi, "layer_chain": {
             "moments": len(layers), "layers": nz, "n_spec": s,
             "k4_chain_ms": chain_ms, "k1_same_moments_ms": k1_ms,
+            "k4_blocks_per_sm": fused_rt.layer_step_blocks_per_sm(N, K),
+            "f64_kernel_plain_sources": k4_f64,
             "k4_launch": {"kernel_ms": k4_ms, "plain_ms": k4_plain_ms,
                           "bound_ms": k4_bound,
                           "bound_share": k4_bound / k4_ms,
@@ -1283,18 +1319,49 @@ def main():
         ("edge N=6", m, rrs_moment_args(edge_inputs, edge_config, *edge, m,
                                         dev))
         for m in range(edge_config.m_max + 1)]
+    k3_plan = fused_rrs.launch_info(
+        rrs_config.N, rrs_config.nz,
+        fused_rrs.norm_sched(kw0["ns_sched"], kw0["ndoubl"]),
+        kw0["ns_inter"])
+    print(f"K3 launches at N={rrs_config.N}: {json.dumps(k3_plan)}",
+          flush=True)
+    k3_f64 = []
     for label, m, (args, kw) in cases:
         out = fused_rrs.fused_moment_rrs(*args, **kw)
         torch.cuda.synchronize()
         ref = fused_rrs.moment_rrs_reference(*args, **kw)
+        ops = fused_rrs.rrs_operands(*args, **{
+            k: v for k, v in kw.items() if k not in ("ns_sched", "ns_inter")})
+        sched = fused_rrs.norm_sched(kw["ns_sched"], kw["ndoubl"])
+        nR, n_pts = len(args[11]), args[4].shape[1]
+        split = [x.reshape(nR, n_pts, *x.shape[1:]) for x in
+                 fused_rrs.moment_rrs_split_reference(
+                     ops, args[11], sched, kw["ns_inter"],
+                     fused_rrs.pair_shape(ops.d_vec.shape[0],
+                                          ops.Em1.shape[0], sched,
+                                          kw["ns_inter"])[1])]
+        ref64 = fused_rrs._ie_layout(fused_rrs.moment_rrs_body_reference(
+            ops._replace(**{f: getattr(ops, f).double()
+                            for f in ops._fields}), sched, kw["ns_inter"]),
+            nR, n_pts)
         errs = {n: rel(a, b) for n, a, b in zip(names_ie, out, ref)}
+        e_split = max(rel(a, b) for a, b in zip(out, split))
         rrs_abs_err = max([rrs_abs_err] + [float((a - b).abs().max())
                                            for a, b in zip(out, ref)])
+        e64 = (max(rel(a.double(), b) for a, b in zip(out, ref64)),
+               max(rel(a.double(), b) for a, b in zip(ref, ref64)))
+        k3_f64.append(e64)
         print(f"K3 vs plain {label} m={m}: " + " ".join(
-            f"{n}={e:.2e}" for n, e in errs.items()), flush=True)
-        if not all(np.isfinite(e) and e <= GATE for e in errs.values()):
+            f"{n}={e:.2e}" for n, e in errs.items()) + f"; vs split plain "
+            f"{e_split:.2e}; vs f64 plain: kernel {e64[0]:.2e}, f32 plain "
+            f"{e64[1]:.2e}", flush=True)
+        if not all(np.isfinite(e) and e <= GATE
+                   for e in (*errs.values(), e_split)):
             fail(f"fused_moment_rrs vs moment_rrs_reference {label} m={m}: "
-                 f"{errs}")
+                 f"{errs}, vs moment_rrs_split_reference {e_split}")
+        if not e64[0] <= F64_RATIO * e64[1]:
+            fail(f"fused_moment_rrs {label} m={m} is {e64[0]} from f64, over "
+                 f"{F64_RATIO}x the f32 plain version's {e64[1]}")
         if label.startswith("edge") and not all(
                 bool((a[off] == 0).all()) for a in out):
             fail("off-grid RRS pairs did not come out exactly zero")
@@ -1376,17 +1443,20 @@ def main():
     if not all(e <= GATE for e in e_ref.values()):
         fail(f"port vs stored JAX reference: {e_ref}")
 
-    fused_band.fused_moment.launches = 0
-    fused_rrs.fused_moment_rrs.launches = 0
+    rrs_counted = {"fused_moment": fused_band.fused_moment,
+                   "fused_moment_rrs": fused_rrs.fused_moment_rrs,
+                   "rrs_diagonal": fused_rrs._launch_diagonal}
+    for fn in rrs_counted.values():
+        fn.launches = 0
     ie_out = dict(zip(("R", "T", "ieR", "ieT"),
                       rt_run_inelastic(rrs_model, device=dev)))
     torch.cuda.synchronize()
-    rrs_launches = {"fused_moment": fused_band.fused_moment.launches,
-                    "fused_moment_rrs": fused_rrs.fused_moment_rrs.launches}
+    rrs_launches = {k: fn.launches for k, fn in rrs_counted.items()}
     n_rc = min(n_shifts, 32768 // RRS_N_SPEC)
     want_rrs = {"fused_moment": rrs_config.m_max + 1,
                 "fused_moment_rrs": (rrs_config.m_max + 1)
                 * -(-n_shifts // n_rc)}
+    want_rrs["rrs_diagonal"] = want_rrs["fused_moment_rrs"]
     print(f"main path: rt_run_inelastic nSpec={RRS_N_SPEC}, launches "
           f"{rrs_launches} (want {want_rrs})", flush=True)
     if rrs_launches != want_rrs:
@@ -1428,6 +1498,7 @@ def main():
 
     counted = {"fused_moment": fused_band.fused_moment,
                "fused_moment_rrs": fused_rrs.fused_moment_rrs,
+               "rrs_diagonal": fused_rrs._launch_diagonal,
                "fused_moment_multitangent":
                    fused_lin.fused_moment_multitangent}
     for fn in counted.values():
@@ -1437,7 +1508,7 @@ def main():
     torch.cuda.synchronize()
     lin_e2e_s = time.perf_counter() - t0
     lin_launches = {k: fn.launches for k, fn in counted.items()}
-    want_lin = {"fused_moment": 0, "fused_moment_rrs": 0,
+    want_lin = {"fused_moment": 0, "fused_moment_rrs": 0, "rrs_diagonal": 0,
                 "fused_moment_multitangent": lin_config.m_scat + 1}
     print(f"main path: rt_run_lin nSpec={LIN_N_SPEC}, {n_par} parameters, "
           f"launches {lin_launches} (want {want_lin}), {lin_e2e_s:.1f} s",
@@ -1509,9 +1580,9 @@ def main():
         lambda: fused_band.moment_reference(*args[0], **args[1]), reps=3)
     out = fused_band.fused_moment(*args[0], **args[1])
     flops = moment_flops(config, N_CHUNK)
-    nbytes = moment_bytes(args, out)
+    k1_bytes = moment_bytes(args, out)
     t_ops, t_bytes = flops / FP32_PEAK_FLOPS * 1e3, \
-        nbytes / HBM_BYTES_PER_S * 1e3
+        k1_bytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     print(json.dumps({
         "card": smi, "pts_per_s": pts_per_s, "solve_s": min(times[1:]),
@@ -1519,7 +1590,7 @@ def main():
         "moment_launch": {"n_spec": N_CHUNK, "kernel_ms": k_ms,
                           "plain_ms": p_ms, "bound_ms": bound_ms,
                           "bound_share": bound_ms / k_ms,
-                          "flops": flops, "bytes": nbytes,
+                          "flops": flops, "bytes": k1_bytes,
                           "achieved_tflops": flops / k_ms / 1e9,
                           "plan": k1_plan, "f64_kernel_plain": k1_f64}}),
         flush=True)
@@ -1543,31 +1614,83 @@ def main():
                                           if k not in ("ns_sched",
                                                        "ns_inter")})
     sched = fused_rrs.norm_sched(kw["ns_sched"], kw["ndoubl"])
+    k3_pl, k3_pairs, k3_threads = fused_rrs.kernel_plan(
+        ops, args[11], sched, kw["ns_inter"])
     k3_ms = cuda_time_ms(lambda: fused_rrs._launch_kernel(
-        ops, sched, kw["ns_inter"]), reps=3)
+        ops, args[11], sched, kw["ns_inter"]), reps=3)
+    store = fused_rrs._launch_diagonal(ops, k3_pl)
+    k3_diag_ms = cuda_time_ms(lambda: fused_rrs._launch_diagonal(ops, k3_pl),
+                              reps=3)
+    k3_pair_ms = cuda_time_ms(lambda: fused_rrs._launch_pairs(
+        ops, k3_pl, k3_pairs, k3_threads, store), reps=3)
     k3_plain_ms = cuda_time_ms(lambda: fused_rrs.moment_rrs_body_reference(
         ops, sched, kw["ns_inter"]), reps=3)
-    out = fused_rrs._launch_kernel(ops, sched, kw["ns_inter"])
-    k3_flops = {c: rrs_flops(ops, RRS_N_SPEC, sched, kw["ns_inter"], c)
-                for c in ("least", "block", "dense")}
-    k3_bytes = sum(x.numel() * x.element_size() for x in (*ops, *out))
-    k3_ops, k3_mem = k3_flops["least"] / FP32_PEAK_FLOPS * 1e3, \
-        k3_bytes / HBM_BYTES_PER_S * 1e3
-    k3_bound = max(k3_ops, k3_mem)
+    # The split plain version's two halves (the kernels' plain versions).
+    ref_store = fused_rrs.diagonal_store(ops, k3_pl)
+    k3_diag_plain_ms = cuda_time_ms(
+        lambda: fused_rrs.diagonal_store(ops, k3_pl), reps=2)
+    k3_pair_plain_ms = cuda_time_ms(lambda: fused_rrs.pair_recurrence(
+        ops, k3_pl, k3_pairs, ref_store), reps=2)
+    N3, LD3 = rrs_config.N, (rrs_config.N + 3) & ~3
+    kern_m = store[0].reshape(*store[0].shape[:2], N3, LD3)[..., :N3]
+    diag_abs_err = float((kern_m - ref_store[0]).abs().max())
+    diag_rel = rel(kern_m, ref_store[0])
+    if not (np.isfinite(diag_rel) and diag_rel <= GATE):
+        fail(f"K3's diagonal store vs diagonal_store: {diag_rel}")
+    out = fused_rrs._launch_pairs(ops, k3_pl, k3_pairs, k3_threads, store)
+    n_on = int(k3_pairs.shape[0])
+    k3_flops = {c: rrs_flops(ops, RRS_N_SPEC, n_on, sched, kw["ns_inter"],
+                             c)
+                for c in ("least", "pairs", "points", "block", "dense")}
+    in_bytes = nbytes(*ops)
+    k3_bytes = in_bytes + nbytes(*out)
+    store_bytes = nbytes(*store)
+    # The diagonal launch reads the points' l1 row tables (pairs 0..s-1).
+    diag_in = nbytes(ops.Z_pp, ops.Z_mp, ops.geom, ops.d_vec, ops.src_jp,
+                     ops.src_jm, ops.src_ek, ops.w_over[:, :, :RRS_N_SPEC, 1],
+                     ops.Em1[:, :RRS_N_SPEC, N3:],
+                     ops.dtau[:, :RRS_N_SPEC, 1])
+    bounds = {}
+    for part, flops, nb in (("all", k3_flops["least"], k3_bytes),
+                            ("pairs", k3_flops["pairs"],
+                             in_bytes + nbytes(*out) + store_bytes),
+                            ("points", k3_flops["points"],
+                             diag_in + store_bytes)):
+        t_ops, t_mem = flops / FP32_PEAK_FLOPS * 1e3, nb / HBM_BYTES_PER_S * 1e3
+        bounds[part] = (max(t_ops, t_mem),
+                        "operations" if t_ops >= t_mem else "bytes", nb)
+    k3_bound = bounds["all"][0]
     print(json.dumps({
         "card": smi, "rrs_pts_per_s": rrs_pts_per_s,
         "rrs_solve_s": min(times[1:]), "rrs_solve_all_s": times,
         "rt_run_inelastic_e2e_s": rrs_e2e_s, "n_spec": RRS_N_SPEC,
         "n_shifts": n_shifts, "launches": rrs_launches,
-        "rrs_launch": {"pairs": n_shifts * RRS_N_SPEC, "kernel_ms": k3_ms,
-                       "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+        "rrs_launch": {"pairs": n_shifts * RRS_N_SPEC, "pairs_on_grid": n_on,
+                       "kernel_ms": k3_ms, "diag_ms": k3_diag_ms,
+                       "pair_ms": k3_pair_ms, "plain_ms": k3_plain_ms,
+                       "diag_plain_ms": k3_diag_plain_ms,
+                       "pair_plain_ms": k3_pair_plain_ms,
+                       "bound_ms": k3_bound,
                        "bound_share": k3_bound / k3_ms,
+                       "diag_bound_ms": bounds["points"][0],
+                       "pair_bound_ms": bounds["pairs"][0],
                        "flops": k3_flops["least"],
+                       "flops_pairs": k3_flops["pairs"],
+                       "flops_points": k3_flops["points"],
                        "flops_block": k3_flops["block"],
                        "flops_dense": k3_flops["dense"],
-                       "bytes": k3_bytes,
-                       "achieved_tflops_block": k3_flops["block"] / k3_ms
-                       / 1e9}}),
+                       "bytes": k3_bytes, "store_bytes": store_bytes,
+                       "diag_store_err": diag_rel,
+                       "achieved_tflops": k3_flops["least"] / k3_ms / 1e9,
+                       "achieved_tflops_pairs": k3_flops["pairs"]
+                       / k3_pair_ms / 1e9,
+                       "plan": {**k3_plan, "records": len(k3_pl.table),
+                                "phases": k3_pl.n_phases,
+                                "prefetched": k3_pl.n_prefetched,
+                                "staged_matrices_a_pair": k3_pl.n_stage_mats,
+                                "store_entries": [k3_pl.n_mat_entries,
+                                                  k3_pl.n_vec_entries]},
+                       "f64_kernel_plain": k3_f64}}),
         flush=True)
     times = []
     for _ in range(3):                           # 1 warm-up + best of 2
@@ -1628,10 +1751,16 @@ def main():
         "source": "vsmartmom_tpu_torch/csrc/fused_rrs.cu",
         "replaces": "vsmartmom_tpu/ops/fused_rrs.py:366",
         "launches": rrs_launches["fused_moment_rrs"],
-        "max_abs_err": rrs_abs_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
-        "bound_ms": k3_bound,
-        "bound_by": "operations" if k3_ops >= k3_mem else "bytes",
-        "library_ms": None}, {
+        "max_abs_err": rrs_abs_err, "ms": k3_pair_ms,
+        "plain_ms": k3_pair_plain_ms, "bound_ms": bounds["pairs"][0],
+        "bound_by": bounds["pairs"][1], "library_ms": None}, {
+        "name": "rrs_diagonal", "route": "cuda",
+        "source": "vsmartmom_tpu_torch/csrc/fused_rrs.cu",
+        "replaces": "vsmartmom_tpu/ops/fused_rrs.py:366",
+        "launches": rrs_launches["rrs_diagonal"],
+        "max_abs_err": diag_abs_err, "ms": k3_diag_ms,
+        "plain_ms": k3_diag_plain_ms, "bound_ms": bounds["points"][0],
+        "bound_by": bounds["points"][1], "library_ms": None}, {
         "name": "fused_moment_multitangent", "route": "cuda",
         "source": "vsmartmom_tpu_torch/csrc/fused_lin.cu",
         "replaces": "vsmartmom_tpu/ops/fused_lin.py:214",

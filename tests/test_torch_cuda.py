@@ -144,6 +144,41 @@ def test_band_kernel_launch_shape_is_the_c_side_s(cuda, N):
     assert k5.vsm_fused_doubling_blocks_per_sm(52, 3) < 0
 
 
+#: SHA-256 of K1's six outputs on ``k1_flagship_digest``'s inputs as the
+#: build of csrc/fused_band.cu before its adding moved into
+#: csrc/fp32_tile.cuh (shared with K4) computed them on an H100: the move
+#: changed no bit. A deliberate change of K1's arithmetic records a new one.
+K1_FLAGSHIP_SHA256 = ("77001a131d5d84c27771484360c3394491e07ebb1d46a3c370"
+                      "99e34d8f85f3c3")
+
+
+def k1_flagship_digest(cuda):
+    """SHA-256 of K1's outputs (R_mp, R_pm, T_pp, T_mm, J0_p, J0_m) at
+    moment 0 of the flagship at nSpec 16, its operands built on the CPU (so
+    they do not depend on the card's math libraries), launched on
+    ``cuda``."""
+    import hashlib
+    from vsmartmom_tpu_torch import flagship_model
+    from vsmartmom_tpu_torch.core.solver import band_moment_args
+    from vsmartmom_tpu_torch.ops.fused_band import fused_moment
+    inputs, config = flagship_model(n_spec=16, nstreams=8).build_band(
+        0, device="cpu")
+    args, kw = band_moment_args(inputs, config, 0, "cpu")
+    out = fused_moment(*(x.to(cuda) if torch.is_tensor(x) else x
+                         for x in args), **kw)
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for x in out:
+        h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def test_band_kernel_is_bit_identical_to_its_previous_build(cuda):
+    """K1 computes every bit as its build before the shared adding did, on
+    one flagship moment."""
+    assert k1_flagship_digest(cuda) == K1_FLAGSHIP_SHA256
+
+
 def test_kernel_path_matches_plain_path(cuda):
     from vsmartmom_tpu_torch.core.solver import rt_solve
     from vsmartmom_tpu_torch.ops.fused_band import fused_moment
@@ -175,30 +210,85 @@ def _rrs_setup(cuda, n_spec, pol="STOKES_IQU", nstreams=8):
         device=cuda)
 
 
-@pytest.mark.parametrize("pol,nstreams,n_spec,N", [
-    ("STOKES_IQU", 8, 64, 36), ("STOKES_I", 3, 96, 6)], ids=["IQU", "I"])
-def test_rrs_kernel_matches_plain_version(cuda, pol, nstreams, n_spec, N):
-    """K3 at the widest N it takes and at a narrow I-only one, every moment;
+def _rrs_model(n_spec, pol, nstreams, vza):
+    """The RRS+SIF scene (``rrs_sif_model``) with its own viewing zenith
+    angles (their count sets the quadrature's node count)."""
+    from vsmartmom_tpu_torch import (Parameters, SurfaceDescriptor,
+                                     model_from_parameters)
+    from vsmartmom_tpu_torch.scattering import stokes
+    model = model_from_parameters(Parameters(
+        spec_bands=[12950.0 + 0.6 * np.arange(n_spec)],
+        surfaces=[SurfaceDescriptor("LambertianSurfaceScalar", [0.05])],
+        nstreams=nstreams, polarization=getattr(stokes, pol), sza=45.0,
+        vza=vza, vaz=[0.0] * len(vza), obs_alt=0.0,
+        T=np.linspace(230.0, 290.0, 8), p=np.linspace(50.0, 1013.0, 9),
+        depol=-1.0, float_type=np.float32))
+    model.bands[0].sif_spec = 1e-3 * np.ones(n_spec)
+    return model
+
+
+@pytest.mark.parametrize("pol,nstreams,vza,n_spec,N", [
+    ("STOKES_IQU", 8, [0.0, 30.0, 60.0], 64, 36),
+    ("STOKES_I", 3, [0.0, 30.0, 60.0], 96, 6),
+    ("STOKES_IQU", 2, [75.0, 60.0, 45.0, 30.0, 0.0], 64, 21),
+    ("STOKES_IQUV", 12, [0.0, 30.0, 60.0], 64, 64)],
+    ids=["IQU36", "I6", "IQU21", "IQUV64"])
+def test_rrs_kernel_matches_plain_version(cuda, pol, nstreams, vza, n_spec,
+                                          N):
+    """K3 at the RRS+SIF scene's width (N = 36), at a narrow I-only one, at
+    an odd one (N = 21: the tiles' ragged edges) and at the widest it takes
+    (N = 64, where the pair launch's pool shrinks to what fits and the plan
+    splits phases), every moment, at the coarse ie ladder and the full
+    resolution: <= 1e-4 of max|ref| against the dense plain version and the
+    split one (``moment_rrs_split_reference``, the kernels' own algebra);
     the shifts reach off the band edge for many pairs, whose ie blocks must
-    come out exactly zero."""
-    from vsmartmom_tpu_torch.core.inelastic import rrs_moment_args
-    from vsmartmom_tpu_torch.ops.fused_rrs import (fused_moment_rrs,
-                                                   moment_rrs_reference)
-    inputs, config, *rrs = _rrs_setup(cuda, n_spec, pol, nstreams)
+    come out exactly zero. Each call is one counted call and one counted
+    diagonal launch; both launches' residency is read back from the C
+    side."""
+    from vsmartmom_tpu_torch.core.inelastic import (inelastic_setup,
+                                                    rrs_moment_args)
+    from vsmartmom_tpu_torch.ops import fused_rrs
+    inputs, config, *rrs = inelastic_setup(
+        _rrs_model(n_spec, pol, nstreams, vza), device=cuda)
     assert config.N == N and config.fused
     shifts = rrs[0]
     off = np.array([[not 0 <= i + sh < n_spec for i in range(n_spec)]
                     for sh in shifts])
     assert off.any() and not off.all()
+    off = torch.as_tensor(off, device=cuda)
     for m in range(config.m_max + 1):
         for full in (False, True):
             args, kw = rrs_moment_args(inputs, config, *rrs, m, cuda, full)
-            out = fused_moment_rrs(*args, **kw)
+            calls = fused_rrs.fused_moment_rrs.launches
+            diag = fused_rrs._launch_diagonal.launches
+            out = fused_rrs.fused_moment_rrs(*args, **kw)
             torch.cuda.synchronize()
-            ref = moment_rrs_reference(*args, **kw)
-            for a, b in zip(out, ref):
+            assert fused_rrs.fused_moment_rrs.launches == calls + 1
+            assert fused_rrs._launch_diagonal.launches == diag + 1
+            ref = fused_rrs.moment_rrs_reference(*args, **kw)
+            ops = fused_rrs.rrs_operands(*args, **{
+                k: v for k, v in kw.items()
+                if k not in ("ns_sched", "ns_inter")})
+            split = fused_rrs.moment_rrs_split_reference(
+                ops, shifts, fused_rrs.norm_sched(kw["ns_sched"],
+                                                  kw["ndoubl"]),
+                kw["ns_inter"], fused_rrs.pair_shape(
+                    N, config.nz, fused_rrs.norm_sched(kw["ns_sched"],
+                                                       kw["ndoubl"]),
+                    kw["ns_inter"])[1])
+            for a, b, c in zip(out, ref, split):
+                a = a.reshape(b.shape)
                 assert torch.isfinite(a).all() and _rel(a, b) <= GATE
-                assert (a[torch.as_tensor(off, device=cuda)] == 0).all()
+                assert _rel(a.reshape(c.shape), c) <= GATE
+                assert (a[off] == 0).all()
+    sched = fused_rrs.norm_sched(kw["ns_sched"], kw["ndoubl"])
+    info = fused_rrs.launch_info(N, config.nz, sched, kw["ns_inter"])
+    assert info["diag_threads"] == 192
+    assert info["pair_smem_bytes"] == fused_rrs.pair_smem_bytes(
+        N, info["pool"]) <= fused_rrs.SMEM_LIMIT
+    assert info["diag_blocks_per_sm"] >= 1
+    assert (info["pair_threads"], info["pair_blocks_per_sm"]) == (
+        (128, 3) if N <= 36 else (384, 1))
 
 
 def test_rrs_kernel_path_matches_plain_path(cuda):
@@ -222,22 +312,22 @@ def test_rrs_kernel_path_matches_plain_path(cuda):
 
 
 def test_rrs_wrapper_refuses_wide_streams_before_building(cuda, monkeypatch):
-    """N = 52 (the flagship's width) is above the RRS kernel's shared-memory
-    limit: the wrapper raises before any nvcc run or launch."""
+    """N = 65 is above the RRS kernels' shared-memory limit: the wrapper
+    raises before any nvcc run or launch."""
     from vsmartmom_tpu_torch.core.inelastic import rrs_moment_args
     from vsmartmom_tpu_torch.ops import cuda_build, fused_rrs
     inputs, config, *rrs = _rrs_setup(cuda, 64, "STOKES_I", 3)
     ops = fused_rrs.rrs_operands(*rrs_moment_args(
         inputs, config, *rrs, 0, cuda)[0], ndoubl=config.ndoubl, n_stokes=1,
         i_mu0_start=config.i_mu0_start)
-    wide = ops._replace(Em1=torch.zeros((config.nz, ops.Em1.shape[1], 104),
+    wide = ops._replace(Em1=torch.zeros((config.nz, ops.Em1.shape[1], 130),
                                         device=cuda))
 
     def no_build(name):
         raise AssertionError("the wrapper tried to build a kernel")
     monkeypatch.setattr(cuda_build, "load", no_build)
-    with pytest.raises(ValueError, match="N <= 36"):
-        fused_rrs._launch_kernel(wide, (1,) * config.ndoubl, 2)
+    with pytest.raises(ValueError, match="N <= 64"):
+        fused_rrs._launch_kernel(wide, rrs[0], (1,) * config.ndoubl, 2)
 
 
 def _lin_setup(cuda, scene):
@@ -630,21 +720,36 @@ def test_doubling_kernel_mixes_absorbing_and_scattering_blocks(cuda, K,
     assert (out[1][2 * n:][:, off] != 0).any()
 
 
+@pytest.mark.parametrize("N", [52, 21])
 @pytest.mark.parametrize("K,ndoubl,ek_form", [
     (1, 0, "point"), (1, 8, "row"), (2, 8, "point"), (2, 0, "row")])
-def test_layer_step_kernel_matches_plain_version(cuda, K, ndoubl, ek_form):
-    """K4 at N = 52 against ``layer_step_reference``: layer 1 of the
-    flagship added onto the composite of layer 0."""
+def test_layer_step_kernel_matches_plain_version(cuda, K, ndoubl, ek_form,
+                                                 N):
+    """K4 against ``layer_step_reference``: layer 1 of the flagship added
+    onto the composite of layer 0, at N = 52 and at N = 21 (the leading
+    21 x 21 block of each operator: odd, the tiles' ragged edges). K4 runs
+    K5's ladder and K1's adding on csrc/fp32_tile.cuh: its matrices round
+    as the plain matmuls do, bit for bit; its source vectors sum four
+    partial sums a row, so J0_p and J0_m are held to K1's gate, <= 1e-4 of
+    max|ref| and no farther from the plain step in f64 than twice the f32
+    plain step."""
     from vsmartmom_tpu_torch.core.kernels import identity_composite
     from vsmartmom_tpu_torch.ops.fused_rt import (fused_layer_step,
+                                                  layer_step_blocks_per_sm,
                                                   layer_step_reference)
     ops, config = _layer_inputs(cuda, K, ek_form=ek_form)
     r, t, jp, jm, ek, d = ops
     sched = config.ns_sched[:ndoubl]
     lay = [tuple(x.reshape(33, 8, *x.shape[1:])[z] for x in ops[:5])
            for z in (0, 1)]
+    if N != 52:
+        lay = [(r[:, :N, :N], t[:, :N, :N], jp[:, :N], jm[:, :N],
+                ek if ek.dim() == 2 else ek[:, :N])
+               for r, t, jp, jm, ek in lay]
+        lay = [tuple(x.contiguous() for x in z) for z in lay]
+        d = d[:N].contiguous()
     comp = layer_step_reference(
-        identity_composite(8, 52, torch.float32, cuda, K), *lay[0], d,
+        identity_composite(8, N, torch.float32, cuda, K), *lay[0], d,
         ndoubl, sched, config.ns_inter)
     before = fused_layer_step.launches
     out = fused_layer_step(comp, *lay[1], d, ndoubl, ns_sched=sched,
@@ -653,8 +758,17 @@ def test_layer_step_kernel_matches_plain_version(cuda, K, ndoubl, ek_form):
     assert fused_layer_step.launches == before + 1
     ref = layer_step_reference(comp, *lay[1], d, ndoubl, sched,
                                config.ns_inter)
-    for a, b in zip(out, ref):
-        assert torch.isfinite(a).all() and _rel(a, b) <= GATE
+    ref64 = layer_step_reference(
+        [x.double() for x in comp], *(x.double() for x in lay[1]),
+        d.double(), ndoubl, sched, config.ns_inter)
+    for k, (a, b, c) in enumerate(zip(out, ref, ref64)):
+        assert torch.isfinite(a).all()
+        if k < 4:
+            assert torch.equal(a, b), k
+        else:
+            assert _rel(a, b) <= GATE
+            assert _rel(a.double(), c) <= 2.0 * _rel(b.double(), c), k
+    assert layer_step_blocks_per_sm(N, K) == 2
 
 
 def test_ms_kernel_route_matches_plain_route(cuda):

@@ -221,15 +221,25 @@ def test_absorbing_layer_ladder_is_the_diagonal_closed_form():
         assert float(np.abs(a.numpy() - b).max()) <= 1e-12 * scale
 
 
-def test_tile_variant_patches_match_the_sources():
-    """The patches of tools/variants.py behind PERF.md's split of K1's time
-    (no product loop, empty phases, no epilogues, no vector jobs, one A /
-    B address a warp) still apply to csrc/ and change what they name."""
+@pytest.mark.parametrize("group,names,changed", [
+    ("tile", ("nomac", "empty", "epist", "novec", "bcasta", "bcastb"),
+     ["fp32_tile.cuh"]),
+    ("rrs", ("nomac", "empty", "narrow2"), ["fp32_tile.cuh"]),
+    ("rrs", ("onestore",), ["fused_rrs.cu"])], ids=["tile", "rrs", "rrs-store"])
+def test_tile_variant_patches_match_the_sources(group, names, changed):
+    """The patches of tools/variants.py behind PERF.md's splits of K1's and
+    K3's time (no product loop, empty phases, no epilogues, no vector
+    jobs, one A / B address a warp; K3's staging copies from one store
+    entry) still apply to csrc/ and change what they name: K3's no-loop
+    patch both launches' tiles (K1's and the (2,1) one), its copy patch
+    both the matrix and the vector copies."""
     from tools import variants
     from vsmartmom_tpu_torch.ops.cuda_build import SRC_DIR
-    built = variants.variant_files("tile", "built", SRC_DIR)
-    for name in ("nomac", "empty", "epist", "novec", "bcasta", "bcastb"):
-        files = variants.variant_files("tile", name, SRC_DIR)
+    built = variants.variant_files(group, "built", SRC_DIR)
+    for name in names:
+        files = variants.variant_files(group, name, SRC_DIR)
         assert set(files) == set(built)
-        assert [f for f in files if files[f] != built[f]] == \
-            ["fp32_tile.cuh"], name
+        assert [f for f in files if files[f] != built[f]] == changed, name
+        if group == "rrs" and name != "empty":
+            for f, old, _ in variants.patches(group, name):
+                assert built[f].count(old) == 1 and old not in files[f]

@@ -162,18 +162,16 @@ def test_plain_rrs_matches_jax(setups, jax_plain_f64, dtype):
     assert np.max(np.abs(jax_plain_f64["ieR"])) > 0
 
 
-def test_moment_rrs_reference_matches_jax_kernel(setups):
-    """The plain K3 (moment_rrs_reference) against the JAX fused_moment_rrs
-    in interpret mode on identical operands (the fused solve's m = 1
-    arguments, seed-only and one-iteration NS steps included); pairs whose
-    source point lies off the grid come out exactly zero in the ie block."""
+@pytest.fixture(scope="module")
+def jax_kernel_case(setups):
+    """The fused solve's m = 1 operands of the I scene (seed-only and
+    one-iteration NS steps included) and the JAX fused_moment_rrs in
+    interpret mode on them: (args, kwargs, its outputs as numpy)."""
     import jax
     import jax.numpy as jnp
     from vsmartmom_tpu.ops.fused_rrs import \
         fused_moment_rrs as jax_fused_moment_rrs
     from vsmartmom_tpu_torch.core.solver import band_moment_args
-    from vsmartmom_tpu_torch.ops.fused_rrs import (moment_rrs_reference,
-                                                   rrs_operands)
     s = setups["STOKES_I"]
     inputs, (shifts, w, Zp, Zm, fsc) = s["port"]
     config = _port_config(s["jax"][1], dtype=np.float32)
@@ -187,12 +185,23 @@ def test_moment_rrs_reference_matches_jax_kernel(setups):
     ie_kw = dict(ndoubl=config.ndoubl, ns_sched=(0, 0, 1, 1, 2, 3, 4),
                  ns_inter=4, n_stokes=config.n_stokes,
                  i_mu0_start=config.i_mu0_start)
-    out = moment_rrs_reference(*ie_args, **ie_kw)
     arrays = [jnp.asarray(a.numpy()) for a in ie_args if torch.is_tensor(a)]
     ref = jax.jit(lambda *a: jax_fused_moment_rrs(
         *a[:11], shifts, *a[11:], **ie_kw, block=128, interpret=True))(
             *arrays)
-    ref = [np.asarray(x) for x in ref]
+    return ie_args, ie_kw, [np.asarray(x) for x in ref]
+
+
+def test_moment_rrs_reference_matches_jax_kernel(jax_kernel_case):
+    """The plain K3 (moment_rrs_reference) against the JAX fused_moment_rrs
+    in interpret mode on identical operands (the fused solve's m = 1
+    arguments, seed-only and one-iteration NS steps included); pairs whose
+    source point lies off the grid come out exactly zero in the ie block."""
+    from vsmartmom_tpu_torch.ops.fused_rrs import (moment_rrs_reference,
+                                                   rrs_operands)
+    ie_args, ie_kw, ref = jax_kernel_case
+    shifts = ie_args[11]
+    out = moment_rrs_reference(*ie_args, **ie_kw)
     for a, b in zip(out, ref):
         assert a.shape == b.shape
         assert _rel(a.numpy(), b) <= 2e-5
@@ -201,6 +210,25 @@ def test_moment_rrs_reference_matches_jax_kernel(setups):
     off = (ops.pref[0] == 0).reshape(len(shifts), -1)
     assert off.any() and not off.all()
     assert all(bool((x[off] == 0).all()) for x in out)
+
+
+def test_moment_rrs_split_reference_matches_jax_kernel(jax_kernel_case):
+    """The kernels' split form (each grid point's diagonal ladder once, the
+    (2,1) blocks per on-grid pair through the store) against the same JAX
+    interpret run, 2e-5 of max|ref|; off-grid pairs exactly zero."""
+    from vsmartmom_tpu_torch.ops.fused_rrs import (
+        moment_rrs_split_reference, norm_sched, rrs_operands)
+    ie_args, ie_kw, ref = jax_kernel_case
+    shifts = ie_args[11]
+    ops = rrs_operands(*ie_args, **{k: v for k, v in ie_kw.items()
+                                    if k not in ("ns_sched", "ns_inter")})
+    out = moment_rrs_split_reference(
+        ops, shifts, norm_sched(ie_kw["ns_sched"], ie_kw["ndoubl"]),
+        ie_kw["ns_inter"])
+    off = (ops.pref[0] == 0).reshape(-1)
+    for a, b in zip(out, ref):
+        assert _rel(a.reshape(b.shape).numpy(), b) <= 2e-5
+        assert bool((a[off] == 0).all())
 
 
 @pytest.mark.parametrize("fullres", [False, True], ids=["coarse", "fullres"])
@@ -279,31 +307,47 @@ def test_fscatt_counts_aerosols():
 
 
 def test_wide_scene_takes_the_plain_rrs_route(monkeypatch):
-    """A scene wider than K3 takes (36 < N <= 64: K1 takes it, so the band
-    path is picked) with the strategy left automatic: rt_run_inelastic
-    warns, naming K3, its limit and N, and runs the plain rt_solve_rrs,
-    equal to an explicit fused=False run. The automatic choice is made as
-    on the card (``types.auto_kernel``); on the CPU the kernel route would
-    run the plain K1 and K3, which differ from the plain path in
-    rounding."""
+    """K3 takes K1's widths (N <= 64) with the strategy left automatic (the
+    automatic choice made as on the card, ``types.auto_kernel``): a scene
+    of N = 39 runs the kernel route with no warning, equal to an explicit
+    fused=True run (on the CPU the route runs the plain K1 and K3); a
+    scene of N = 66 warns, naming K1, its limit and N, and runs the plain
+    rt_solve_rrs, equal to an explicit fused=False run. K3's own guard
+    warns above 64 as K1's does."""
+    import warnings
     from vsmartmom_tpu_torch.core import model as model_mod
     from vsmartmom_tpu_torch.core.inelastic import rt_run_inelastic
+    from vsmartmom_tpu_torch.core.types import kernel_takes_width
+    from vsmartmom_tpu_torch.ops.fused_rrs import KERNEL_MAX_N
     from vsmartmom_tpu_torch.scattering.stokes import STOKES_IQU
     monkeypatch.setattr(model_mod, "auto_kernel", lambda dev, ft: True)
 
-    def wide(fused=None):
+    def wide(nstreams, fused=None):
         model = model_mod.model_from_parameters(model_mod.Parameters(
             surfaces=[model_mod.SurfaceDescriptor("LambertianSurfaceScalar",
                                                   [RRS_REF_ALBEDO])],
             polarization=STOKES_IQU, fused=fused,
-            **dict(rrs_ref_params(), nstreams=10)))
+            **dict(rrs_ref_params(), nstreams=nstreams)))
         model.bands[0].sif_spec = RRS_REF_SIF * np.ones(N_SPEC)
         return model
-    with pytest.warns(UserWarning, match=r"K3 .* N <= 36; this scene has "
-                                         r"N = 39"):
-        out = rt_run_inelastic(wide(), device="cpu")
-    for a, b in zip(out, rt_run_inelastic(wide(fused=False), device="cpu")):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        out = rt_run_inelastic(wide(10), device="cpu")
+    for a, b in zip(out, rt_run_inelastic(wide(10, fused=True),
+                                          device="cpu")):
         assert np.array_equal(a, b)
+    with pytest.warns(UserWarning, match=r"K1 .* N <= 64; this scene has "
+                                         r"N = 66"):
+        out = rt_run_inelastic(wide(19), device="cpu")
+    for a, b in zip(out, rt_run_inelastic(wide(19, fused=False),
+                                          device="cpu")):
+        assert np.array_equal(a, b)
+    assert KERNEL_MAX_N == 64
+    assert kernel_takes_width("K3 (csrc/fused_rrs.cu)", KERNEL_MAX_N, 64)
+    with pytest.warns(UserWarning, match=r"K3 .* N <= 64; this scene has "
+                                         r"N = 65"):
+        assert not kernel_takes_width("K3 (csrc/fused_rrs.cu)",
+                                      KERNEL_MAX_N, 65)
 
 
 def make_rrs_ref():

@@ -96,18 +96,18 @@ def rrs_cpu_operands():
 
 
 @pytest.mark.parametrize("case,match", [
-    ("wide", "N <= 36"), ("f64", "float32"), ("cpu", "CUDA")])
+    ("wide", "N <= 64"), ("f64", "float32"), ("cpu", "CUDA")])
 def test_rrs_kernel_wrapper_refuses(rrs_cpu_operands, case, match):
-    """The RRS kernel takes N <= 36 f32 tensors on one CUDA device; the
+    """The RRS kernels take N <= 64 f32 tensors on one CUDA device; the
     wrapper refuses anything else before it builds or launches."""
     from vsmartmom_tpu_torch.ops.fused_rrs import _launch_kernel
     ops, ndoubl = rrs_cpu_operands
     if case == "wide":
-        ops = ops._replace(Em1=torch.zeros(ops.Em1.shape[:2] + (104,)))
+        ops = ops._replace(Em1=torch.zeros(ops.Em1.shape[:2] + (130,)))
     elif case == "f64":
         ops = type(ops)(*(x.double() for x in ops))
     with pytest.raises(ValueError, match=match):
-        _launch_kernel(ops, (0,) * ndoubl, 1)
+        _launch_kernel(ops, (), (0,) * ndoubl, 1)
 
 
 def test_rt_run_lin_needs_cuda_or_an_explicit_device(monkeypatch):

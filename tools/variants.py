@@ -14,10 +14,13 @@ copies of their sources (``vsmartmom_tpu_torch/csrc``). Two groups:
 * ``empty``: phases that run no job at all (the barriers, the elementwise
   passes and the calls remain), for timing only.
 
-``tile``: K1 (``fused_band.cu``) at the flagship's moment 0 (nSpec points)
-and K5 (``fused_rt.cu``) at moments 0 and m_max (every layer of nSpec
-points), both on ``fp32_tile.cuh``; each variant also reads each kernel's
-largest relative difference from its plain version; variants
+``tile``: K1 (``fused_band.cu``) at the flagship's moment 0 (nSpec points),
+K5 (``fused_rt.cu``) at moments 0 and m_max (every layer of nSpec points)
+and K4 (``fused_rt.cu``) on the middle layer of moment 0, all on
+``fp32_tile.cuh``; each variant also reads each kernel's largest relative
+difference from its plain version, and whether K1's outputs equal the
+first variant's bit for bit (``built``, or ``parent=DIR`` listed first);
+variants
 
 * ``t<n>``: n threads a block (both kernels), two blocks an SM;
 * ``t<n>x<b>``: n threads, the register budget of b blocks an SM;
@@ -30,14 +33,32 @@ largest relative difference from its plain version; variants
 * ``inline``: the phase function inlined at its call sites;
 * ``u1`` / ``u4``: the product loop not unrolled / unrolled 4 times.
 
-In both groups variants join with ``+`` (``t256+wide``), and
+``rrs``: K3 (``fused_rrs.cu``, on ``fp32_tile.cuh``) at moment 0 of the
+RRS+SIF scene (nSpec points), both launches and each alone, and the
+largest relative difference from the dense plain version; variants
+
+* ``nomac``: no product loop in either launch, for timing only;
+* ``empty``: phases that run no job at all (the staging copies, saves,
+  rides, barriers and assembly remain), for timing only;
+* ``narrow2``: the pair launch's (2,1) phases in 4 x 4 tiles wherever
+  they fit the block's lanes (two-product phases too, not only
+  one-product ones);
+* ``p<n>``: the pair launch's pool capped at n slots (the plan splits
+  phases and loads after the previous phase where it must);
+* ``onestore``: every staging copy of the pair launch reads the first
+  entry of its target point's store (the product loop and the copies'
+  count stay, their L2 traffic goes), for timing only.
+
+In every group variants join with ``+`` (``t256+wide``), and
 ``parent=DIR`` builds the sources under DIR/vsmartmom_tpu_torch/csrc (an
-unpacked older checkout, e.g. ``git archive`` of the parent commit).
+unpacked older checkout, e.g. ``git archive`` of the parent commit; its
+C interface must be the current one, which the wrappers call).
 
 Run on a machine with an NVIDIA GPU, from the repo root:
 ``python3 -m tools.variants GROUP [n_spec] [variants] [scenes]``
-(comma-separated; defaults 1024, ``c2,c4,c8,local,nomac,empty`` for
-``mt`` and ``t256,wide,nomac,empty`` for ``tile``, scenes
+(comma-separated; defaults 1024 (256 for ``rrs``),
+``c2,c4,c8,local,nomac,empty`` for ``mt``, ``t256,wide,nomac,empty`` for
+``tile`` and ``nomac,empty,onestore`` for ``rrs``, scenes
 ``aerosol,thermal``). Builds go to ``vsmartmom_tpu_torch/_build/variants/``,
 all started together; a patch that no longer matches its source stops the
 run. Prints the card, each build's ptxas registers and spills, and one
@@ -85,7 +106,7 @@ PATCHES = {
                    "for (int w = threadIdx.x >> 5; w < mw + vw;",
                    "for (int w = threadIdx.x >> 5; w < 0;")],
         "epist": [("fp32_tile.cuh",
-                   "st4(C + idx, epi4(EPI, C, E, v, idx, i, j, d));",
+                   "st4(C + idx, epi4<OFF>(EPI, C, E, v, idx, i, j, d));",
                    "st4(C + idx, v);")],
         "novec": [("fp32_tile.cuh", "if (t < nv * nvo)", "if (t < 0)")],
         "bcasta": [("fp32_tile.cuh", "mat_slot(x, slot(code, 1)), i0, j0,",
@@ -101,8 +122,27 @@ PATCHES = {
                 "#pragma unroll 4\n  for (; k < n4; k += 4)")],
     },
 }
+PATCHES["rrs"] = {
+    "nomac": PATCHES["tile"]["nomac"] + [
+        ("fp32_tile.cuh",
+         "  mac<W>(mat_slot(x, slot(code, 0)), mat_slot(x, slot(code2, 1)), "
+         "i0, j0,\n         min(jh, x.LD - 4), x.n, x.LD, acc);\n"
+         "  mac<W>(mat_slot(x, slot(code2, 0)), mat_slot(x, slot(code, 1)), "
+         "i0, j0,\n         min(jh, x.LD - 4), x.n, x.LD, acc);", "")],
+    "empty": PATCHES["tile"]["empty"],
+    "narrow2": [("fp32_tile.cuh",
+                 "const bool narrow = x.tiles4 <= lanes && nm == 1;",
+                 "const bool narrow = nm * x.tiles4 <= lanes;")],
+    "onestore": [
+        ("fused_rrs.cu", "from = (src ? vs_src : vs_tgt) + e * x.LD;",
+         "from = vs_tgt;"),
+        ("fused_rrs.cu", "from = (src ? ms_src : ms_tgt) + e * x.MS;",
+         "from = ms_tgt;")],
+}
+SOURCES["rrs"] = ("fused_rrs.cu",)
 DEFAULTS = {"mt": "c2,c4,c8,local,nomac,empty",
-            "tile": "t256,wide,nomac,empty"}
+            "tile": "t256,wide,nomac,empty",
+            "rrs": "nomac,empty,onestore"}
 
 
 def cluster_of(name, default):
@@ -119,7 +159,8 @@ def patches(group, name):
     for part in name.split("+"):
         cluster = re.fullmatch(r"c(\d+)", part)
         threads = re.fullmatch(r"t(\d+)(?:x(\d))?", part)
-        if part == "built":
+        if part == "built" or (group == "rrs" and re.fullmatch(r"p\d+",
+                                                                part)):
             continue
         if group == "mt" and cluster:
             edits.append(("fused_lin.cu", "#define VSM_CLUSTER ",
@@ -244,6 +285,7 @@ def time_tile(libs, n_spec):
     from its plain version."""
     from vsmartmom_tpu_torch import flagship_model
     from vsmartmom_tpu_torch.core import multisensor
+    from vsmartmom_tpu_torch.core.kernels import identity_composite
     from vsmartmom_tpu_torch.core.solver import band_moment_args, layer_batch
     from vsmartmom_tpu_torch.core.types import SolverInputs
     from vsmartmom_tpu_torch.ops import fused_band, fused_rt
@@ -257,19 +299,37 @@ def time_tile(libs, n_spec):
     k5_ops = {}
     for m in (0, config.m_max):
         layer_data, kw5 = multisensor.layer_batch_args(inp, config, m)
-        d = kw5.pop("d_vec")[:, None]
+        dvec = kw5.pop("d_vec")
+        d = dvec[:, None]
         r, t, jp, jm, ek = layer_batch(layer_data, **kw5)
         k5_ops[m] = (r * d, t, jp, jm * d, ek)
     k1_ref = fused_band.moment_reference(*args, **kw)
     k5_ref = {m: fused_rt.doubling_reference(*o, config.ndoubl, sched)
               for m, o in k5_ops.items()}
+    # K4: layer nz // 2 of moment 0 onto the plain composite of the layers
+    # above it.
+    nz, d = config.nz, dvec
+    lay = [x.reshape(nz, n_spec, *x.shape[1:]) for x in k5_ops[0]]
+    comp = identity_composite(n_spec, config.N, torch.float32, dev,
+                              config.n_sources)
+    for z in range(nz // 2):
+        comp = fused_rt.layer_step_reference(
+            comp, *(x[z] for x in lay), d, config.ndoubl, sched,
+            config.ns_inter)
+    k4_ops = (comp, *(x[nz // 2] for x in lay), d)
+    k4_ref = fused_rt.layer_step_reference(*k4_ops, config.ndoubl, sched,
+                                           config.ns_inter)
+    first = {}
     for name, lib in libs.items():
         with variant(lib):
             out = fused_band.fused_moment(*args, **kw)
             torch.cuda.synchronize()
+            first.setdefault("k1", out)
             row = {"variant": name, "n_spec": n_spec, "k1_ms": cuda_time_ms(
                 lambda: fused_band.fused_moment(*args, **kw), reps=3),
-                "k1_err": max(rel(a, b) for a, b in zip(out, k1_ref))}
+                "k1_err": max(rel(a, b) for a, b in zip(out, k1_ref)),
+                "k1_same_as_first": all(torch.equal(a, b) for a, b in
+                                        zip(out, first["k1"]))}
             for m, o in k5_ops.items():
                 out = fused_rt._launch_doubling(*o, sched)
                 torch.cuda.synchronize()
@@ -277,6 +337,64 @@ def time_tile(libs, n_spec):
                     lambda: fused_rt._launch_doubling(*o, sched), reps=3)
                 row[f"k5_m{m}_err"] = max(rel(a, b)
                                           for a, b in zip(out, k5_ref[m]))
+            out = fused_rt._launch_layer_step(*k4_ops, sched,
+                                              config.ns_inter)
+            torch.cuda.synchronize()
+            row["k4_ms"] = cuda_time_ms(lambda: fused_rt._launch_layer_step(
+                *k4_ops, sched, config.ns_inter), reps=3)
+            row["k4_err"] = max(rel(a, b) for a, b in zip(out, k4_ref))
+        print(json.dumps(row), flush=True)
+
+
+def pool_of(name):
+    """The pool cap of an ``rrs`` variant (``p<n>``), else None."""
+    for part in name.split("+"):
+        if re.fullmatch(r"p\d+", part):
+            return int(part[1:])
+    return None
+
+
+def time_rrs(libs, n_spec):
+    """One JSON line a variant: K3 at moment 0 of the RRS+SIF scene (nSpec
+    points, 58 shifts at 256), both launches and each alone, and the
+    largest relative difference from the dense plain version."""
+    from vsmartmom_tpu_torch import rrs_sif_model
+    from vsmartmom_tpu_torch.core.inelastic import (inelastic_setup,
+                                                    rrs_moment_args)
+    from vsmartmom_tpu_torch.ops import fused_rrs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    inputs, config, *rrs = inelastic_setup(rrs_sif_model(n_spec), device=dev)
+    args, kw = rrs_moment_args(inputs, config, *rrs, 0, dev)
+    ops = fused_rrs.rrs_operands(*args, **{
+        k: v for k, v in kw.items() if k not in ("ns_sched", "ns_inter")})
+    sched = fused_rrs.norm_sched(kw["ns_sched"], kw["ndoubl"])
+    ref = fused_rrs.moment_rrs_body_reference(ops, sched, kw["ns_inter"])
+    shape = fused_rrs.pair_shape
+    for name, lib in libs.items():
+        cap = pool_of(name) or 32
+        fused_rrs.pair_shape = lambda *a: (shape(*a)[0],
+                                           min(cap, shape(*a)[1]))
+        plan, pairs, threads = fused_rrs.kernel_plan(ops, args[11], sched,
+                                                     kw["ns_inter"])
+        with variant(lib):
+            out = fused_rrs._launch_kernel(ops, args[11], sched,
+                                           kw["ns_inter"])
+            torch.cuda.synchronize()
+            store = fused_rrs._launch_diagonal(ops, plan)
+            row = {"variant": name, "n_spec": n_spec, "N": config.N,
+                   "pairs_on_grid": int(pairs.shape[0]),
+                   "k3_ms": cuda_time_ms(lambda: fused_rrs._launch_kernel(
+                       ops, args[11], sched, kw["ns_inter"]), reps=3),
+                   "diag_ms": cuda_time_ms(
+                       lambda: fused_rrs._launch_diagonal(ops, plan),
+                       reps=3),
+                   "pair_ms": cuda_time_ms(lambda: fused_rrs._launch_pairs(
+                       ops, plan, pairs, threads, store), reps=3),
+                   "err": max(rel(a, b) for a, b in zip(out, ref)),
+                   "threads": threads, "pool": plan.pool,
+                   "prefetched": plan.n_prefetched, "phases": plan.n_phases}
+        fused_rrs.pair_shape = shape
         print(json.dumps(row), flush=True)
 
 
@@ -292,7 +410,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
-    n_spec = int(sys.argv[2]) if len(sys.argv) > 2 else 1024
+    n_spec = int(sys.argv[2]) if len(sys.argv) > 2 else (
+        256 if group == "rrs" else 1024)
     names = ["built"] + (sys.argv[3] if len(sys.argv) > 3
                          else DEFAULTS[group]).split(",")
     out_dir = cuda_build.BUILD_DIR / "variants" / group
@@ -312,6 +431,8 @@ def main():
     if group == "mt":
         time_mt(libs, n_spec, (sys.argv[4] if len(sys.argv) > 4
                                else "aerosol,thermal").split(","))
+    elif group == "rrs":
+        time_rrs(libs, n_spec)
     else:
         time_tile(libs, n_spec)
 

@@ -1,9 +1,10 @@
 // The FP32 register-tiled product phases of the band kernel K1
-// (csrc/fused_band.cu) and the per-layer doubling kernel K5
-// (csrc/fused_rt.cu, doubling_kernel), and the doubling ladder they both
-// run on them. K2 (csrc/fused_lin.cu), K4 (layer_kernel, on
-// csrc/rt_device.cuh) and the band-stage probe (csrc/band_stages.cu) keep
-// their own product code.
+// (csrc/fused_band.cu), the per-layer kernels K5 and K4 (csrc/fused_rt.cu)
+// and both launches of the RRS kernel K3 (csrc/fused_rrs.cu: its pair
+// launch through the (2,1)-block phases phase21), the doubling ladder K1,
+// K4 and K5 run on them and the adding step K1 and K4 run. K2
+// (csrc/fused_lin.cu) and the band-stage probe (csrc/band_stages.cu, on
+// csrc/rt_device.cuh) keep their own product code.
 //
 // A block keeps its operands in shared memory: N x N matrices at row
 // stride LD (N rounded up to a multiple of 4, so rows are float4-aligned),
@@ -179,9 +180,13 @@ __device__ __forceinline__ void mac(const float* __restrict__ A,
 }
 
 // Four outputs C[i, j..j+3] = epi(v) of a matrix job (idx = i LD + j).
+// OFF: an off-diagonal block (K3's (2,1) blocks), whose identity terms
+// (delta_ij in E_NS and E_SEED) are zero.
+template <bool OFF = false>
 __device__ __forceinline__ float4 epi4(int epi, const float* C, float* E,
                                        float4 v, int idx, int i, int j,
                                        const float* d) {
+  const int ii = OFF ? -8 : i;  // row index of the identity terms
   switch (epi) {
     case E_ST:
       return v;
@@ -191,10 +196,10 @@ __device__ __forceinline__ float4 epi4(int epi, const float* C, float* E,
     }
     case E_NS: {
       const float4 e = ld4(E + idx);
-      return make_float4((i == j ? 2.0f : 0.0f) - e.x + v.x,
-                         (i == j + 1 ? 2.0f : 0.0f) - e.y + v.y,
-                         (i == j + 2 ? 2.0f : 0.0f) - e.z + v.z,
-                         (i == j + 3 ? 2.0f : 0.0f) - e.w + v.w);
+      return make_float4((ii == j ? 2.0f : 0.0f) - e.x + v.x,
+                         (ii == j + 1 ? 2.0f : 0.0f) - e.y + v.y,
+                         (ii == j + 2 ? 2.0f : 0.0f) - e.z + v.z,
+                         (ii == j + 3 ? 2.0f : 0.0f) - e.w + v.w);
     }
     case E_ADD: {
       const float4 e = ld4(E + idx);
@@ -208,10 +213,10 @@ __device__ __forceinline__ float4 epi4(int epi, const float* C, float* E,
                          di * d[j + 3] * e.w + v.w);
     }
     case E_SEED:
-      st4(E + idx, make_float4(v.x + (i == j ? 1.0f : 0.0f),
-                               v.y + (i == j + 1 ? 1.0f : 0.0f),
-                               v.z + (i == j + 2 ? 1.0f : 0.0f),
-                               v.w + (i == j + 3 ? 1.0f : 0.0f)));
+      st4(E + idx, make_float4(v.x + (ii == j ? 1.0f : 0.0f),
+                               v.y + (ii == j + 1 ? 1.0f : 0.0f),
+                               v.z + (ii == j + 2 ? 1.0f : 0.0f),
+                               v.w + (ii == j + 3 ? 1.0f : 0.0f)));
       return v;
     case E_ACCD: {
       const float4 c = ld4(C + idx);
@@ -235,7 +240,7 @@ __device__ __forceinline__ float4 epi4(int epi, const float* C, float* E,
 
 // Stores a tile's rows i0..i0+3 (< n), columns j0..j0+3 and, for W = 8,
 // jh..jh+3 (each group < n), through epilogue EPI.
-template <int EPI, int W>
+template <int EPI, int W, bool OFF = false>
 __device__ __forceinline__ void store_tile(const Ctx& x, float* C, float* E,
                                            const float (&acc)[4][W], int i0,
                                            int j0, int jh) {
@@ -251,7 +256,7 @@ __device__ __forceinline__ void store_tile(const Ctx& x, float* C, float* E,
       const int idx = i * x.LD + j;
       const float4 v = make_float4(acc[r][4 * g], acc[r][4 * g + 1],
                                    acc[r][4 * g + 2], acc[r][4 * g + 3]);
-      st4(C + idx, epi4(EPI, C, E, v, idx, i, j, d));
+      st4(C + idx, epi4<OFF>(EPI, C, E, v, idx, i, j, d));
     }
   }
 }
@@ -318,15 +323,12 @@ __device__ __forceinline__ float dot_row(const float* __restrict__ a,
   return (s0 + s1) + (s2 + s3);
 }
 
-// Output e = (i, c) of the (N, K) result of vector job `code`.
-template <int K>
-__device__ __forceinline__ void vec_item(const Ctx& x, int code, int e) {
-  const int i = e / K;
-  const int c = e - i * K;
+// Output e (row i) of the (N, K) result of vector job `code`, through its
+// epilogue, from the product acc.
+__device__ __forceinline__ void vec_out(const Ctx& x, int code, int e, int i,
+                                        float acc) {
   float* C = vec_slot(x, slot(code, 2));
   const float* E = vec_slot(x, slot(code, 3));
-  const float acc = dot_row<K>(mat_slot(x, slot(code, 0)) + i * x.LD,
-                               vec_slot(x, slot(code, 1)), c, x.n);
   float v;
   switch (code >> 20) {
     case E_ACC: v = C[e] + acc; break;
@@ -336,6 +338,15 @@ __device__ __forceinline__ void vec_item(const Ctx& x, int code, int e) {
     default: v = acc;
   }
   C[e] = v;
+}
+
+// Output e = (i, c) of the (N, K) result of vector job `code`.
+template <int K>
+__device__ __forceinline__ void vec_item(const Ctx& x, int code, int e) {
+  const int i = e / K;
+  const int c = e - i * K;
+  vec_out(x, code, e, i, dot_row<K>(mat_slot(x, slot(code, 0)) + i * x.LD,
+                                    vec_slot(x, slot(code, 1)), c, x.n));
 }
 
 // One phase: nm <= 3 matrix jobs m0..m2 and nv <= 2 vector jobs v0, v1,
@@ -379,6 +390,102 @@ __device__ __noinline__ void phase(int nm, int m0, int m1, int m2, int nv,
 template <int K>
 __device__ __forceinline__ void phase1(int m0) {
   phase<K>(1, m0, m0, m0, 0, 0, 0);
+}
+
+// K3's (2,1) blocks (csrc/fused_rrs.cu, pair kernel). Every operator of a
+// (shift, point) pair is block-lower-triangular, so a product's (2,1)
+// block is C21 = A21 B11 + A22 B21. A (2,1) job names the resident (2,1)
+// blocks A21, B21, C21 and E21 in `code` as a job does, and in `code2` the
+// slots of the staged diagonal factors (field 0 A22, the target point's;
+// field 1 B11, the source point's). A tile runs both depth-N products into
+// one accumulator, one product of depth 2N, and stores through the
+// epilogue without identity terms. A vector job y2 = epi(A21 x1 + A22 x2)
+// takes A22 from code2's field 0 and the vector x1 from its field 1.
+template <int W>
+__device__ __forceinline__ void tile_item21(const Ctx& x, int code,
+                                            int code2, int tile) {
+  const int ti = (tile * (W == 8 ? x.ct_inv : x.cg_inv)) >> 16;
+  const int i0 = ti << 2;
+  const int j0 = (tile - ti * (W == 8 ? x.CT : x.CG)) << 2;
+  const int jh = j0 + x.h;
+  float acc[4][W];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < W; ++j) acc[r][j] = 0.0f;
+  mac<W>(mat_slot(x, slot(code, 0)), mat_slot(x, slot(code2, 1)), i0, j0,
+         min(jh, x.LD - 4), x.n, x.LD, acc);
+  mac<W>(mat_slot(x, slot(code2, 0)), mat_slot(x, slot(code, 1)), i0, j0,
+         min(jh, x.LD - 4), x.n, x.LD, acc);
+  float* C = mat_slot(x, slot(code, 2));
+  float* E = mat_slot(x, slot(code, 3));
+  switch (code >> 20) {
+    case E_ST: store_tile<E_ST, W, true>(x, C, E, acc, i0, j0, jh); break;
+    case E_ACC: store_tile<E_ACC, W, true>(x, C, E, acc, i0, j0, jh); break;
+    case E_NS: store_tile<E_NS, W, true>(x, C, E, acc, i0, j0, jh); break;
+    case E_ADD: store_tile<E_ADD, W, true>(x, C, E, acc, i0, j0, jh); break;
+    case E_SGN: store_tile<E_SGN, W, true>(x, C, E, acc, i0, j0, jh); break;
+    case E_SEED:
+      store_tile<E_SEED, W, true>(x, C, E, acc, i0, j0, jh);
+      break;
+    case E_ACCD:
+      store_tile<E_ACCD, W, true>(x, C, E, acc, i0, j0, jh);
+      break;
+    case E_ROWD:
+      store_tile<E_ROWD, W, true>(x, C, E, acc, i0, j0, jh);
+      break;
+    default: store_tile<E_SGND, W, true>(x, C, E, acc, i0, j0, jh);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void vec_item21(const Ctx& x, int code,
+                                           int code2, int e) {
+  const int i = e / K;
+  const int c = e - i * K;
+  vec_out(x, code, e, i,
+          dot_row<K>(mat_slot(x, slot(code, 0)) + i * x.LD,
+                     vec_slot(x, slot(code2, 1)), c, x.n) +
+              dot_row<K>(mat_slot(x, slot(code2, 0)) + i * x.LD,
+                         vec_slot(x, slot(code, 1)), c, x.n));
+}
+
+// One phase of (2,1) jobs: nm <= 3 matrix jobs (codes m0..m2, second codes
+// n0..n2) and nv <= 2 vector jobs (v0, v1; w0, w1), spread over the
+// block's warps as in phase. No barrier at the end: the caller first waits
+// for the staging copies it started beside the phase.
+template <int K>
+__device__ __noinline__ void phase21(int nm, int m0, int m1, int m2, int n0,
+                                     int n1, int n2, int nv, int v0, int v1,
+                                     int w0, int w1) {
+  const Ctx x = g_tile_ctx;
+  const int lanes = blockDim.x;
+  const bool narrow = x.tiles4 <= lanes && nm == 1;
+  const int per_job = narrow ? x.tiles4 : x.tiles;
+  const int nt = nm * per_job;
+  const int mw = (nt + 31) >> 5;
+  const int nvo = x.n * K;
+  const int vw = (nv * nvo + 31) >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int w = threadIdx.x >> 5; w < mw + vw; w += lanes >> 5) {
+    if (w < mw) {
+      const int p = (w << 5) + lane;
+      if (p < nt) {
+        const int q = (p >= per_job) + (p >= 2 * per_job);
+        const int code = q == 0 ? m0 : (q == 1 ? m1 : m2);
+        const int code2 = q == 0 ? n0 : (q == 1 ? n1 : n2);
+        if (narrow)
+          tile_item21<4>(x, code, code2, p);
+        else
+          tile_item21<8>(x, code, code2, p - q * per_job);
+      }
+    } else {
+      const int t = ((w - mw) << 5) + lane;
+      if (t < nv * nvo)
+        vec_item21<K>(x, t < nvo ? v0 : v1, t < nvo ? w0 : w1,
+                      t < nvo ? t : t - nvo);
+    }
+  }
 }
 
 // (I - S)^-1 by Newton-Schulz, m <- m (2I - m + S m), from the seed
@@ -446,6 +553,56 @@ __device__ void ladder(Ladder& L, int ndoubl, const int* sched, bool unstar) {
     L.T[2] = S;
     L.T[3] = c;
   }
+}
+
+// Slots of the composite of the adding step (T++ moves between slots).
+struct Comp {
+  int Rmp, Rpm, Tpp, Tmm, Jp, Jm;
+};
+
+// The adding step onto the composite c (_interaction_math of
+// vsmartmom_tpu/ops/fused_rt.py: Sanghavi 2014 Eqs. 23-28 with one NS
+// inverse of ns_inter iterations, the push-through identity for the second
+// geometric factor) with the unstarred layer in L: r-+ in L.r, t++ in L.t,
+// j0+ in L.jp, j0- in L.jm; r+- = D r-+ D and t-- = D t++ D by parity.
+// One phase before the NS inverse and four after: t-- = D t D rides in
+// front of the first, and t++ is not formed again (T21 = t++ + t++ Ru is
+// D (D t-- D + t-- (D Ru)), the same products up to sign). On return c
+// holds the new composite (its T++ in a slot of L.T, which takes the old
+// T++ slot), L.t holds t-- and L.T four free slots.
+template <int K>
+__device__ void adding(Comp& c, Ladder& L, int ns_inter) {
+  const Ctx x = g_tile_ctx;
+  const float* d = fp32_tile_smem + x.d;
+  float* t = mat_slot(x, L.t);
+  for (int e = threadIdx.x; e < x.n * x.n; e += blockDim.x) {
+    const int i = e / x.n;
+    const int j = e - i * x.n;
+    t[i * x.LD + j] *= d[i] * d[j];
+  }
+  int S = L.T[0], m = L.T[1], cc = L.T[2], nm = L.T[3];
+  phase1<K>(job(L.r, c.Rpm, S, E_SEED, m));        // r-+ R+-, seed
+  ns_inverse<K>(S, m, cc, nm, ns_inter);           // m = inv1
+  // T01 = T-- inv1, rT = r-+ T++, u = inv1 r-+; rJ + j0- = j0- + r-+ J+
+  phase<K>(3, job(c.Tmm, m, S), job(L.r, c.Tpp, cc), job(m, L.r, nm), 1,
+           job(L.r, c.Jp, L.va, E_ADD, L.jm), 0);
+  // T-- = T01 t--, R-+ += T01 rT, D Ru = D R+- u; J- += T01 (rJ + j0-),
+  // J+ + Rj = J+ + R+- j0-
+  phase<K>(3, job(S, L.t, c.Tmm), job(S, cc, c.Rmp, E_ACC),
+           job(c.Rpm, nm, m, E_ROWD), 2, job(S, L.va, c.Jm, E_ACC),
+           job(c.Rpm, L.jm, L.vb, E_ADD, c.Jp));
+  // Rt = R+- t--; T21 = t++ + t++ Ru = D (D t-- D + t-- (D Ru))
+  phase<K>(2, job(c.Rpm, L.t, nm), job(L.t, m, cc, E_SGND, L.t), 0, 0, 0,
+           0);
+  // T++ = T21 T++, R+- = r+- + T21 Rt (r+- = D r-+ D); J+ = j0+ +
+  // T21 (J+ + Rj)
+  phase<K>(2, job(cc, c.Tpp, S), job(cc, nm, c.Rpm, E_SGN, L.r), 0, 1,
+           job(cc, L.vb, c.Jp, E_ADD, L.jp), 0);
+  L.T[0] = c.Tpp;
+  L.T[1] = m;
+  L.T[2] = cc;
+  L.T[3] = nm;
+  c.Tpp = S;
 }
 
 }  // namespace fp32_tile

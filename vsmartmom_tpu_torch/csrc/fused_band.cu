@@ -26,12 +26,13 @@
 // Bound. Per point and layer the ladder and adding are ~(2k + 5) N x N x N
 // products per doubling step, so the kernel is bound by FP32 operations, not
 // bytes (a few KB of row tables per ~20 MFLOP). Every product runs on the
-// FP32 register tiles of csrc/fp32_tile.cuh (shared with K5): one lane a
+// FP32 register tiles of csrc/fp32_tile.cuh (shared with K3, K4 and K5,
+// the ladder with K4 and K5, the adding with K4): one lane a
 // 4 x 8 tile over the whole depth in phases of two or three products (12
 // shared loads per 128 FMA), a 4 x 4 tile in one-product phases, so every
 // phase keeps 5-6 of the block's warps busy (the adding's two
-// three-product phases take two rounds). The ladder is the header's; the
-// adding runs one phase before its NS inverse and four after. The
+// three-product phases take two rounds). The ladder and the adding (one
+// phase before its NS inverse and four after) are the header's. The
 // elementwise passes ride in the phases: the unstar in the epilogue of the
 // last doubling step (D r, D jm), the flip to t-- = D t D in front of the
 // adding's first phase, and t++ is never formed again (T21 = t++ + t++ Ru
@@ -119,7 +120,13 @@ __global__ void __launch_bounds__(VSM_THREADS, 2) moment_kernel(const Args a) {
   const float* TO = a.geom + 2 * NN;
   const float* TS = a.geom + 3 * NN;
   const bool starred = a.ndoubl > 0;     // else the layer is used as built
-  int Tpp = TPP0;
+  Comp comp;
+  comp.Rmp = RMP;
+  comp.Rpm = RPM;
+  comp.Tpp = TPP0;
+  comp.Tmm = TMM;
+  comp.Jp = VJP;
+  comp.Jm = VJM;
   Ladder L;
   L.r = 4;
   L.t = 5;
@@ -174,36 +181,8 @@ __global__ void __launch_bounds__(VSM_THREADS, 2) moment_kernel(const Args a) {
     // r-+ = D r*, j0- = D j-* ----
     ladder<K>(L, a.ndoubl, a.sched, true);
 
-    // ---- adding onto the composite (Sanghavi 2014 Eqs. 23-28, one NS
-    // inverse, push-through identity for the second factor) ----
-    t = smem + L.t * MS;
-    for (int e = tid; e < NN; e += nt) {          // rides: t-- = D t D
-      const int i = e / N;
-      const int j = e - i * N;
-      t[i * LD + j] *= sd[i] * sd[j];
-    }
-    int S = L.T[0], m = L.T[1], c = L.T[2], nm = L.T[3];
-    phase1<K>(job(L.r, RPM, S, E_SEED, m));       // r-+ R+-, seed
-    ns_inverse<K>(S, m, c, nm, a.ns_inter);       // m = inv1
-    // T01 = T-- inv1, rT = r-+ T++, u = inv1 r-+; rJ + j0- = j0- + r-+ J+
-    phase<K>(3, job(TMM, m, S), job(L.r, Tpp, c), job(m, L.r, nm), 1,
-             job(L.r, VJP, Va, E_ADD, L.jm), 0);
-    // T-- = T01 t--, R-+ += T01 rT, D Ru = D R+- u; J- += T01 (rJ + j0-),
-    // J+ + Rj = J+ + R+- j0-
-    phase<K>(3, job(S, L.t, TMM), job(S, c, RMP, E_ACC),
-             job(RPM, nm, m, E_ROWD), 2, job(S, Va, VJM, E_ACC),
-             job(RPM, L.jm, Vb, E_ADD, VJP));
-    // Rt = R+- t--; T21 = t++ + t++ Ru = D (D t-- D + t-- (D Ru))
-    phase<K>(2, job(RPM, L.t, nm), job(L.t, m, c, E_SGND, L.t), 0, 0, 0, 0);
-    // T++ = T21 T++, R+- = r+- + T21 Rt (r+- = D r-+ D); J+ = j0+ +
-    // T21 (J+ + Rj)
-    phase<K>(2, job(c, Tpp, S), job(c, nm, RPM, E_SGN, L.r), 0, 1,
-             job(c, Vb, VJP, E_ADD, L.jp), 0);
-    L.T[0] = Tpp;
-    L.T[1] = m;
-    L.T[2] = c;
-    L.T[3] = nm;
-    Tpp = S;
+    // ---- adding onto the composite (fp32_tile::adding) ----
+    adding<K>(comp, L, a.ns_inter);
   }
 
   const size_t mo = static_cast<size_t>(pt) * NN;
@@ -212,7 +191,7 @@ __global__ void __launch_bounds__(VSM_THREADS, 2) moment_kernel(const Args a) {
     const int idx = i * LD + e - i * N;
     a.Rmp[mo + e] = smem[RMP * MS + idx];
     a.Rpm[mo + e] = smem[RPM * MS + idx];
-    a.Tpp[mo + e] = smem[Tpp * MS + idx];
+    a.Tpp[mo + e] = smem[comp.Tpp * MS + idx];
     a.Tmm[mo + e] = smem[TMM * MS + idx];
   }
   const size_t vo = static_cast<size_t>(pt) * NK;

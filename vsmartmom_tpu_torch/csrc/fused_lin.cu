@@ -46,7 +46,7 @@
 // rows) once it has checked that they cut every output into consecutive
 // slabs, one a rank. VSM_CLUSTER is fixed at build time (at most 8, the
 // portable limit); on an H100 clusters of 2, 4 and 8 read within 2% of
-// each other (PERF.md, tools/mt_variants.py).
+// each other (PERF.md, tools/variants.py mt).
 // Every block keeps a full copy of the primal chain and its own tangent
 // chain in shared memory for the whole moment: twenty N x N f32 operators
 // (216 KB at N = 52, one block per SM) and fourteen (N, K) source vectors

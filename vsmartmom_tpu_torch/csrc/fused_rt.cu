@@ -17,21 +17,22 @@
 // from global memory instead of being assembled from row tables, and the
 // beam attenuation expk is per row (s, N, K), squared every step.
 //
-// Product code. K5 runs the ladder of csrc/fp32_tile.cuh, K1's: one lane a
-// 4 x 8 FMA tile over the whole depth in the ladder's two-product phases
-// (12 shared loads per 128 FMA), a 4 x 4 tile in its one-product phases,
-// 6 warps a block, two blocks an SM. K4 keeps csrc/rt_device.cuh (shared
-// with csrc/band_stages.cu): a 4 x 4 output tile per thread, B rows read
-// as float4 and A as scalars (5 shared loads per 16 FMA); its chain is held
-// bit for bit against its plain chain.
+// Product code. Both run on csrc/fp32_tile.cuh, K1's: one lane a 4 x 8
+// FMA tile over the whole depth in two- and three-product phases (12
+// shared loads per 128 FMA), a 4 x 4 tile in one-product phases, 6 warps a
+// block, two blocks an SM. K5 runs the header's ladder; K4 the same ladder
+// (its last step unstars r and jm in its epilogue) and then the header's
+// adding step, K1's, on a composite read from global memory. K4's matrix
+// outputs round as its plain version's matmuls do; its source vectors sum
+// a float4 of depth at a time into four partial sums.
 //
 // Design. K5 keeps r, t, the two source stacks, three vector temporaries,
 // the per-row attenuation and four N x N NS/product temporaries in shared
 // memory for the whole ladder: six N x N f32 matrices, 67 KB at N = 52,
 // K = 1. K4 adds the composite's four matrices (ten in all, 110 KB at
-// N = 52, as K1); its composite comes from and goes back to global memory
-// once per layer, the HBM trip per layer that K1 avoids by looping over
-// layers inside the block.
+// N = 52, K1's layout); its composite comes from and goes back to global
+// memory once per layer, the HBM trip per layer that K1 avoids by looping
+// over layers inside the block.
 //
 // K5's two paths, chosen per block on the device after the load by one
 // block-wide vote: where r is all zeros and t is diagonal (a purely
@@ -55,15 +56,45 @@
 #include <stdint.h>
 
 #include "fp32_tile.cuh"
-#include "rt_device.cuh"
 
 #define VSM_MAX_N 64
 #define VSM_MAX_K 2
 #define VSM_MAX_DOUBL 32
-// K5's threads a block: 6 warps, two blocks an SM (<= 168 registers).
+// K5's and K4's threads a block: 6 warps, two blocks an SM (<= 168
+// registers).
 #define VSM_K5_THREADS 192
 
 namespace {
+
+__device__ __forceinline__ void load_mat(float* dst, const float* src, int N,
+                                         int LD, const float* rowd) {
+  for (int e = threadIdx.x; e < N * N; e += blockDim.x) {
+    const int i = e / N;
+    dst[i * LD + e - i * N] = rowd ? rowd[i] * src[e] : src[e];
+  }
+}
+
+__device__ __forceinline__ void store_mat(float* dst, const float* src,
+                                          int N, int LD) {
+  for (int e = threadIdx.x; e < N * N; e += blockDim.x) {
+    const int i = e / N;
+    dst[e] = src[i * LD + e - i * N];
+  }
+}
+
+__device__ __forceinline__ void copy_vec(float* dst, const float* src,
+                                         int NK) {
+  for (int e = threadIdx.x; e < NK; e += blockDim.x) dst[e] = src[e];
+}
+
+// Dynamic shared memory of nmat N x N matrices at row stride LD, nvec
+// (N, K) vectors and the D diagonal.
+size_t smem_bytes(int nmat, int nvec, int N, int K) {
+  const int LD = (N + 3) & ~3;
+  const int VS = (N * K + 3) & ~3;
+  return (static_cast<size_t>(nmat) * N * LD +
+          static_cast<size_t>(nvec) * VS + LD) * sizeof(float);
+}
 
 struct DArgs {
   const float* r;    // (s, N, N) starred reflection
@@ -236,65 +267,74 @@ struct LArgs {
   float* Tmmo;
   float* Jpo;        // (s, N, K)
   float* Jmo;
-  int N, K, ndoubl, ns_inter;
+  int N, ndoubl, ns_inter;
   int sched[VSM_MAX_DOUBL];
 };
 
-__global__ void __launch_bounds__(256) layer_kernel(const LArgs a) {
+// Matrix slots of the composite and vector slots (K1's layout).
+enum { RMP = 0, RPM = 1, TPP0 = 2, TMM = 3 };
+enum { VJP = 0, VJM = 1, Vjp = 2, Vjm = 3, Va = 4, Vb = 5, Vc = 6, Vek = 7 };
+
+template <int K>
+__global__ void __launch_bounds__(VSM_K5_THREADS, 2)
+    layer_kernel(const LArgs a) {
   extern __shared__ __align__(16) float smem[];
-  const int N = a.N, K = a.K;
+  const int N = a.N;
   const int LD = (N + 3) & ~3;
   const int MS = N * LD;
-  const int VS = (N * K + 3) & ~3;
-  const int NN = N * N;
   const int NK = N * K;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const size_t mo = static_cast<size_t>(blockIdx.x) * NN;
+  const int VS = (NK + 3) & ~3;
+  const size_t mo = static_cast<size_t>(blockIdx.x) * N * N;
   const size_t vo = static_cast<size_t>(blockIdx.x) * NK;
-
-  Comp c;
-  c.Rmp = smem;
-  c.Rpm = smem + MS;
-  c.Tpp = smem + 2 * MS;
-  c.Tmm = smem + 3 * MS;
-  Work w = carve(smem, 4, MS, VS);
-  c.Jp = w.ek + VS;
-  c.Jm = c.Jp + VS;
-  float* sd = c.Jm + VS;                 // D diagonal
-
-  load_mat(c.Rmp, a.Rmp + mo, N, LD);
-  load_mat(c.Rpm, a.Rpm + mo, N, LD);
-  load_mat(c.Tpp, a.Tpp + mo, N, LD);
-  load_mat(c.Tmm, a.Tmm + mo, N, LD);
-  load_mat(w.r, a.r + mo, N, LD);
-  load_mat(w.t, a.t + mo, N, LD);
-  copy_vec(c.Jp, a.Jp + vo, NK);
-  copy_vec(c.Jm, a.Jm + vo, NK);
-  copy_vec(w.jp, a.jp + vo, NK);
-  copy_vec(w.jm, a.jm + vo, NK);
-  copy_vec(w.ek, a.ek + vo, NK);
-  for (int i = tid; i < N; i += nt) sd[i] = a.dvec[i];
+  float* V = smem + 10 * MS;
+  float* sd = V + 8 * VS;                // D diagonal
+  fp32_tile::set_ctx(smem, V, sd, V + Vek * VS, N, K);
+  for (int i = threadIdx.x; i < N; i += blockDim.x) sd[i] = a.dvec[i];
   __syncthreads();
-
-  ladder(w, a.ndoubl, a.sched, sd, N, LD, K);
-
-  // ---- unstar: r-+ = D r*, j0- = D j-* ----
-  for (int e = tid; e < NN; e += nt) {
-    const int i = e / N;
-    w.r[i * LD + e - i * N] *= sd[i];
+  // Without doubling steps the layer is unstarred here (with them, the
+  // ladder's last step unstars r and jm in its epilogue).
+  const float* rowd = a.ndoubl > 0 ? nullptr : sd;
+  load_mat(smem + RMP * MS, a.Rmp + mo, N, LD, nullptr);
+  load_mat(smem + RPM * MS, a.Rpm + mo, N, LD, nullptr);
+  load_mat(smem + TPP0 * MS, a.Tpp + mo, N, LD, nullptr);
+  load_mat(smem + TMM * MS, a.Tmm + mo, N, LD, nullptr);
+  load_mat(smem + 4 * MS, a.r + mo, N, LD, rowd);
+  load_mat(smem + 5 * MS, a.t + mo, N, LD, nullptr);
+  for (int e = threadIdx.x; e < NK; e += blockDim.x) {
+    V[VJP * VS + e] = a.Jp[vo + e];
+    V[VJM * VS + e] = a.Jm[vo + e];
+    V[Vjp * VS + e] = a.jp[vo + e];
+    V[Vjm * VS + e] = rowd ? rowd[e / K] * a.jm[vo + e] : a.jm[vo + e];
+    V[Vek * VS + e] = a.ek[vo + e];
   }
-  for (int e = tid; e < NK; e += nt) w.jm[e] *= sd[e / K];
   __syncthreads();
-
-  adding(c, w, sd, a.ns_inter, N, LD, K);
-
-  store_mat(a.Rmpo + mo, c.Rmp, N, LD);
-  store_mat(a.Rpmo + mo, c.Rpm, N, LD);
-  store_mat(a.Tppo + mo, c.Tpp, N, LD);
-  store_mat(a.Tmmo + mo, c.Tmm, N, LD);
-  copy_vec(a.Jpo + vo, c.Jp, NK);
-  copy_vec(a.Jmo + vo, c.Jm, NK);
+  fp32_tile::Ladder L;
+  L.r = 4;
+  L.t = 5;
+  L.T[0] = 6;
+  L.T[1] = 7;
+  L.T[2] = 8;
+  L.T[3] = 9;
+  L.jp = Vjp;
+  L.jm = Vjm;
+  L.va = Va;
+  L.vb = Vb;
+  L.vc = Vc;
+  fp32_tile::ladder<K>(L, a.ndoubl, a.sched, true);
+  fp32_tile::Comp c;
+  c.Rmp = RMP;
+  c.Rpm = RPM;
+  c.Tpp = TPP0;
+  c.Tmm = TMM;
+  c.Jp = VJP;
+  c.Jm = VJM;
+  fp32_tile::adding<K>(c, L, a.ns_inter);
+  store_mat(a.Rmpo + mo, smem + RMP * MS, N, LD);
+  store_mat(a.Rpmo + mo, smem + RPM * MS, N, LD);
+  store_mat(a.Tppo + mo, smem + c.Tpp * MS, N, LD);
+  store_mat(a.Tmmo + mo, smem + TMM * MS, N, LD);
+  copy_vec(a.Jpo + vo, V + VJP * VS, NK);
+  copy_vec(a.Jmo + vo, V + VJM * VS, NK);
 }
 
 bool bad_shape(int s, int N, int K, int ndoubl) {
@@ -345,6 +385,14 @@ int vsm_fused_doubling_blocks_per_sm(int N, int K) {
   const size_t smem = smem_bytes(6, 6, N, K);
   return K == 1 ? resident(doubling_kernel<1>, VSM_K5_THREADS, smem)
                 : resident(doubling_kernel<2>, VSM_K5_THREADS, smem);
+}
+
+// K4's blocks at (N, K) resident on one SM, as above.
+int vsm_fused_layer_step_blocks_per_sm(int N, int K) {
+  if (bad_shape(0, N, K, 0)) return -static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(10, 8, N, K);
+  return K == 1 ? resident(layer_kernel<1>, VSM_K5_THREADS, smem)
+                : resident(layer_kernel<2>, VSM_K5_THREADS, smem);
 }
 
 // K5: launches the doubling ladder on `stream` for s points and returns
@@ -415,13 +463,14 @@ int vsm_fused_layer_step_f32(const float* Rmp, const float* Rpm,
   a.Jpo = Jpo;
   a.Jmo = Jmo;
   a.N = N;
-  a.K = K;
   a.ndoubl = ndoubl;
   a.ns_inter = ns_inter;
   for (int i = 0; i < VSM_MAX_DOUBL; ++i)
     a.sched[i] = i < ndoubl ? sched[i] : 0;
-  return launch(layer_kernel, a, s, threads_for(N), smem_bytes(10, 8, N, K),
-                stream);
+  const size_t smem = smem_bytes(10, 8, N, K);
+  return K == 1 ? launch(layer_kernel<1>, a, s, VSM_K5_THREADS, smem, stream)
+                : launch(layer_kernel<2>, a, s, VSM_K5_THREADS, smem,
+                         stream);
 }
 
 }  // extern "C"

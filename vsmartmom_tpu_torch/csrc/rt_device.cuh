@@ -1,16 +1,13 @@
-// Device code of the per-layer step kernel K4 (csrc/fused_rt.cu,
-// layer_kernel) and the band-stage probe (csrc/band_stages.cu): the
+// Device code of the band-stage probe (csrc/band_stages.cu, its one user):
 // register-tiled FP32 product phases (a 4 x 4 output tile per thread, B
 // rows read as float4 and A as scalars: 5 shared loads per 16 FMA), the
 // Newton-Schulz inverse, the doubling ladder on starred operators
 // (_doubling_math of vsmartmom_tpu/ops/fused_rt.py) and the adding step
 // (_interaction_math), each a device function working on one block's shared
-// memory. K1 (csrc/fused_band.cu) and K5 (doubling_kernel) run the same
-// algebra on csrc/fp32_tile.cuh's 4 x 8 tiles instead; K4 and the probe
-// stay here so that K4's chain keeps its bit-for-bit match with its plain
-// chain, until they move onto that header. The build hashes every
-// csrc/*.cuh into each library's name (ops/cuda_build.py), so an edit here
-// rebuilds every source.
+// memory. The production kernels (K1, K3, K4 and K5) run the same algebra
+// on csrc/fp32_tile.cuh instead. The build hashes every csrc/*.cuh into
+// each library's name (ops/cuda_build.py), so an edit here rebuilds every
+// source.
 
 #pragma once
 
@@ -206,25 +203,12 @@ __device__ void ladder(Work& w, int ndoubl, const int* sched, const float* d,
   }
 }
 
-__device__ __forceinline__ void load_mat(float* dst, const float* src, int N,
-                                         int LD) {
-  for (int e = threadIdx.x; e < N * N; e += blockDim.x) {
-    const int i = e / N;
-    dst[i * LD + e - i * N] = src[e];
-  }
-}
-
 __device__ __forceinline__ void store_mat(float* dst, const float* src,
                                           int N, int LD) {
   for (int e = threadIdx.x; e < N * N; e += blockDim.x) {
     const int i = e / N;
     dst[e] = src[i * LD + e - i * N];
   }
-}
-
-__device__ __forceinline__ void copy_vec(float* dst, const float* src,
-                                         int NK) {
-  for (int e = threadIdx.x; e < NK; e += blockDim.x) dst[e] = src[e];
 }
 
 // Work buffers carved from shared memory after `nmat_before` matrices.

@@ -238,6 +238,13 @@ def _launch_layer_step(comp, r_star, t_pp, jp, jm_star, expk, d_vec,
     return tuple(outs)
 
 
+def layer_step_blocks_per_sm(N, K):
+    """K4's blocks at (N, K) resident on one SM, as the C side reads them
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    from .cuda_build import load
+    return load("fused_rt").vsm_fused_layer_step_blocks_per_sm(N, K)
+
+
 def _refuse_tpu_modes(dot_mode):
     if dot_mode != "highest":
         raise NotImplementedError(f"dot_mode {dot_mode!r}: the port runs "
@@ -295,8 +302,11 @@ def fused_layer_step(comp, r_star, t_pp, jp, jm_star, expk, d_vec, ndoubl,
     Bound by FP32 operations like K5 (the ladder plus (2 ns_inter + 11) N^3
     FMAs of adding per point); the six composite operands come from and go
     back to global memory once per layer, which the whole-moment K1 avoids.
-    Its shared memory is K1's: ten N x N matrices, 110 KB at N = 52. CPU
-    tensors run ``layer_step_reference``.
+    It runs K5's ladder and K1's adding on ``csrc/fp32_tile.cuh``, in K1's
+    shared-memory layout: ten N x N matrices, 110 KB at N = 52, two blocks
+    of 192 threads an SM. Its matrix outputs round as the plain version's
+    matmuls; its source vectors (J0_p, J0_m) sum four partial sums a row.
+    CPU tensors run ``layer_step_reference``.
     """
     _refuse_tpu_modes(dot_mode)
     ns_sched = norm_sched(ns_sched, ndoubl)
