@@ -129,15 +129,18 @@ a miss:
    against the f64 product; one line per dot and lane case with its launch
    plan (grid, threads, dynamic shared memory, resident blocks per SM from
    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, slabs or points in
-   flight per SM) and its kernel's ptxas registers and spills. Gates: every
+   flight per SM) and its kernel's ptxas registers and spills; one line per
+   band-stage case with each of its launches (grid, threads, shared bytes,
+   its entry's registers and spills) and its scratch. Gates: every
    kernel time the device's work alone; each host plan the launch the C
    side makes of it; dot and lane chains against their plain versions <= 1e-5 of
    max|plain| at lengths 1, 8 and the whole chain (a TF32 chain at length
    1 only: its drift is recorded), each chain's last step <= 1e-5 and
    equal bit for bit to the kernel's own chain; the layout cases exact;
    the band stages NaN where the plain version is NaN and <= 1e-5 of
-   max|plain| where it is finite, and the full stage at one layer finite
-   throughout;
+   max|plain| where it is finite, the full stage finite throughout at one
+   layer and on the thin inputs over four (the chain of adding steps), and
+   one chain launch after each full call;
 8. thermal Jacobian (``thermal_lin_phase``) on ``thermal_lin_model`` (the
    aerosol flagship at 2500 cm^-1 with each layer's Planck source; N = 52,
    nz = 33, C = 2, K = 2, P = 8) — K1' against its plain version on a
@@ -425,7 +428,8 @@ def launch_counted():
             "dot_chain": probe_dots.dot_chain,
             "lane_dot_chain": probe_dots.lane_dot_chain,
             "layout_op": probe_layout.layout_op,
-            "band_stages": band_stages.band_stages}
+            "band_stages": band_stages.band_stages,
+            "band_chain": band_stages._launch_chain}
 
 
 def ms_phase(dev, smi):
@@ -883,6 +887,31 @@ def plan_line(site, case, report):
     return line, bad
 
 
+def band_plan_lines(cases):
+    """The band-stage kernels' plan lines, one a P7 case: each launch's
+    grid, threads and shared bytes (the C side's plan,
+    ``band_stages.band_plan``) and its entry's ptxas registers and
+    spills."""
+    from vsmartmom_tpu_torch.ops import band_stages, cuda_build
+    from vsmartmom_tpu_torch.probes import band_bisect
+    report = ptxas_report(cuda_build.BUILD_LOG.get("band_stages",
+                                                   (0, ""))[1])
+    lines = []
+    for case in cases:
+        plan = band_stages.band_plan(case["stage"], case["nz"],
+                                     band_bisect.S, band_bisect.N)
+        parts = []
+        for x in plan["launches"]:
+            regs = [v for k, v in report.items() if x["kernel"] in k]
+            regs, st, ld = regs[0] if regs else (None, None, None)
+            parts.append(f"{x['kernel']} grid {x['grid']}, {x['threads']} "
+                         f"threads, {x['smem']} B shared, {regs} registers, "
+                         f"spills {st} / {ld} B")
+        lines.append(f"  plan P7 {case['case']}: " + "; ".join(parts)
+                     + f"; scratch {4 * plan['scratch']} B")
+    return lines
+
+
 def probe_entry(site, replaces, cases, launches):
     """The kernels-line entry of one probe call site: its headline case
     (the first fp32 case; P5 one pass over its sixteen cases; P7 the full
@@ -932,6 +961,10 @@ def probes_phase(smi):
         for site in sites:
             want[PROBE_KERNELS[site]] += sum(c["kernel_calls"]
                                              for c in result[site])
+        # P7's full stage: a chain launch after each of its layer launches.
+        want["band_chain"] = sum(c["kernel_calls"]
+                                 for c in result.get("P7", [])
+                                 if c["stage"] == "full")
         print(f"probes: {module} in {seconds:.1f} s, launches "
               f"{ {k: v for k, v in launches.items() if v} } (want "
               f"{ {k: v for k, v in want.items() if v} })", flush=True)
@@ -948,10 +981,14 @@ def probes_phase(smi):
                     line, miss = plan_line(site, case, report)
                     print(line, flush=True)
                     bad += miss
+            if site == "P7":
+                print("\n".join(band_plan_lines(cases)), flush=True)
             if bad:
                 fail(f"probe {site}: " + "; ".join(bad))
             entries.append(probe_entry(site, replaces, cases,
                                        launches[PROBE_KERNELS[site]]))
+            if site == "P7":
+                entries[-1]["chain_launches"] = launches["band_chain"]
     return entries
 
 

@@ -16,19 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from port_threads import _one_thread  # noqa: F401  (autouse)
+
 SCHED = (0, 0, 1, 1, 2, 2, 3, 3)        # ndoubl = 8 at the small flagship
 NS_INTER = 3
 NAMES = ("R_mp", "R_pm", "T_pp", "T_mm", "J0_p", "J0_m")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small shapes: one intra-op thread is faster and does not fight the
-    other test workers for cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

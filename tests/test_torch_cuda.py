@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from port_threads import _one_thread  # noqa: F401  (autouse)
+
 pytestmark = pytest.mark.cuda
 GATE = 1e-4
 
@@ -917,20 +919,164 @@ def test_layout_copy_cases_are_exact_at_any_width(cuda, case, n):
     assert torch.equal(out, layout_op_reference(case, *ins))
 
 
-@pytest.mark.parametrize("kind", ["probe", "bounded"])
-@pytest.mark.parametrize("stage", ["acc", "elem", "src", "pack", "dbl",
-                                   "full"])
-def test_band_stages_match_plain_version(cuda, stage, kind):
+#: (nz, S, N) of the band-stage card tests: the probe's own shape, then
+#: every mix of nz 1, 4, 7, S 2, 34 and N 5, 12, 32 (2N <= 64).
+BAND_SHAPES = [(4, 32, 12)] + [(nz, S, N) for nz in (1, 4, 7)
+                               for S in (2, 34) for N in (5, 12, 32)]
+BAND_STAGES = ["acc", "elem", "src", "pack", "dbl", "full"]
+#: The probe's inputs, the bounded ones and the thin ones (on which every
+#: stage stays finite at every shape, full's chain of adding steps too).
+BAND_KINDS = ["probe", "bounded", "thin"]
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _band_ids(s):
+    return "nz{}-S{}-N{}".format(*s)
+
+
+@pytest.mark.parametrize("shape", BAND_SHAPES, ids=_band_ids)
+@pytest.mark.parametrize("kind", BAND_KINDS)
+@pytest.mark.parametrize("stage", BAND_STAGES)
+def test_band_stages_match_plain_version(cuda, stage, kind, shape):
     """NaN where the plain version is NaN, 1e-5 of max|plain| where it is
-    finite, on the band probe's own and bounded inputs."""
+    finite, on the band probe's own, bounded and thin inputs, at the
+    probe's shape and at the other widths, strip counts and depths; on the
+    thin inputs the plain version is finite throughout (so full's chain,
+    every layer's record read after the one before, is compared value for
+    value at every depth); pack (the elemental operators, each operation
+    rounded as the plain version's) is the plain version's bits."""
     from vsmartmom_tpu_torch.ops.band_stages import (band_stages,
                                                      band_stages_reference)
     from vsmartmom_tpu_torch.probes.band_bisect import compare, inputs
-    tau, Em1, aux = inputs(kind, cuda)
+    nz, S, N = shape
+    tau, Em1, aux = inputs(kind, cuda, nz=nz, s=S, n=N)
     out = band_stages(stage, tau, Em1, aux)
     torch.cuda.synchronize()
-    same, err, _ = compare(out, band_stages_reference(stage, tau, Em1, aux))
+    ref = band_stages_reference(stage, tau, Em1, aux)
+    same, err, _ = compare(out, ref)
     assert same and err <= PROBE_GATE
+    if kind == "thin":
+        assert bool(torch.isfinite(ref).all())
+    if stage == "pack":
+        assert torch.equal(out, ref)
+
+
+def _band_f64_finite(kind, stage, shape):
+    """Whether the plain version, in f32 and in f64, is finite throughout:
+    everywhere on the thin inputs; on the bounded ones in the elementwise
+    stages, and for N < 32 in dbl and in full at one layer (its all-ones T
+    overflows the composite from the second layer on, and at N = 32 the
+    bounded operators overflow the ladder)."""
+    nz, _, N = shape
+    return (kind == "thin" or stage in ("acc", "elem", "src", "pack")
+            or (N < 32 and (stage == "dbl" or nz == 1)))
+
+
+@pytest.mark.parametrize("kind,stage,shape", [
+    (kind, stage, shape) for kind in ("bounded", "thin")
+    for stage in BAND_STAGES for shape in BAND_SHAPES
+    if _band_f64_finite(kind, stage, shape)],
+    ids=lambda v: _band_ids(v) if isinstance(v, tuple) else v)
+def test_band_stages_as_close_to_f64_as_the_plain_version(cuda, kind, stage,
+                                                          shape):
+    """Where the f32 plain version and the plain version run in f64 are
+    both finite throughout (``_band_f64_finite``, asserted), the kernel is
+    at most twice as far from the f64 values as the f32 plain version
+    (max|d| / max|f64|). The f32 output's own rounding is up to 2^-24 of
+    max|f64|, so the ratio is taken against at least 2^-23. On the thin
+    inputs full's chain sums hundreds of products into each output: there
+    the f32 plain version is also run on the CPU, whose small products sum
+    in depth order as the kernel's tile does (the card's matmul orders
+    them otherwise), and its larger distance is the yardstick."""
+    from vsmartmom_tpu_torch.ops.band_stages import (band_stages,
+                                                     band_stages_reference)
+    from vsmartmom_tpu_torch.probes.band_bisect import inputs
+    nz, S, N = shape
+    tau, Em1, aux = inputs(kind, cuda, nz=nz, s=S, n=N)
+    out = band_stages(stage, tau, Em1, aux)
+    torch.cuda.synchronize()
+    ref = band_stages_reference(stage, tau, Em1, aux)
+    ref64 = band_stages_reference(stage, tau.double(), Em1.double(),
+                                  aux.double())
+    assert bool((torch.isfinite(ref) & torch.isfinite(ref64)).all())
+    kernel = _rel(out.double(), ref64)
+    plain = _rel(ref.double(), ref64)
+    if kind == "thin":
+        cpu = band_stages_reference(stage, tau.cpu(), Em1.cpu(), aux.cpu())
+        plain = max(plain, _rel(cpu.double(), ref64.cpu()))
+    assert kernel <= 2.0 * max(plain, 2.0 ** -23), (kernel, plain)
+
+
+@pytest.mark.parametrize("shape", [(4, 32, 12), (7, 34, 32)], ids=_band_ids)
+@pytest.mark.parametrize("kind", BAND_KINDS)
+@pytest.mark.parametrize("stage", BAND_STAGES)
+def test_band_stages_same_bits_every_run_and_block(cuda, stage, kind, shape):
+    """Three calls give the same bits, NaNs included; a summing stage holds
+    one value in every block (each block sums every layer in one fixed
+    order, with no atomics)."""
+    from vsmartmom_tpu_torch.ops.band_stages import band_stages
+    from vsmartmom_tpu_torch.probes.band_bisect import inputs
+    nz, S, N = shape
+    tau, Em1, aux = inputs(kind, cuda, nz=nz, s=S, n=N)
+    runs = [_bits(band_stages(stage, tau, Em1, aux)) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    if stage in ("acc", "elem", "src"):
+        assert bool((runs[0] == runs[0].flatten()[0]).all())
+
+
+@pytest.mark.parametrize("stage", BAND_STAGES)
+def test_band_plan_fits_every_width(cuda, stage):
+    """The C side's plan (``band_plan``) for every 2N <= 64, nz <= 8 and S
+    2, 34: every block within the 232,448 B of shared memory a block may
+    opt in to and within 1024 threads in whole warps; the summing stages
+    one launch of S / 2 blocks, pack and dbl one of S / 2 x nz blocks, full
+    that one and a chain of S / 2 blocks; the scratch one (r, t, jp, jm)
+    record a pair and layer."""
+    from vsmartmom_tpu_torch.ops.band_stages import (KERNEL_MAX_NP, PACK,
+                                                     band_plan)
+    for N in range(1, KERNEL_MAX_NP // PACK + 1):
+        Np = PACK * N
+        LD = -(-Np // 4) * 4
+        for nz in range(1, 9):
+            for S in (2, 34):
+                plan = band_plan(stage, nz, S, N)
+                for x in plan["launches"]:
+                    assert x["smem"] <= 232448, (N, nz, x)
+                    assert 32 <= x["threads"] <= 1024
+                    assert x["threads"] % 32 == 0
+                kernels = [x["kernel"] for x in plan["launches"]]
+                grids = [x["grid"] for x in plan["launches"]]
+                if stage in ("acc", "elem", "src"):
+                    assert kernels == ["sum_kernel"]
+                    assert grids == [(S // 2, 1)]
+                    assert plan["scratch"] == 0
+                elif stage == "full":
+                    assert kernels == ["layer_kernel", "chain_kernel"]
+                    assert grids == [(S // 2, nz), (S // 2, 1)]
+                else:
+                    assert kernels == ["layer_kernel"]
+                    assert grids == [(S // 2, nz)]
+                if stage in ("pack", "dbl", "full"):
+                    assert plan["scratch"] == nz * (S // 2) * 2 * (Np + 1) * LD
+
+
+@pytest.mark.parametrize("stage", BAND_STAGES)
+def test_band_chain_launch_is_counted_for_full_alone(cuda, stage):
+    """A full call launches the chain kernel once after its layer launch
+    (``_launch_chain.launches``); no other stage launches it. Either way
+    the wrapper call counts once in ``band_stages.launches``."""
+    from vsmartmom_tpu_torch.ops.band_stages import _launch_chain, band_stages
+    from vsmartmom_tpu_torch.probes.band_bisect import inputs
+    tau, Em1, aux = inputs("thin", cuda)
+    band_stages.launches = _launch_chain.launches = 0
+    band_stages(stage, tau, Em1, aux)
+    torch.cuda.synchronize()
+    assert band_stages.launches == 1
+    assert _launch_chain.launches == (stage == "full")
 
 
 def test_band_full_stage_is_finite_at_one_layer(cuda):

@@ -14,18 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+from port_threads import _one_thread  # noqa: F401  (autouse)
+
 S, N = 8, 12
 ATOL = 2e-6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small shapes: one intra-op thread is faster and does not fight the
-    other test workers for cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(K, ek_form, seed, scale=0.3):
@@ -150,7 +142,7 @@ def test_wrappers_run_the_plain_versions_on_the_cpu():
 
 def test_build_name_hashes_the_shared_headers(monkeypatch, tmp_path):
     """A library's name carries a hash of its source and of every
-    csrc/*.cuh, so an edited shared header (csrc/rt_device.cuh) rebuilds
+    csrc/*.cuh, so an edited shared header (csrc/fp32_tile.cuh) rebuilds
     every source that may include it instead of reusing a stale library."""
     from vsmartmom_tpu_torch.ops import cuda_build
     monkeypatch.setattr(cuda_build, "SRC_DIR", tmp_path)
@@ -225,14 +217,18 @@ def test_absorbing_layer_ladder_is_the_diagonal_closed_form():
     ("tile", ("nomac", "empty", "epist", "novec", "bcasta", "bcastb"),
      ["fp32_tile.cuh"]),
     ("rrs", ("nomac", "empty", "narrow2"), ["fp32_tile.cuh"]),
-    ("rrs", ("onestore",), ["fused_rrs.cu"])], ids=["tile", "rrs", "rrs-store"])
+    ("rrs", ("onestore",), ["fused_rrs.cu"]),
+    ("band", ("nomac", "empty", "novec"), ["fp32_tile.cuh"]),
+    ("band", ("t64",), ["band_stages.cu"])],
+    ids=["tile", "rrs", "rrs-store", "band", "band-src"])
 def test_tile_variant_patches_match_the_sources(group, names, changed):
-    """The patches of tools/variants.py behind PERF.md's splits of K1's and
-    K3's time (no product loop, empty phases, no epilogues, no vector
-    jobs, one A / B address a warp; K3's staging copies from one store
-    entry) still apply to csrc/ and change what they name: K3's no-loop
-    patch both launches' tiles (K1's and the (2,1) one), its copy patch
-    both the matrix and the vector copies."""
+    """The patches of tools/variants.py behind PERF.md's splits of K1's,
+    K3's and P7's time (no product loop, empty phases, no epilogues, no
+    vector jobs, one A / B address a warp; K3's staging copies from one
+    store entry; P7's thread cap) still
+    apply to csrc/ and change what they name: K3's no-loop patch both
+    launches' tiles (K1's and the (2,1) one), its copy patch both the
+    matrix and the vector copies."""
     from tools import variants
     from vsmartmom_tpu_torch.ops.cuda_build import SRC_DIR
     built = variants.variant_files(group, "built", SRC_DIR)

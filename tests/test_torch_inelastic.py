@@ -33,18 +33,12 @@ from vsmartmom_tpu_torch.flagship import (RRS_REF_ALBEDO, RRS_REF_N_SPEC,
                                           RRS_REF_SIF, rrs_ref_model,
                                           rrs_ref_params)
 
+from port_threads import _one_thread  # noqa: F401  (autouse)
+
 N_SPEC = RRS_REF_N_SPEC
 KEYS = ("R", "T", "ieR", "ieT")
 REF_PATH = (Path(__file__).resolve().parents[1] / "vsmartmom_tpu_torch"
             / "data" / "rrs_ref_f64.npz")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

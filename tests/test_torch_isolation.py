@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from port_threads import _one_thread  # noqa: F401  (autouse)
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "vsmartmom_tpu")
 

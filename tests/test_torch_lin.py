@@ -37,6 +37,8 @@ import numpy as np
 import pytest
 import torch
 
+from port_threads import _one_thread  # noqa: F401  (autouse)
+
 if __name__ == "__main__":
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from vsmartmom_tpu_torch.flagship import (LIN_REF_AEROSOL, LIN_REF_MIE,
@@ -56,14 +58,6 @@ THERMAL_REF_PATH = DATA / "lin_thermal_ref_f64.npz"
 #: f64 reference on every route; HEIGHT_GATE still fails a 1% error in it.
 HEIGHT_PARAMS = ("_p0", "_sigma_p")
 HEIGHT_GATE = 5e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

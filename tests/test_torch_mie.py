@@ -14,19 +14,12 @@ the Greek coefficients).
 
 import numpy as np
 import pytest
-import torch
 
 from vsmartmom_tpu_torch.flagship import LIN_REF_AEROSOL
 
+from port_threads import _one_thread  # noqa: F401  (autouse)
+
 GREEK = ("alpha", "beta", "gamma", "delta", "epsilon", "zeta")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

@@ -12,19 +12,10 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+
+from port_threads import _one_thread  # noqa: F401  (autouse)
 
 SURFACES = ["coxmunk", "lambertian"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small shapes: one intra-op thread is faster and does not fight the
-    other test workers for cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

@@ -13,6 +13,8 @@ from vsmartmom_tpu_torch.ops.fused_lin import (KERNEL_CLUSTER,
                                                KERNEL_THREADS, SMEM_OPT_IN,
                                                mt_plan)
 
+from port_threads import _one_thread  # noqa: F401  (autouse)
+
 P_CASES = [*range(1, 25), 32, 40]
 SOURCE = (Path(__file__).resolve().parents[1] / "vsmartmom_tpu_torch"
           / "csrc" / "fused_lin.cu")

@@ -25,18 +25,11 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+
+from port_threads import _one_thread  # noqa: F401  (autouse)
 
 NU = np.array([14000.0, 14010.0, 14020.0])
 TOL = {np.float64: 1e-9, np.float32: 2e-5}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

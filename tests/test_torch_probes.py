@@ -25,16 +25,10 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from port_threads import _one_thread  # noqa: F401  (autouse)
+
 ROOT = Path(__file__).resolve().parents[1]
 RTOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -281,7 +275,8 @@ def test_mosaic_casts_match_plain_exactly(cast_cases, case):
 
 def _band_inputs(kind, P7):
     """The probe's own inputs, or bounded ones: Gauss nodes and weights in
-    aux, tau in [1e-3, 1e-2], Em1 = expm1(-tau / 16 / mu)."""
+    aux, tau in [1e-3, 1e-2] (``"thin"``: [1e-6, 1e-5]), Em1 =
+    expm1(-tau / 16 / mu)."""
     rng = np.random.default_rng(0)
     NZ, S, N = P7.NZ, P7.S, P7.N
     if kind == "probe":
@@ -293,7 +288,8 @@ def _band_inputs(kind, P7):
         mu = (x + 1) / 2
         aux = rng.uniform(0.2, 1.0, (8, N))
         aux[0], aux[1] = mu, w / 2
-        tau = rng.uniform(1e-3, 1e-2, (NZ, 1, S))
+        lo, hi = (1e-3, 1e-2) if kind == "bounded" else (1e-6, 1e-5)
+        tau = rng.uniform(lo, hi, (NZ, 1, S))
         Em1 = np.expm1(-tau[:, 0, :, None] / 16 / mu)
     return [a.astype(np.float32) for a in (tau, Em1, aux)]
 
@@ -345,6 +341,40 @@ def test_band_bisect_full_stage_is_finite_at_one_layer(band_probe,
     stage, kind, nz = FINITE_CASE
     monkeypatch.setattr(P7, "NZ", nz)
     tau, Em1, aux = _band_inputs(kind, P7)
+    bp, Np = P7.S // P7.PACK, P7.PACK * P7.N
+    fn = pl.pallas_call(
+        functools.partial(P7.kernel, stage), grid=(nz,),
+        in_specs=[_vmem((1, 1, P7.S), lambda z: (z, 0, 0)),
+                  _vmem((1, P7.S, P7.N), lambda z: (z, 0, 0)),
+                  _vmem((8, P7.N), lambda z: (0, 0))],
+        out_specs=_vmem((bp, Np, Np), lambda z: (0, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((bp, Np, Np), jnp.float32),
+        scratch_shapes=[pltpu.VMEM((bp, Np, Np), jnp.float32)],
+        interpret=True)
+    ref = np.asarray(fn(*(jnp.asarray(a) for a in (tau, Em1, aux))))
+    out = band_stages(stage, _t(tau), _t(Em1), _t(aux)).numpy()
+    assert np.isfinite(ref).all() and np.isfinite(out).all()
+    assert np.abs(ref).max() > 0
+    assert _rel(out, ref) <= RTOL
+
+
+@pytest.mark.parametrize("nz", [4, 7])
+@pytest.mark.parametrize("stage", ["acc", "elem", "src", "pack", "dbl",
+                                   "full"])
+def test_band_bisect_thin_inputs_stay_finite(band_probe, monkeypatch, stage,
+                                             nz):
+    """P7 on the thin inputs (tau in [1e-6, 1e-5]) over nz layers: every
+    stage finite throughout in the probe, full's chain of adding steps
+    too, so each layer's carry shows in the output; the port's plain
+    version within 1e-5 of max|ref|, and the same inputs as
+    ``probes.band_bisect.inputs("thin")``."""
+    from vsmartmom_tpu_torch.ops.band_stages import band_stages
+    from vsmartmom_tpu_torch.probes.band_bisect import inputs
+    P7 = band_probe
+    monkeypatch.setattr(P7, "NZ", nz)
+    tau, Em1, aux = _band_inputs("thin", P7)
+    for a, b in zip((tau, Em1, aux), inputs("thin", "cpu", nz=nz)):
+        np.testing.assert_array_equal(a, b.numpy())
     bp, Np = P7.S // P7.PACK, P7.PACK * P7.N
     fn = pl.pallas_call(
         functools.partial(P7.kernel, stage), grid=(nz,),
@@ -566,6 +596,22 @@ def test_lane_dot_chain_plan(n, s):
     assert p.smem <= SMEM_LIMIT and p.threads <= 512
     if n == 52:
         assert p.resident_by_smem >= 2
+
+
+def _band_define(name):
+    import re
+    src = (ROOT / "vsmartmom_tpu_torch" / "csrc" / "band_stages.cu")
+    return int(re.search(rf"^#define {name} (\d+)$", src.read_text(),
+                         re.M).group(1))
+
+
+def test_band_plan_limits_are_the_kernel_s():
+    """The wrapper's limits, which it checks before any build, are the
+    defines csrc/band_stages.cu is built with: the packed width and the
+    length of the probe's NS schedule."""
+    from vsmartmom_tpu_torch.ops import band_stages as bs
+    assert bs.KERNEL_MAX_NP == _band_define("VSM_BAND_MAX_NP")
+    assert len(bs.SCHED) <= _band_define("VSM_BAND_MAX_DOUBL")
 
 
 @pytest.mark.parametrize("args,match", [

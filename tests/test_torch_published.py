@@ -23,16 +23,10 @@ from vsmartmom_tpu_torch.scattering.greek import GreekCoefs
 from vsmartmom_tpu_torch.scattering.stokes import (STOKES_I, STOKES_IQU,
                                                    STOKES_IQUV)
 
+from port_threads import _one_thread  # noqa: F401  (autouse)
+
 DATA = os.path.join(os.path.dirname(__file__), "data")
 F64_EPS = np.finfo(np.float64).eps
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _run(device="cpu", **kw):

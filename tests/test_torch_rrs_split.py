@@ -17,13 +17,7 @@ import torch
 from vsmartmom_tpu_torch.ops import fused_rrs
 from vsmartmom_tpu_torch.ops import rrs_program as rp
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from port_threads import _one_thread  # noqa: F401  (autouse)
 
 
 def _rel(a, b):

@@ -19,23 +19,14 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+
+from port_threads import _one_thread  # noqa: F401  (autouse)
 
 KEYS = ("R", "T", "hdr", "bhr_uw", "bhr_dw")
 TOL = {np.float64: 1e-9, np.float32: 2e-5}
 REF_PATH = (Path(__file__).resolve().parents[1] / "vsmartmom_tpu_torch"
             / "data" / "flagship_ref_f64.npz")
 REF_N_SPEC = 16
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small shapes: one intra-op thread is faster and does not fight the
-    other test workers for cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

@@ -31,6 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+from port_threads import _one_thread  # noqa: F401  (autouse)
+
 if __name__ == "__main__":
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
@@ -41,14 +43,6 @@ TIR = dict(spec_bands=[np.array([1000.0, 1001.0])], nstreams=4, sza=45.0,
            T=np.array([260.0, 260.0, 260.0]),
            p=np.array([10.0, 400.0, 800.0, 1013.0]), depol=0.0,
            include_solar=False)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

@@ -33,6 +33,17 @@ variants
 * ``inline``: the phase function inlined at its call sites;
 * ``u1`` / ``u4``: the product loop not unrolled / unrolled 4 times.
 
+``band``: P7 (``band_stages.cu``, the ladder and adding step of
+``fp32_tile.cuh``) on every case of ``probes.band_bisect`` (its script's
+shapes), each case's device time (``probes.common.time_ms``: the timed
+calls queued behind a sleeping kernel) and the largest relative
+difference from the plain version where it is finite (NaN where it is
+NaN); variants
+
+* ``nomac``, ``empty``, ``novec``: as above, for timing only;
+* ``t<n>``: at most n threads a layer or chain block
+  (``VSM_BAND_MAX_THREADS``).
+
 ``rrs``: K3 (``fused_rrs.cu``, on ``fp32_tile.cuh``) at moment 0 of the
 RRS+SIF scene (nSpec points), both launches and each alone, and the
 largest relative difference from the dense plain version; variants
@@ -58,7 +69,9 @@ Run on a machine with an NVIDIA GPU, from the repo root:
 ``python3 -m tools.variants GROUP [n_spec] [variants] [scenes]``
 (comma-separated; defaults 1024 (256 for ``rrs``),
 ``c2,c4,c8,local,nomac,empty`` for ``mt``, ``t256,wide,nomac,empty`` for
-``tile`` and ``nomac,empty,onestore`` for ``rrs``, scenes
+``tile``, ``nomac,empty,onestore`` for ``rrs`` and
+``nomac,empty,novec,t64,t256`` for ``band`` (which takes
+no n_spec: any number), scenes
 ``aerosol,thermal``). Builds go to ``vsmartmom_tpu_torch/_build/variants/``,
 all started together; a patch that no longer matches its source stops the
 run. Prints the card, each build's ptxas registers and spills, and one
@@ -140,9 +153,13 @@ PATCHES["rrs"] = {
          "from = ms_tgt;")],
 }
 SOURCES["rrs"] = ("fused_rrs.cu",)
+PATCHES["band"] = {name: PATCHES["tile"][name]
+                   for name in ("nomac", "empty", "novec")}
+SOURCES["band"] = ("band_stages.cu",)
 DEFAULTS = {"mt": "c2,c4,c8,local,nomac,empty",
             "tile": "t256,wide,nomac,empty",
-            "rrs": "nomac,empty,onestore"}
+            "rrs": "nomac,empty,onestore",
+            "band": "nomac,empty,novec,t64,t256"}
 
 
 def cluster_of(name, default):
@@ -165,6 +182,10 @@ def patches(group, name):
         if group == "mt" and cluster:
             edits.append(("fused_lin.cu", "#define VSM_CLUSTER ",
                           f"#define VSM_CLUSTER {cluster.group(1)} //"))
+        elif group == "band" and threads:
+            edits.append(("band_stages.cu", "#define VSM_BAND_MAX_THREADS ",
+                          f"#define VSM_BAND_MAX_THREADS "
+                          f"{threads.group(1)} //"))
         elif group == "tile" and threads:
             n, blocks = threads.group(1), threads.group(2) or "2"
             for src, define in (("fused_band.cu", "VSM_THREADS"),
@@ -398,6 +419,31 @@ def time_rrs(libs, n_spec):
         print(json.dumps(row), flush=True)
 
 
+def time_band(libs):
+    """One JSON line a variant: every P7 case of probes.band_bisect, its
+    device ms, and the largest relative difference from the plain version
+    where that is finite (the NaN patterns must match)."""
+    from vsmartmom_tpu_torch.ops.band_stages import (band_stages,
+                                                     band_stages_reference)
+    from vsmartmom_tpu_torch.probes import band_bisect, common
+    dev = torch.device("cuda")
+    cases = []
+    for stage, kind, nz in band_bisect.CASES:
+        ins = band_bisect.inputs(kind, dev, nz=nz)
+        cases.append((f"{stage} {kind} nz={nz}", stage, ins,
+                      band_stages_reference(stage, *ins)))
+    for name, lib in libs.items():
+        row = {"variant": name, "ms": {}, "err": 0.0, "nan_match": True}
+        with variant(lib):
+            for label, stage, ins, ref in cases:
+                timed = common.time_ms(lambda: band_stages(stage, *ins), dev)
+                same, err, _ = band_bisect.compare(timed.out, ref)
+                row["ms"][label] = timed.ms
+                row["err"] = max(row["err"], err)
+                row["nan_match"] = row["nan_match"] and same
+        print(json.dumps(row), flush=True)
+
+
 def main():
     if len(sys.argv) < 2 or sys.argv[1] not in SOURCES:
         sys.exit(f"usage: python3 -m tools.variants {{{'|'.join(SOURCES)}}} "
@@ -433,6 +479,8 @@ def main():
                                else "aerosol,thermal").split(","))
     elif group == "rrs":
         time_rrs(libs, n_spec)
+    elif group == "band":
+        time_band(libs)
     else:
         time_tile(libs, n_spec)
 

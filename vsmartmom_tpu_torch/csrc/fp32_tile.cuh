@@ -1,10 +1,10 @@
 // The FP32 register-tiled product phases of the band kernel K1
-// (csrc/fused_band.cu), the per-layer kernels K5 and K4 (csrc/fused_rt.cu)
-// and both launches of the RRS kernel K3 (csrc/fused_rrs.cu: its pair
-// launch through the (2,1)-block phases phase21), the doubling ladder K1,
-// K4 and K5 run on them and the adding step K1 and K4 run. K2
-// (csrc/fused_lin.cu) and the band-stage probe (csrc/band_stages.cu, on
-// csrc/rt_device.cuh) keep their own product code.
+// (csrc/fused_band.cu), the per-layer kernels K5 and K4 (csrc/fused_rt.cu),
+// both launches of the RRS kernel K3 (csrc/fused_rrs.cu: its pair launch
+// through the (2,1)-block phases phase21) and the band-stage probe
+// (csrc/band_stages.cu), the doubling ladder K1, K4, K5 and the probe run
+// on them and the adding step K1, K4 and the probe run. K2
+// (csrc/fused_lin.cu) keeps its own product code.
 //
 // A block keeps its operands in shared memory: N x N matrices at row
 // stride LD (N rounded up to a multiple of 4, so rows are float4-aligned),

@@ -5,11 +5,13 @@ their plain version.
 kernel writes for that stage: tau (nz, 1, S), Em1 (nz, S, N), aux (8, N)
 (row 0 the stream nodes, row 1 their weights) in, (S / 2, 2N, 2N) out, the
 z grid run in order with a carry (see ``STAGES``). CUDA tensors launch the
-hand-written kernel of ``csrc/band_stages.cu`` (counted in
-``band_stages.launches``); CPU tensors run ``band_stages_reference``, which
-calls the port's ladder and adding algebra (``ops/fused_rt.doubling_math``
-and ``interaction_math``, the counterparts of the JAX package's
-``_doubling_math`` and ``_interaction_math``).
+hand-written kernels of ``csrc/band_stages.cu`` (each wrapper call counted
+once in ``band_stages.launches``, full's second launch in
+``_launch_chain.launches``; ``band_plan`` reads the C side's launch plan);
+CPU tensors run ``band_stages_reference``, which calls the port's ladder and
+adding algebra (``ops/fused_rt.doubling_math`` and ``interaction_math``,
+the counterparts of the JAX package's ``_doubling_math`` and
+``_interaction_math``).
 """
 
 import ctypes
@@ -26,8 +28,55 @@ STAGES = ("acc", "elem", "src", "pack", "dbl", "full")
 PACK = 2
 SCHED = (1, 1, 2, 2)
 NS_INTER = 3
-#: Largest packed width 2N the kernel takes (as K5).
+#: Largest packed width 2N the kernel takes (as K5; VSM_BAND_MAX_NP of
+#: csrc/band_stages.cu): the wrapper refuses wider operands before any
+#: build.
 KERNEL_MAX_NP = 64
+
+
+def _load_lib():
+    from .cuda_build import load
+    lib = load("band_stages")
+    lib.vsm_band_stage_f32.argtypes = [ctypes.c_void_p] * 5 + \
+        [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                              ctypes.c_void_p]
+    lib.vsm_band_stage_f32.restype = ctypes.c_int
+    lib.vsm_band_chain_f32.argtypes = [ctypes.c_void_p] * 2 + \
+        [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.vsm_band_chain_f32.restype = ctypes.c_int
+    lib.vsm_band_plan.argtypes = [ctypes.c_int] * 4 + \
+        [ctypes.POINTER(ctypes.c_int)]
+    lib.vsm_band_plan.restype = ctypes.c_int
+    lib.vsm_band_error_string.argtypes = [ctypes.c_int]
+    lib.vsm_band_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def band_plan(stage, nz, S, N):
+    """The launches of one stage at (nz, S, N), as csrc/band_stages.cu makes
+    them (``vsm_band_plan``; builds the kernel): a list of {kernel, grid,
+    threads, smem} (smem the block's shared bytes, static for sum_kernel,
+    dynamic for the others) and ``scratch``, the floats of the per-layer
+    records the packed stages keep in device memory.
+
+    acc, elem, src: one sum_kernel launch, S / 2 blocks (one an output
+    pair). pack, dbl: one layer_kernel launch, S / 2 x nz blocks (one a
+    pair and layer). full: that launch, then chain_kernel, S / 2 blocks
+    that walk the nz adding steps."""
+    lib = _load_lib()
+    info = (ctypes.c_int * 9)()
+    rc = lib.vsm_band_plan(STAGES.index(stage), nz, S, N, info)
+    if rc != 0:
+        raise RuntimeError("band_stages plan query failed: "
+                           + lib.vsm_band_error_string(rc).decode())
+    names = (["sum_kernel"] if STAGES.index(stage) < STAGES.index("pack")
+             else ["layer_kernel", "chain_kernel"])
+    launches = [{"kernel": names[0], "grid": (info[1], info[4]),
+                 "threads": info[2], "smem": info[3]}]
+    if info[0] == 2:
+        launches.append({"kernel": names[1], "grid": (info[5], 1),
+                         "threads": info[6], "smem": info[7]})
+    return {"launches": launches, "scratch": info[8]}
 
 
 def elemental(tau, Em1, aux):
@@ -95,7 +144,8 @@ def band_stages_reference(stage, tau, Em1, aux):
 
 
 def _launch_band(stage, tau, Em1, aux):
-    """Check the operands, then one launch of the band-stage kernel."""
+    """Check the operands, then one call of the band-stage kernels: one
+    launch, and for full ``_launch_chain`` after it."""
     if stage not in STAGES:
         raise ValueError(f"stage {stage!r} not in {STAGES}")
     if Em1.dim() != 3:
@@ -107,26 +157,42 @@ def _launch_band(stage, tau, Em1, aux):
     _check_tensors([("tau", tau, (nz, 1, S)), ("Em1", Em1, (nz, S, N)),
                     ("aux", aux, (8, N))])
     dev = Em1.device
-    from .cuda_build import load
-    lib = load("band_stages")
-    fn = lib.vsm_band_stage_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
-        [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.vsm_band_error_string.argtypes = [ctypes.c_int]
-    lib.vsm_band_error_string.restype = ctypes.c_char_p
+    lib = _load_lib()
     out = torch.empty((S // PACK, PACK * N, PACK * N), dtype=torch.float32,
                       device=dev)
+    scratch = torch.empty((band_plan(stage, nz, S, N)["scratch"],),
+                          dtype=torch.float32, device=dev)
     c_sched = (ctypes.c_int * len(SCHED))(*SCHED)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(tau.data_ptr(), Em1.data_ptr(), aux.data_ptr(),
-                out.data_ptr(), nz, S, N, STAGES.index(stage), len(SCHED),
-                c_sched, NS_INTER, stream)
+        rc = lib.vsm_band_stage_f32(
+            tau.data_ptr(), Em1.data_ptr(), aux.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), nz, S, N, STAGES.index(stage), len(SCHED),
+            c_sched, NS_INTER, stream)
     if rc != 0:
         raise RuntimeError("band_stages launch failed: "
                            + lib.vsm_band_error_string(rc).decode())
+    if stage == "full":
+        _launch_chain(lib, out, scratch, nz, S, N)
     return out
+
+
+def _launch_chain(lib, out, scratch, nz, S, N):
+    """full's second launch (chain_kernel) on the current stream: each
+    pair's nz adding steps from the scratch the layer launch wrote, into
+    out. Counted in ``_launch_chain.launches``."""
+    dev = out.device
+    with torch.cuda.device(dev):
+        rc = lib.vsm_band_chain_f32(
+            out.data_ptr(), scratch.data_ptr(), nz, S, N, NS_INTER,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("band_stages chain launch failed: "
+                           + lib.vsm_band_error_string(rc).decode())
+    _launch_chain.launches += 1
+
+
+_launch_chain.launches = 0
 
 
 def band_stages(stage, tau, Em1, aux):
@@ -134,11 +200,14 @@ def band_stages(stage, tau, Em1, aux):
     Em1 (nz, S, N) and aux (8, N); returns the carry after the last layer,
     (S / 2, 2N, 2N).
 
-    CUDA tensors launch the kernel of ``csrc/band_stages.cu`` (counted in
-    ``band_stages.launches``), which replaces the Pallas kernel of
-    scripts/probe_band_bisect.py:113; latency-bound at the probe's
-    shapes (the layers, and the ladder's products, run one after another).
-    CPU tensors run ``band_stages_reference``.
+    CUDA tensors launch the kernels of ``csrc/band_stages.cu`` (each call
+    counted once in ``band_stages.launches``; full makes two CUDA
+    launches, the second counted in ``_launch_chain.launches``), which
+    replace the Pallas kernel of
+    scripts/probe_band_bisect.py:113: every layer's elemental operators
+    and ladder at once, then, for full, the adding steps as a chain.
+    Latency-bound at the probe's shapes. CPU tensors run
+    ``band_stages_reference``.
     """
     if stage not in STAGES:
         raise ValueError(f"stage {stage!r} not in {STAGES}")

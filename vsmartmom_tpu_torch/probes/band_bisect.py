@@ -9,7 +9,10 @@ operators have row sums above 1: its dbl and full stages overflow to NaN,
 and full does on the bounded inputs too (its T is all ones), in the JAX
 probe as here, so NaN must meet NaN and values are compared where the
 plain version is finite. The full stage is also run on the bounded inputs
-at one layer, where it is finite throughout (``FINITE_CASE``).
+at one layer, where it is finite throughout (``FINITE_CASE``), and on thin
+ones (the bounded inputs with tau in [1e-6, 1e-5]) at the script's NZ,
+where the chain of adding steps stays finite, so that every layer's
+record shows in the output (``CHAIN_CASE``).
 """
 
 import numpy as np
@@ -25,15 +28,19 @@ N, S, NZ = 12, 32, 4
 #: bounded inputs at one layer, where the composite starts at R = 0 (from
 #: the second layer on its all-ones T overflows it).
 FINITE_CASE = ("full", "bounded", 1)
+#: The full stage over NZ layers whose output is finite (and must be): the
+#: thin inputs, on which every stage is finite at every width.
+CHAIN_CASE = ("full", "thin", NZ)
 #: (stage, inputs, layers): every stage on the script's inputs and on the
-#: bounded ones at the script's NZ, then FINITE_CASE.
+#: bounded ones at the script's NZ, then FINITE_CASE and CHAIN_CASE.
 CASES = [(stage, kind, NZ) for kind in ("probe", "bounded")
-         for stage in STAGES] + [FINITE_CASE]
+         for stage in STAGES] + [FINITE_CASE, CHAIN_CASE]
 
 
 def inputs(kind, dev, nz=NZ, s=S, n=N):
-    """The script's inputs (``kind="probe"``, its main()'s draws) or the
-    bounded ones, as f32 tensors (tau, Em1, aux)."""
+    """The script's inputs (``kind="probe"``, its main()'s draws), the
+    bounded ones or the thin ones (``"thin"``: tau in [1e-6, 1e-5]), as f32
+    tensors (tau, Em1, aux)."""
     rng = np.random.default_rng(0)
     if kind == "probe":
         tau = rng.uniform(0.01, 0.5, (nz, 1, s))
@@ -44,7 +51,8 @@ def inputs(kind, dev, nz=NZ, s=S, n=N):
         mu = (x + 1) / 2
         aux = rng.uniform(0.2, 1.0, (8, n))
         aux[0], aux[1] = mu, w / 2
-        tau = rng.uniform(1e-3, 1e-2, (nz, 1, s))
+        lo, hi = (1e-3, 1e-2) if kind == "bounded" else (1e-6, 1e-5)
+        tau = rng.uniform(lo, hi, (nz, 1, s))
         Em1 = np.expm1(-tau[:, 0, :, None] / 16 / mu)
     return [torch.from_numpy(a.astype(np.float32)).to(dev)
             for a in (tau, Em1, aux)]
@@ -98,7 +106,8 @@ def run(device=None):
             "nan_match": nan_match, "err_plain": err,
             "max_abs_err": max_abs,
             "finite_share": float(torch.isfinite(ref).double().mean()),
-            "must_be_finite": (stage, kind, nz) == FINITE_CASE,
+            "must_be_finite": (stage, kind, nz) in (FINITE_CASE,
+                                                    CHAIN_CASE),
             "f64_nan_match": f64_same, "err_f64": err_f64})
     return {"probe": "band_bisect", "device": common.device_name(dev),
             "P7": cases}
