@@ -12,8 +12,10 @@ moment for all layers), the flagship chain of per-layer steps of
 ``scripts/probe_fused2.py`` (the layer-step kernel K4) and the nine Pallas
 probes P1-P9 of ``scripts/`` through their Hopper counterparts
 (``vsmartmom_tpu_torch/probes``: the dot_chain, lane_dot_chain, layout and
-band-stage kernels). Phases, each of which fails the run (non-zero exit) on
-a miss:
+band-stage kernels); and the gas path: the line-by-line absorption build
+of the O2 A-band scene on the card (plain torch, float64) and its
+``rt_run`` (K1) and VMR Jacobian ``rt_run_lin`` (K2 at P = 2). Phases,
+each of which fails the run (non-zero exit) on a miss:
 
 1. setup — the card's name and power limit; every CUDA kernel of the port
    built from ``vsmartmom_tpu_torch/csrc`` (one nvcc per source, in parallel);
@@ -160,7 +162,32 @@ a miss:
    with its 1.01 control); timing: a warm-up on the slice, then one timed
    solve at nSpec 1024 (one, not the best of 2), K1''s time per launch,
    its plain version's and its bound at the least work (the K2 count with
-   the second source column), its plan and barrier count as K2's.
+   the second source column), its plan and barrier count as K2's;
+9. absorption (``absorption_phase``) on ``flagship.aband_model`` (the
+   flagship's column, ocean and IQUV from 12980 cm^-1, O2 from the
+   synthetic A-band line list ``flagship.write_aband_par``; N = 52, 33
+   layers) — the scene built on the card, the device line sum of all 33
+   layers x 4096 points timed alone (``absorption_build_s``, best of 3),
+   tau_abs's max and the share of points with column tau_abs > 1; the line
+   sum on the card against the CPU's for the top, middle and bottom
+   layers (f64, <= 1e-10 of max); K1 against its plain version on the
+   A-band operands of the 1024-point chunk holding the strongest lines
+   (m = 0..m_scat, <= 1e-4 per output, within ``F64_RATIO`` of the f32
+   plain version's distance from f64); ``rt_run`` at nSpec 4096 counted
+   (K1 4 x (m_scat + 1) times, no other kernel), R and T finite, the
+   kernel path against the plain path on every chunk (<= 1e-4), the small
+   A-band scene (``flagship.aband_ref_model``) against the stored JAX CPU
+   f64 reference (``data/aband_ref_f64.npz``, <= 1e-4); the gas Jacobian
+   ``rt_run_lin`` at nSpec 1024 (layout vmr_O2, wind_speed: P = 2) counted
+   (K2 m_scat + 1 times, no other kernel), dR (9, 4, 1024, 2), K2's plan
+   at P = 2, the kernel route against the jvp route on the 64 points
+   around the strongest line (R <= 1e-4, each dR <= 2e-4 of its max),
+   rt_run's R against it (1e-4), the small scene's R and each dR against
+   the stored reference (1e-4, 2e-4); timing: ``aband_pts_per_s`` (best
+   of 3 after a warm-up), ``aband_lin_pts_per_s`` (best of 2), the scene
+   and line-sum seconds, and K2's time a launch at P = 2 against its bound
+   at the least work (1 + 2P primal moments), its plain version's beside
+   it (not in the kernels line, which keeps the flagship shapes).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel. Without CUDA it exits non-zero and prints no result.
@@ -202,6 +229,9 @@ LIN_N_SPEC, LIN_SLICE = 1024, 64
 THERMAL_N_SPEC, THERMAL_SLICE = 1024, 64
 #: Shared memory one block may opt in to on an H100 (bytes).
 SMEM_OPT_IN = 232448
+#: The O2 A-band scene's width, its gas Jacobian scene's and the latter's
+#: checked slice (``flagship.aband_model``).
+ABAND_N_SPEC, ABAND_LIN_N_SPEC, ABAND_SLICE = 4096, 1024, 64
 #: Multisensor scenes: the flagship at nSpec 1024 with an airborne sensor
 #: mid-column, and the JAX package's MS bench scene (scripts/bench_ms.py).
 MS_N_SPEC, MS_LEVELS = 1024, (0, 16, 33)
@@ -1224,6 +1254,267 @@ def thermal_lin_phase(dev, smi):
             "library_ms": None}
 
 
+def aband_slice(tau_abs_col, width, n_spec):
+    """Start of the ``width``-point slice of an ``n_spec``-point band that
+    holds its strongest line: centred on the largest column tau_abs."""
+    return int(np.clip(np.argmax(tau_abs_col) - width // 2, 0,
+                       n_spec - width))
+
+
+def absorption_phase(dev, smi):
+    """The gas path: the device line sum and the O2 A-band scene through K1
+    and, with its VMR Jacobian, K2 at P = 2 (see the module docstring,
+    phase 9)."""
+    from vsmartmom_tpu_torch import default_layout, rt_run, rt_run_lin
+    from vsmartmom_tpu_torch.absorption.cross_section import (
+        HitranModel, absorption_profile, cross_sections)
+    from vsmartmom_tpu_torch.absorption.hitran import read_hitran
+    from vsmartmom_tpu_torch.core.linearization import (build_tangent_inputs,
+                                                        rt_solve_jvp)
+    from vsmartmom_tpu_torch.core.solver import (band_moment_args, rt_solve,
+                                                 spectral_slice)
+    from vsmartmom_tpu_torch.flagship import (aband_model, aband_ref_model,
+                                              write_aband_par)
+    from vsmartmom_tpu_torch.ops import fused_band, fused_lin
+    counted = launch_counted()
+    phase_t0 = time.perf_counter()
+
+    # 1. The line sum on the card: the scene, then its line sum alone.
+    par = write_aband_par()
+    t0 = time.perf_counter()
+    model = aband_model(ABAND_N_SPEC, device=dev, par_path=par)
+    scene_s = time.perf_counter() - t0
+    band, profile = model.bands[0], model.profile
+    ap = model.params.absorption_params
+    hmodel = HitranModel(hitran=read_hitran(
+        par, nu_min=band.nu_grid.min() - ap.wing_cutoff,
+        nu_max=band.nu_grid.max() + ap.wing_cutoff),
+        wing_cutoff=ap.wing_cutoff)
+    build_times = []
+    for _ in range(4):                           # 1 warm-up + best of 3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tau_dev = absorption_profile(hmodel, band.nu_grid, ap.vmr["O2"],
+                                     profile, dev)
+        torch.cuda.synchronize()
+        build_times.append(time.perf_counter() - t0)
+    absorption_s = min(build_times[1:])
+    col = band.tau_abs.sum(axis=1)
+    e_dev = rel(tau_dev.cpu(), torch.as_tensor(band.tau_abs_by_mol["O2"]))
+    print(f"A-band scene: nSpec={ABAND_N_SPEC} nz={profile.nz} "
+          f"{len(hmodel.hitran)} lines; host build {scene_s:.2f} s, device "
+          f"line sum {absorption_s * 1e3:.2f} ms (best of 3 of "
+          f"{[round(t, 4) for t in build_times]} s); tau_abs max "
+          f"{band.tau_abs.max():.4g}, points with column tau_abs > 1: "
+          f"{(col > 1).mean():.4f}; repeat vs build {e_dev:.2e}", flush=True)
+    if not (band.tau_abs.max() > 10.0 and 0.0 < (col > 1).mean() < 1.0
+            and np.isfinite(band.tau_abs).all() and e_dev <= 1e-10):
+        fail(f"A-band line sum: max {band.tau_abs.max()}, repeat {e_dev}")
+
+    # 2. The line sum on the card against the CPU, top, middle and bottom.
+    layers = [0, profile.nz // 2, profile.nz - 1]
+    p_l, t_l = profile.p_full[layers], profile.T[layers]
+    sig_dev = cross_sections(hmodel, band.nu_grid, p_l, t_l, device=dev)
+    sig_cpu = cross_sections(hmodel, band.nu_grid, p_l, t_l, device="cpu")
+    e_cpu = [rel(sig_dev[k].cpu(), sig_cpu[k]) for k in range(len(layers))]
+    print(f"line sum card vs CPU (f64, layers {layers}): "
+          + " ".join(f"{e:.2e}" for e in e_cpu), flush=True)
+    if not all(e <= 1e-10 for e in e_cpu):
+        fail(f"line sum on the card vs the CPU: {e_cpu}")
+
+    # 3. K1 against its plain version on the slice of the strongest lines.
+    inputs, config = model.build_band(0, device=dev)
+    if not config.fused:
+        fail("the A-band f32 model on CUDA did not pick the band kernel")
+    print(f"A-band config: N={config.N} nz={config.nz} ndoubl="
+          f"{config.ndoubl} ns_sched={config.ns_sched} ns_inter="
+          f"{config.ns_inter} m_scat={config.m_scat} m_max={config.m_max}",
+          flush=True)
+    a = aband_slice(col, N_CHUNK, ABAND_N_SPEC) // N_CHUNK * N_CHUNK
+    strong = spectral_slice(inputs, config, a, a + N_CHUNK)
+    names = ("R_mp", "R_pm", "T_pp", "T_mm", "J0_p", "J0_m")
+    for m in range(config.m_scat + 1):
+        args = band_moment_args(*strong, m, dev)
+        out = fused_band.fused_moment(*args[0], **args[1])
+        torch.cuda.synchronize()
+        ref = fused_band.moment_reference(*args[0], **args[1])
+        errs = {n: rel(x, y) for n, x, y in zip(names, out, ref)}
+        e64 = band_f64_errors(*args, out, ref)
+        print(f"K1 vs plain on A-band operands (points {a}-{a + N_CHUNK}, "
+              f"m={m}): " + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
+              + f"; vs f64 plain: kernel {e64[0]:.2e}, f32 plain "
+              f"{e64[1]:.2e}", flush=True)
+        if not all(np.isfinite(e) and e <= GATE for e in errs.values()):
+            fail(f"K1 vs plain on A-band operands at m={m}: {errs}")
+        if not e64[0] <= F64_RATIO * e64[1]:
+            fail(f"K1 on A-band operands at m={m} is {e64[0]} from f64, "
+                 f"over {F64_RATIO}x the f32 plain version's {e64[1]}")
+
+    # 4. rt_run of the A-band scene, counted; kernel vs plain on every chunk.
+    for fn in counted.values():
+        fn.launches = 0
+    R, T = rt_run(model, device=dev, spectral_chunk=N_CHUNK)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    want = {k: 0 for k in counted}
+    want["fused_moment"] = (ABAND_N_SPEC // N_CHUNK) * (config.m_scat + 1)
+    print(f"main path: A-band rt_run nSpec={ABAND_N_SPEC}, launches "
+          f"{launches} (want {want})", flush=True)
+    if launches != want:
+        fail(f"A-band rt_run launches {launches}, want {want}")
+    if R.shape != (9, 4, ABAND_N_SPEC) or not (np.isfinite(R).all()
+                                               and np.isfinite(T).all()):
+        fail(f"A-band R/T not finite or of the wrong shape {R.shape}")
+    e_chunks = []
+    for c in range(0, ABAND_N_SPEC, N_CHUNK):
+        sl = spectral_slice(inputs, config, c, c + N_CHUNK)
+        kern = rt_solve(*sl, dev)
+        plain = rt_solve(sl[0], dataclasses.replace(
+            sl[1], fused=False, m_scat=-1, ns_sched=(), ns_inter=6), dev)
+        e_chunks.append({k: rel(kern[k], plain[k]) for k in ("R", "T")})
+    print("A-band kernel path vs plain path per chunk: " + "; ".join(
+        f"{i}: R={e['R']:.2e} T={e['T']:.2e}"
+        for i, e in enumerate(e_chunks)), flush=True)
+    if not all(e <= GATE for c in e_chunks for e in c.values()):
+        fail(f"A-band kernel path vs plain path: {e_chunks}")
+    ref = np.load(Path(__file__).resolve().parent / "vsmartmom_tpu_torch"
+                  / "data" / "aband_ref_f64.npz")
+    small_model = aband_ref_model(device=dev, par_path=par)
+    R_s, T_s = rt_run(small_model, device=dev)
+    e_ref = {"R": rel(R_s, ref["R"]), "T": rel(T_s, ref["T"])}
+    print("A-band kernel path vs JAX f64 reference (small A-band scene): "
+          + " ".join(f"{k}={e:.2e}" for k, e in e_ref.items()), flush=True)
+    if not all(e <= GATE for e in e_ref.values()):
+        fail(f"A-band port vs stored JAX reference: {e_ref}")
+
+    # 5. The gas Jacobian: rt_run_lin at nSpec 1024, P = 2, counted.
+    t0 = time.perf_counter()
+    lin_model = aband_model(ABAND_LIN_N_SPEC, device=dev, par_path=par)
+    lin_scene_s = time.perf_counter() - t0
+    layout = default_layout(lin_model)
+    lin_inputs, lin_config, tans = build_tangent_inputs(lin_model, 0, layout,
+                                                        device=dev)
+    n_par = len(tans)
+    if layout.names() != ["vmr_O2", "wind_speed"] or not lin_config.fused:
+        fail(f"the gas Jacobian scene: {layout.names()}, fused="
+             f"{lin_config.fused}")
+    print(f"gas Jacobian config: N={lin_config.N} nz={lin_config.nz} "
+          f"ndoubl={lin_config.ndoubl} ns_sched={lin_config.ns_sched} "
+          f"ns_inter={lin_config.ns_inter} m_scat={lin_config.m_scat} "
+          f"params={layout.names()}", flush=True)
+    k2_plan = mt_plan_report(lin_config, n_par)
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    R, T, dR, dT = rt_run_lin(lin_model, layout=layout, device=dev)
+    torch.cuda.synchronize()
+    lin_e2e_s = time.perf_counter() - t0
+    lin_launches = {k: fn.launches for k, fn in counted.items()}
+    want = {k: 0 for k in counted}
+    want["fused_moment_multitangent"] = lin_config.m_scat + 1
+    print(f"main path: A-band rt_run_lin nSpec={ABAND_LIN_N_SPEC}, {n_par} "
+          f"parameters, launches {lin_launches} (want {want}), "
+          f"{lin_e2e_s:.1f} s", flush=True)
+    if lin_launches != want:
+        fail(f"gas Jacobian launches {lin_launches}, want {want}")
+    if dR.shape != (9, 4, ABAND_LIN_N_SPEC, n_par) or not all(
+            np.isfinite(x).all() for x in (R, T, dR, dT)):
+        fail(f"gas rt_run_lin not finite or dR of shape {dR.shape}")
+    lin_col = lin_model.bands[0].tau_abs.sum(axis=1)
+    a = aband_slice(lin_col, ABAND_SLICE, ABAND_LIN_N_SPEC)
+    sl = spectral_slice(lin_inputs, lin_config, a, a + ABAND_SLICE)
+    sl_tans = [spectral_slice(t, lin_config, a, a + ABAND_SLICE)[0]
+               for t in tans]
+    kern = fused_lin.rt_solve_multitangent(sl[0], sl_tans, sl[1], dev)
+    plain = rt_solve_jvp(sl[0], sl_tans,
+                         dataclasses.replace(sl[1], fused=False), dev)
+    e_route = [rel(kern[0], plain[0])] + [rel(kern[2][q], plain[2][q])
+                                          for q in range(n_par)]
+    print(f"gas Jacobian kernel route vs jvp route (points {a}-"
+          f"{a + ABAND_SLICE}, column tau_abs {lin_col[a:a + ABAND_SLICE].min():.3g}"
+          f"-{lin_col[a:a + ABAND_SLICE].max():.3g}): R={e_route[0]:.2e} dR "
+          + " ".join(f"{n}={e:.2e}" for n, e in zip(layout.names(),
+                                                    e_route[1:]))
+          + f"; dT={rel(kern[3], plain[3]):.2e}", flush=True)
+    if not (e_route[0] <= GATE and all(e <= TAN_GATE for e in e_route[1:])):
+        fail(f"gas Jacobian kernel route vs jvp route: {e_route}")
+    del kern, plain
+    R_fwd, _ = rt_run(lin_model, device=dev, spectral_chunk=ABAND_LIN_N_SPEC)
+    e_fwd = rel(R, R_fwd)
+    print(f"rt_run of the gas Jacobian scene: R vs rt_run_lin's R "
+          f"{e_fwd:.2e}", flush=True)
+    if not e_fwd <= GATE:
+        fail(f"rt_run vs rt_run_lin on the gas Jacobian scene: {e_fwd}")
+    small_names = default_layout(small_model).names()
+    small = dict(zip(("R", "T", "dR", "dT"),
+                     rt_run_lin(small_model, device=dev)))
+    e_lref, own, _, ok = lin_ref_gates(small, ref, small_names)
+    print("gas Jacobian kernel path vs JAX f64 reference (small A-band "
+          "scene): " + " ".join(f"{k}={e:.2e}" for k, e in e_lref.items())
+          + "; dR per parameter on its own scale "
+          + " ".join(f"{n}={e:.2e}" for n, e in zip(small_names, own)),
+          flush=True)
+    if not (ok and small_names == ["vmr_O2", "wind_speed"]):
+        fail(f"gas Jacobian port vs stored JAX reference: {e_lref}, per "
+             f"parameter {own}")
+
+    # 6. Timing.
+    chunks = [spectral_slice(inputs, config, c, c + N_CHUNK)
+              for c in range(0, ABAND_N_SPEC, N_CHUNK)]
+    times = []
+    for _ in range(4):                           # 1 warm-up + best of 3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [rt_solve(i, c, dev)["R"] for i, c in chunks]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not all(bool(torch.isfinite(o).all()) for o in outs):
+            fail("non-finite R in the timed A-band solve")
+    lin_times = []
+    for _ in range(3):                           # 1 warm-up + best of 2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = fused_lin.rt_solve_multitangent(lin_inputs, tans, lin_config,
+                                            dev)
+        torch.cuda.synchronize()
+        lin_times.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(o[2]).all()):
+            fail("non-finite dR in the timed gas Jacobian solve")
+    del o
+    args = fused_lin.multitangent_args(lin_inputs, tans, lin_config, 0, dev)
+    k2_ms = cuda_time_ms(lambda: fused_lin._launch_kernel(*args), reps=3)
+    k2_plain_ms = cuda_time_ms(
+        lambda: fused_lin.moment_multitangent_reference(*args), reps=2)
+    out = fused_lin._launch_kernel(*args)
+    primal_flops = moment_flops(lin_config, ABAND_LIN_N_SPEC)
+    k2_flops = (1 + 2 * n_par) * primal_flops
+    k2_bytes = nbytes(*args[0], *args[1], *out[0], *out[1])
+    t_ops, t_bytes = k2_flops / FP32_PEAK_FLOPS * 1e3, \
+        k2_bytes / HBM_BYTES_PER_S * 1e3
+    k2_bound = max(t_ops, t_bytes)
+    print(json.dumps({
+        "card": smi, "aband_pts_per_s": ABAND_N_SPEC / min(times[1:]),
+        "aband_solve_s": min(times[1:]), "aband_solve_all_s": times,
+        "aband_lin_pts_per_s": ABAND_LIN_N_SPEC / min(lin_times[1:]),
+        "aband_lin_solve_s": min(lin_times[1:]),
+        "aband_lin_solve_all_s": lin_times,
+        "rt_run_lin_aband_e2e_s": lin_e2e_s,
+        "absorption_build_s": absorption_s,
+        "absorption_build_all_s": build_times, "scene_build_s": scene_s,
+        "lin_scene_build_s": lin_scene_s, "n_lines": len(hmodel.hitran),
+        "n_spec": ABAND_N_SPEC, "lin_n_spec": ABAND_LIN_N_SPEC,
+        "n_params": n_par, "launches": launches,
+        "lin_launches": lin_launches,
+        "phase_s": time.perf_counter() - phase_t0,
+        "mt_launch_p2": {"n_spec": ABAND_LIN_N_SPEC, "kernel_ms": k2_ms,
+                         "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+                         "bound_by": "operations" if t_ops >= t_bytes
+                         else "bytes", "bound_share": k2_bound / k2_ms,
+                         "flops": k2_flops,
+                         "flops_kernel": k2_plan["work"] * primal_flops,
+                         "bytes": k2_bytes, "plan": k2_plan}}), flush=True)
+
+
 def moment_bytes(args, out):
     """Bytes one launch must move: its operands read once (the plain prep's
     compact row tables) and the composite written once."""
@@ -1774,6 +2065,7 @@ def main():
     k4_entry = layer_chain_phase(dev, smi, inputs, config)
     probe_entries = probes_phase(smi)
     k1p_entry = thermal_lin_phase(dev, smi)
+    absorption_phase(dev, smi)
     print(f"chip_smoke.py: {time.perf_counter() - script_t0:.1f} s, the "
           "kernels' build included", flush=True)
     print(json.dumps({"kernels": [{

@@ -1109,3 +1109,99 @@ def test_probe_wrappers_refuse_before_building(cuda, monkeypatch):
     with pytest.raises(ValueError, match="float32"):
         probe_dots.dot_chain(x[:, :8, :8].double().contiguous(),
                              x[:, :8, :8].contiguous(), "right")
+
+
+# -- the gas path: the device line sum, K1 and K2 on A-band operands ---------
+
+@pytest.fixture(scope="module")
+def aband(cuda, tmp_path_factory):
+    """The O2 A-band scene at nSpec 2048 (12980-13082 cm^-1, the P branch
+    and the band's strongest lines), its line list and its f32 band
+    build on the card, and the start of the 128 points around its largest
+    column tau_abs."""
+    from vsmartmom_tpu_torch.flagship import aband_model, write_aband_par
+    par = write_aband_par(tmp_path_factory.mktemp("aband") / "o2.par")
+    model = aband_model(2048, device=cuda, par_path=par)
+    inputs, config = model.build_band(0, device=cuda)
+    col = model.bands[0].tau_abs.sum(axis=1)
+    start = int(np.clip(np.argmax(col) - 64, 0, 2048 - 128))
+    return model, par, inputs, config, start
+
+
+def test_line_sum_on_the_card_matches_the_cpu(cuda, aband):
+    """The windowed (every layer) and dense (three layers) line sums in
+    f64 on the card against the CPU's: 1e-10 of max (the scatter's atomics
+    reorder the sums)."""
+    from vsmartmom_tpu_torch.absorption.cross_section import (HitranModel,
+                                                              cross_sections)
+    from vsmartmom_tpu_torch.absorption.hitran import read_hitran
+    model, par = aband[:2]
+    prof, nu = model.profile, model.bands[0].nu_grid
+    hm = HitranModel(hitran=read_hitran(par, nu_min=nu.min() - 40.0,
+                                        nu_max=nu.max() + 40.0))
+    card = cross_sections(hm, nu, prof.p_full, prof.T, device=cuda)
+    host = cross_sections(hm, nu, prof.p_full, prof.T, device="cpu")
+    assert card.shape == (prof.nz, 2048) and card.max() > 0
+    assert _rel(card.cpu(), host) <= 1e-10
+    sl = slice(0, 2048, 7)                     # non-uniform: the dense path
+    layers = [0, 16, 32]
+    nu_d = np.concatenate([nu[sl], [nu[-1] + 0.013]])
+    card = cross_sections(hm, nu_d, prof.p_full[layers], prof.T[layers],
+                          device=cuda)
+    host = cross_sections(hm, nu_d, prof.p_full[layers], prof.T[layers],
+                          device="cpu")
+    assert _rel(card.cpu(), host) <= 1e-10
+
+
+def test_kernel_matches_plain_version_on_aband_operands(cuda, aband):
+    """K1 on the 128 points around the strongest line (saturated cores,
+    layer tau up to tens: the elemental transmission's overflow-free
+    split) against its plain version: 1e-4 per output at every scattering
+    moment, all finite, and within 2x of the f32 plain version's distance
+    from f64."""
+    from vsmartmom_tpu_torch.core.solver import (band_moment_args,
+                                                 spectral_slice)
+    from vsmartmom_tpu_torch.ops.fused_band import (fused_moment,
+                                                    moment_reference)
+    _, _, inputs, config, start = aband
+    assert config.fused and config.N == 52
+    sl = spectral_slice(inputs, config, start, start + 128)
+    assert float(sl[0].tau.max()) > 10.0
+    for m in range(config.m_scat + 1):
+        args, kw = band_moment_args(*sl, m, cuda)
+        out = fused_moment(*args, **kw)
+        torch.cuda.synchronize()
+        ref = moment_reference(*args, **kw)
+        for a, b in zip(out, ref):
+            assert torch.isfinite(a).all() and _rel(a, b) <= GATE
+        kernel, plain = _band_f64_errors(args, kw, out, ref)
+        assert kernel <= 2.0 * plain, (m, kernel, plain)
+
+
+def test_mt_kernel_at_p2_matches_jvp_route_on_aband(cuda, aband):
+    """K2 at P = 2 (the gas Jacobian's vmr_O2 and wind_speed) on the 64
+    points around the strongest line against the jvp route: R 1e-4, each
+    parameter's dR 2e-4 of its max; m_scat + 1 launches."""
+    from vsmartmom_tpu_torch import default_layout
+    from vsmartmom_tpu_torch.core.linearization import (build_tangent_inputs,
+                                                        rt_solve_jvp)
+    from vsmartmom_tpu_torch.core.solver import spectral_slice
+    from vsmartmom_tpu_torch.ops import fused_lin
+    model, _, _, _, start = aband
+    layout = default_layout(model)
+    assert layout.names() == ["vmr_O2", "wind_speed"]
+    inputs, config, tans = build_tangent_inputs(model, 0, layout,
+                                                device=cuda)
+    a = start + 32
+    sl = spectral_slice(inputs, config, a, a + 64)
+    sl_tans = [spectral_slice(t, config, a, a + 64)[0] for t in tans]
+    before = fused_lin.fused_moment_multitangent.launches
+    kern = fused_lin.rt_solve_multitangent(sl[0], sl_tans, sl[1], cuda)
+    assert fused_lin.fused_moment_multitangent.launches - before == \
+        config.m_scat + 1
+    plain = rt_solve_jvp(sl[0], sl_tans,
+                         dataclasses.replace(sl[1], fused=False), cuda)
+    assert _rel(kern[0], plain[0]) <= GATE
+    for q in range(2):
+        assert torch.isfinite(kern[2][q]).all()
+        assert _rel(kern[2][q], plain[2][q]) <= 2e-4, q

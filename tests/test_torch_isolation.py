@@ -1,8 +1,12 @@
-"""Boundaries of the port: it imports neither JAX nor the JAX package, its
+"""Boundaries of the port: it imports neither JAX nor the JAX package, names
+no path inside the JAX package, its absorption modules import no h5py, its
 entry points never fall back to the CPU quietly, and its CUDA wrapper
 refuses what the kernel does not take before anything is built."""
 
 import ast
+import re
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -26,12 +30,91 @@ def _imported_roots(path):
 
 
 def test_no_jax_or_reference_imports():
-    files = sorted((ROOT / "vsmartmom_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files = _port_files()
     assert len(files) > 15
     bad = [(f.relative_to(ROOT).as_posix(), mod) for f in files
            for mod in _imported_roots(f) if mod in FORBIDDEN]
     assert not bad, bad
+
+
+#: A "file:line" citation of a TPU kernel (chip_smoke.py's ``replaces``):
+#: it names the kernel it stands for and opens no file.
+CITATION = re.compile(r"^vsmartmom_tpu/[\w/]+\.py:\d+$")
+
+
+def _port_files():
+    files = sorted((ROOT / "vsmartmom_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    return files
+
+
+def _jax_package_paths(path):
+    """(line, literal) of each string literal of ``path`` that names a path
+    inside the JAX package: a "vsmartmom_tpu" path part (a string or an
+    f-string piece, split at / and \\), docstrings and kernel citations
+    aside."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docstrings = {id(node.body[0].value) for node in ast.walk(tree)
+                  if isinstance(node, (ast.Module, ast.ClassDef,
+                                       ast.FunctionDef, ast.AsyncFunctionDef))
+                  and node.body and isinstance(node.body[0], ast.Expr)
+                  and isinstance(node.body[0].value, ast.Constant)}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docstrings
+                and "vsmartmom_tpu" in re.split(r"[/\\]", node.value)
+                and not CITATION.match(node.value)):
+            yield node.lineno, node.value
+
+
+def test_no_path_inside_the_jax_package():
+    """No module of the port nor chip_smoke.py names a file or directory of
+    the JAX package: the port reads its own copies (e.g. the HITRAN
+    tables, ``data/hitran_tables.npz``)."""
+    bad = [(f.relative_to(ROOT).as_posix(), line, lit)
+           for f in _port_files() for line, lit in _jax_package_paths(f)]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("literal,flagged", [
+    ("vsmartmom_tpu", 2), ("vsmartmom_tpu/absorption/data", 2),
+    ("../vsmartmom_tpu/core", 2), ("vsmartmom_tpu\\data", 2),
+    ("vsmartmom_tpu_torch", 0), ("vsmartmom_tpu_torch/data", 0),
+    ("vsmartmom_tpu/ops/fused_band.py:469", 1)])
+def test_the_path_check_finds_jax_package_paths(tmp_path, literal, flagged):
+    """The check above flags a JAX-package path in a string and in an
+    f-string piece that builds a path from it, and passes the port's own
+    paths, docstrings and a bare kernel citation."""
+    src = tmp_path / "mod.py"
+    src.write_text(f'"""{literal}"""\nP = {literal!r}\n'
+                   f'Q = f"{{P}}/{literal}/x"\n')
+    assert len(list(_jax_package_paths(src))) == flagged
+
+
+ABSORPTION_MODULES = ("hitran", "voigt", "cross_section", "continuum",
+                      "artifacts")
+
+
+@pytest.fixture(scope="module")
+def absorption_imports():
+    """The modules that importing every ``vsmartmom_tpu_torch.absorption``
+    module loads, in a fresh interpreter: {module: [h5py / jax loaded]}."""
+    code = ("import sys, json\nout = {}\n"
+            "for m in %r:\n"
+            "    __import__('vsmartmom_tpu_torch.absorption.' + m)\n"
+            "    out[m] = [k for k in ('h5py', 'jax', 'jaxlib', "
+            "'vsmartmom_tpu') if k in sys.modules]\n"
+            "print(json.dumps(out))\n" % (ABSORPTION_MODULES,))
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    import json
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", ABSORPTION_MODULES)
+def test_absorption_modules_import_no_h5py_or_jax(absorption_imports,
+                                                  module):
+    assert absorption_imports[module] == []
 
 
 def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):

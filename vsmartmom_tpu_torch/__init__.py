@@ -10,6 +10,8 @@ path also ``csrc/fused_rrs.cu``, the Jacobian path ``csrc/fused_lin.cu``
 (for solar and, after ``add_thermal_emission``, solar + Planck sources) and
 the multisensor path the per-layer doubling kernel of ``csrc/fused_rt.cu``,
 each built by ``nvcc`` at first use into ``vsmartmom_tpu_torch/_build/``.
+Gas absorption (``absorption/``) sums HITRAN lines in float64 on the
+device (plain torch) when a model is built.
 
 Entry points (``rt_run``, ``rt_run_full``, ``rt_run_streams``, ``rt_solve``,
 ``rt_run_inelastic``, ``rt_run_lin``, ``rt_run_ms``) run on CUDA unless the
@@ -22,11 +24,12 @@ from .core.linearization import ParameterLayout, default_layout, rt_run_lin
 from .core.model import Parameters, SurfaceDescriptor, model_from_parameters
 from .core.multisensor import rt_run_ms
 from .core.solver import rt_run, rt_run_full, rt_run_streams, rt_solve
-from .flagship import flagship_model, rrs_sif_model, thermal_lin_model
+from .flagship import (aband_model, flagship_model, rrs_sif_model,
+                       thermal_lin_model)
 from .solar import add_thermal_emission
 
 __all__ = ["Parameters", "SurfaceDescriptor", "model_from_parameters",
            "rt_run", "rt_run_full", "rt_run_streams", "rt_solve",
            "rt_run_inelastic", "rt_run_lin", "rt_run_ms", "default_layout",
            "ParameterLayout", "flagship_model", "rrs_sif_model",
-           "thermal_lin_model", "add_thermal_emission"]
+           "thermal_lin_model", "aband_model", "add_thermal_emission"]

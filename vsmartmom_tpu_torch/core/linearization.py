@@ -1,5 +1,5 @@
-"""Linearized RT: Jacobians dR/dx, dT/dx with respect to aerosol and surface
-parameters.
+"""Linearized RT: Jacobians dR/dx, dT/dx with respect to aerosol, gas and
+surface parameters.
 
 Counterpart of ``vsmartmom_tpu/core/linearization.py``. The solver is
 differentiated in forward mode and chained with host-side tangents of the
@@ -12,6 +12,8 @@ model build:
   of the NAI-2 -> delta-BGE -> delta-M pipeline (``scattering/mie_lin.py``;
   ``_aerosol_tangents(..., mie_method="fd")`` keeps central differences of
   the host build, which the tests hold the exact route against);
+* a gas's VMR scale (vmr -> vmr (1 + x)): tau_abs_by_mol[gas], a pure
+  tau tangent;
 * Cox-Munk wind speed: the analytic sigma^2-chain tangent of the surface
   operators and of the TMS correction.
 
@@ -23,8 +25,7 @@ is the Jacobian baseline. A scene too wide for K2 whose strategy was left
 automatic (``Parameters.fused`` None) takes the plain path with a warning.
 
 The band is built once per call and its inputs are handed to every tangent
-build; nothing is cached on the model. Gas absorption and its VMR
-tangent are not ported yet.
+build; nothing is cached on the model.
 
 Parameter layout mirrors the reference ParameterLayout
 (CoreRT/parameter_layout.jl:20-66): 7 per aerosol [tau_ref, n_r, n_i,
@@ -75,8 +76,8 @@ class ParameterLayout:
 
 
 def default_layout(model, i_band: int = 0) -> ParameterLayout:
-    """Every aerosol's 7 parameters and the surface's (no gases: gas
-    absorption is not ported yet)."""
+    """Every aerosol's 7 parameters, each line-list gas's VMR scale and the
+    surface's."""
     band = model.bands[i_band]
     kind = band.surface.kind
     if kind == "CoxMunkSurface":
@@ -85,7 +86,8 @@ def default_layout(model, i_band: int = 0) -> ParameterLayout:
         surf = ("albedo",)
     else:
         surf = ()
-    return ParameterLayout(n_aer=len(band.aerosols), gas_names=(),
+    return ParameterLayout(n_aer=len(band.aerosols),
+                           gas_names=tuple(band.tau_abs_by_mol),
                            surface_params=surf)
 
 
@@ -228,9 +230,10 @@ def build_tangent_inputs(model, i_band, layout: ParameterLayout, fd_rel=1e-3,
             tangents.append(_component_tangent_inputs(
                 model, i_band, inputs, i, per_aer[pname], tables))
 
-    if layout.gas_names:
-        raise NotImplementedError("gas absorption and its VMR tangent are "
-                                  "not ported yet (ROADMAP.md)")
+    for gas in layout.gas_names:
+        # parameter = multiplicative scale on the VMR profile: d tau = tau_mol
+        tangents.append(zero._replace(
+            tau=_like(band.tau_abs_by_mol[gas].T, inputs.tau)))
 
     for sp in layout.surface_params:
         if sp == "albedo":

@@ -10,8 +10,11 @@ generalized spherical functions behind the Z moments are computed once per
 build for every moment and component (``zmatrix.legendre_tables``), not
 once per moment as in the JAX package: the numbers are the same.
 
-Gas absorption, the Radau quadrature and the other surfaces raise
-``NotImplementedError``; they are queued in ROADMAP.md.
+Gas absorption (``AbsorptionParams``) builds each band's tau_abs from
+HITRAN line lists, look-up tables, CIA and MT_CKD files as the JAX package
+does; the line sum runs on a torch device (``absorption/cross_section.py``)
+and its result comes back to the host. The Radau quadrature and the other
+surfaces raise ``NotImplementedError``; they are queued in ROADMAP.md.
 """
 
 from dataclasses import dataclass, field
@@ -53,7 +56,7 @@ class Parameters:
     depol: float = -1.0                 # < 0 -> auto from N2/O2 constants
     float_type: Any = np.float64
     truncation: str = "NoTruncation"    # or "deltaBGE" (aerosol phase)
-    absorption_params: Optional[Any] = None   # not ported yet: must be None
+    absorption_params: Optional["AbsorptionParams"] = None
     scattering_params: Optional["ScatteringParams"] = None
     dtau_max_threshold: float = 1e-3
     include_solar: bool = True          # zero F0 for thermal-only runs
@@ -106,6 +109,23 @@ class RTAerosol:
 
 
 @dataclass
+class AbsorptionParams:
+    """Reference AbsorptionParameters (types.jl:659-680). Line data sources
+    are explicit paths: ``par_paths[molecule] = /path/to/lines.par``, a
+    file registered with ``absorption.artifacts.register_par``, or
+    ``luts[band][molecule]`` InterpolationModel objects."""
+    molecules: list                     # per-band molecule-name lists
+    vmr: dict                           # species -> scalar or (Nz,) profile
+    broadening: str = "Voigt"
+    cef: str = "HumlicekWeidemann32SDErrorFunction"
+    wing_cutoff: float = 40.0
+    par_paths: dict = field(default_factory=dict)
+    luts: list = field(default_factory=list)
+    cia_files: list = field(default_factory=list)   # HITRAN .cia paths
+    mtckd_file: str = ""                            # AER absco-ref .nc path
+
+
+@dataclass
 class ScatteringParams:
     """Reference ScatteringParameters (types.jl:687-700)."""
     rt_aerosols: list
@@ -147,6 +167,8 @@ class BandData:
     thermal_b: Optional[np.ndarray] = None
     # optional surface SIF emission (nSpec,), isotropic, m = 0 only
     sif_spec: Optional[np.ndarray] = None
+    # per-molecule absorption components (nSpec, Nz), for gas-VMR Jacobians
+    tau_abs_by_mol: dict = field(default_factory=dict)
 
     @property
     def n_spec(self) -> int:
@@ -439,22 +461,100 @@ def build_one_aerosol(params: Parameters, profile: AtmosphericProfile,
                                f_trunc=float(ft), ssa_raw=float(w))
 
 
-def model_from_parameters(params: Parameters) -> RTModel:
+def _build_band_absorption(params: Parameters, profile: AtmosphericProfile,
+                           nu: np.ndarray, i_band: int, device=None):
+    """Gas absorption tau per (wavenumber, layer) for one band
+    (model_from_parameters.jl:305-366): (tau_abs (nSpec, Nz), the
+    per-molecule components for VMR Jacobians). A molecule's line sum runs
+    on ``device``, resolved (``types.resolve_device``: CUDA unless given)
+    only for a molecule read from a line list; look-up tables, CIA and
+    MT_CKD run on the host."""
+    ap = params.absorption_params
+    nz = profile.nz
+    tau_abs = np.zeros((len(nu), nz))
+    by_mol = {}
+    if ap is None or not ap.molecules:
+        return tau_abs, by_mol
+    from ..absorption.cross_section import (HitranModel,
+                                            compute_absorption_profile)
+    from ..absorption.hitran import read_hitran
+
+    molecules = ap.molecules[i_band] if i_band < len(ap.molecules) else []
+    for mol_name in molecules:
+        if mol_name not in ap.vmr:
+            raise ValueError(f"molecule {mol_name} listed but no vmr given")
+        luts = ap.luts[i_band] if i_band < len(ap.luts) else {}
+        if mol_name in luts:
+            lut = luts[mol_name]
+            vmr = np.atleast_1d(ap.vmr[mol_name])
+            tau_mol = np.zeros((len(nu), nz))
+            for iz in range(nz):
+                tau_mol[:, iz] = (lut.interpolate(nu, profile.p_full[iz],
+                                                  profile.T[iz])
+                                  * profile.vcd_dry[iz]
+                                  * vmr[min(iz, vmr.size - 1)])
+            by_mol[mol_name] = tau_mol
+            tau_abs += tau_mol
+            continue
+        if mol_name not in ap.par_paths:
+            # The registry of local line files (the reference downloads
+            # hitran.org artifacts here).
+            from ..absorption.artifacts import artifact, hitran_is_cached
+            if hitran_is_cached(mol_name):
+                ap.par_paths[mol_name] = artifact(mol_name)
+            else:
+                import warnings
+                warnings.warn(
+                    f"No HITRAN line data for {mol_name} "
+                    f"(band {i_band}): tau_abs contribution skipped. "
+                    f"Provide absorption_params.par_paths['{mol_name}'], "
+                    f"register_par('{mol_name}', path), or a LUT.",
+                    stacklevel=3)
+                continue
+        dev = resolve_device(device)
+        table = read_hitran(ap.par_paths[mol_name],
+                            nu_min=nu.min() - ap.wing_cutoff,
+                            nu_max=nu.max() + ap.wing_cutoff)
+        model = HitranModel(hitran=table, broadening=ap.broadening,
+                            wing_cutoff=ap.wing_cutoff, cef=ap.cef, vmr=0.0)
+        tau_mol = compute_absorption_profile(model, nu, ap.vmr[mol_name],
+                                             profile, dev)
+        by_mol[mol_name] = tau_mol
+        tau_abs += tau_mol
+
+    # Collision-induced absorption and the MT_CKD H2O continuum
+    # (model_from_parameters.jl:347-366); continua are not per-molecule
+    # Jacobian components in the reference either.
+    if ap.cia_files:
+        from ..absorption.continuum import compute_tau_cia, load_cia_table
+        for cia_path in ap.cia_files:
+            tau_abs += compute_tau_cia(load_cia_table(cia_path, nu), profile,
+                                       ap.vmr)
+    if ap.mtckd_file:
+        from ..absorption.continuum import (compute_tau_h2o_continuum,
+                                            load_mtckd)
+        tau_abs += compute_tau_h2o_continuum(load_mtckd(ap.mtckd_file), nu,
+                                             profile, profile.vmr_h2o)
+    return tau_abs, by_mol
+
+
+def model_from_parameters(params: Parameters, device=None) -> RTModel:
+    """The host build of every band. A band with gas lines
+    (``params.absorption_params``) sums them on ``device``: CUDA unless
+    given, and without CUDA and without a device that build raises. A
+    scene without line lists builds on the host alone."""
     if params.quadrature != "GaussLegQuad":
         raise NotImplementedError(
             f"quadrature {params.quadrature} is not ported yet")
-    if params.absorption_params is not None:
-        raise NotImplementedError("gas absorption is not ported yet")
     pol = params.polarization
     quad = rt_set_streams(params.nstreams, params.sza, params.vza, pol.n)
 
     profile = compute_atmos_profile_fields(params.T, params.p, params.q)
     if params.profile_reduction != -1:
         profile = reduce_profile(params.profile_reduction, profile)
-    nz = profile.nz
 
     bands = []
-    for nu in params.spec_bands:
+    for i_band, nu in enumerate(params.spec_bands):
         nu = np.asarray(nu, dtype=np.float64)
         lam_um = 1e4 / nu
         # Depolarization sourcing rule (model_from_parameters.jl:249-297):
@@ -468,16 +568,19 @@ def model_from_parameters(params: Parameters) -> RTModel:
             depol_ray = depol_cab = float(params.depol)
         tau_rayl = rayleigh_layer_tau(profile.p_half[-1], lam_um, depol_ray,
                                       profile.vcd_dry)        # (nSpec, Nz)
+        tau_abs, tau_abs_by_mol = _build_band_absorption(
+            params, profile, nu, i_band, device)
         surface = params.surfaces[min(len(bands), len(params.surfaces) - 1)]
         scat = params.scattering_params
         aerosols = [build_one_aerosol(params, profile, aer,
                                       band_lambda_um(nu))
                     for aer in (scat.rt_aerosols if scat else [])]
         bands.append(BandData(nu_grid=nu, tau_rayl=tau_rayl,
-                              tau_abs=np.zeros((len(nu), nz)),
+                              tau_abs=tau_abs,
                               greek_rayleigh=greek_rayleigh(depol_ray),
                               aerosols=aerosols,
                               depol_rayleigh=depol_ray,
                               depol_cabannes=depol_cab,
-                              pi_cabannes=pi_cab, surface=surface))
+                              pi_cabannes=pi_cab, surface=surface,
+                              tau_abs_by_mol=tau_abs_by_mol))
     return RTModel(params=params, quad=quad, profile=profile, bands=bands)

@@ -170,9 +170,11 @@ __global__ void __launch_bounds__(VSM_THREADS, 2) moment_kernel(const Args a) {
       const int idx = i * LD + j;
       r[idx] = (starred ? sd[i] : 1.0f) * wmp * RG[e] * one_m_EE;
       // t_off ratio expm1(dt (mu_i - mu_j)/(mu_i mu_j)) with the 1/delta,
-      // weight and same-mu masks folded into TO/TS.
+      // weight and same-mu masks folded into TO/TS. Ej expm1(x) is
+      // Em1_i - Em1_j above |x| = 0.3 (no overflow in thick layers).
       const float x = dt * GA[e];
-      t[idx] = wpp * (expm1f(x) * Ej * TO[e] + (dt * TS[e]) * Ej) +
+      const float num = fabsf(x) < 0.3f ? expm1f(x) * Ej : em_i - em_j;
+      t[idx] = wpp * (num * TO[e] + (dt * TS[e]) * Ej) +
                (i == j ? Ei : 0.0f);
     }
     __syncthreads();

@@ -745,12 +745,18 @@ __global__ void __launch_bounds__(VSM_THREADS, 1) mt_kernel(const Args a) {
       const float rg = sd[i] * RG[e];
       r[idx] = sd[i] * wmp * RG[e] * one_m_EE;
       dr[idx] = rg * (dwmp * one_m_EE + wmp * d_one_m_EE);
+      // Ej expm1(xg) and its tangent; above |xg| = 0.3 the identity
+      // Ej expm1(xg) = Em1_i - Em1_j (K1's split: no overflow in thick
+      // layers).
       const float xg = dtz * GA[e];
       const float ex = expm1f(xg);
       const float to = TO[e], ts = TS[e];
-      const float g = ex * Ej * to + (dtz * ts) * Ej;
-      const float dg = (1.0f + ex) * GA[e] * ddtz * Ej * to + ex * dem_j * to +
-                       ddtz * ts * Ej + dtz * ts * dem_j;
+      const bool small = fabsf(xg) < 0.3f;
+      const float g = (small ? ex * Ej : em_i - em_j) * to + (dtz * ts) * Ej;
+      const float dg =
+          (small ? (1.0f + ex) * GA[e] * ddtz * Ej * to + ex * dem_j * to
+                 : (dem_i - dem_j) * to) +
+          ddtz * ts * Ej + dtz * ts * dem_j;
       t[idx] = wpp * g + (i == j ? Ei : 0.0f);
       dt[idx] = dwpp * g + wpp * dg + (i == j ? dem_i : 0.0f);
     }

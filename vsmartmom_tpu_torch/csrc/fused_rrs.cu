@@ -243,8 +243,10 @@ __global__ void __launch_bounds__(VSM_RRS_THREADS, 2)
         const float one_m_EE = -(em_i + em_j + em_i * em_j);
         const int idx = i * LD + j;
         r[idx] = (starred ? sd[i] : 1.0f) * wmp * RG[e] * one_m_EE;
+        // Ej expm1(gx) is Em1_i - Em1_j above |gx| = 0.3 (K1's split).
         const float gx = dt * GA[e];
-        t[idx] = wpp * (expm1f(gx) * Ej * TO[e] + (dt * TS[e]) * Ej) +
+        const float num = fabsf(gx) < 0.3f ? expm1f(gx) * Ej : em_i - em_j;
+        t[idx] = wpp * (num * TO[e] + (dt * TS[e]) * Ej) +
                  (i == j ? Ei : 0.0f);
       }
       const float ek = a.src_ek[zs];

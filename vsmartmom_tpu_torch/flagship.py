@@ -14,12 +14,21 @@
 * The small RRS scene of the stored JAX reference ``data/rrs_ref_f64.npz``
   and the small aerosol Jacobian scene of ``data/lin_ref_f64.npz``, which
   the CPU tests and the chip smoke test both build from here.
+* The O2 A-band scene ``aband_model``: the flagship moved to 12980 cm^-1
+  with O2 line absorption from a synthetic line list
+  (``write_aband_par``), and its small twin ``aband_ref_model`` of the
+  stored JAX reference ``data/aband_ref_f64.npz``.
 """
+
+import os
+import tempfile
+from pathlib import Path
 
 import numpy as np
 
-from .core.model import (Parameters, RTAerosol, ScatteringParams,
-                         SurfaceDescriptor, model_from_parameters)
+from .core.model import (AbsorptionParams, Parameters, RTAerosol,
+                         ScatteringParams, SurfaceDescriptor,
+                         model_from_parameters)
 from .scattering.stokes import STOKES_IQU, STOKES_IQUV
 from .solar import add_thermal_emission
 
@@ -219,3 +228,171 @@ def lin_thermal_model(dtype=np.float32):
     model.bands[0].thermal_b = lin_thermal_b(model.profile.nz,
                                              model.bands[0].n_spec)
     return model
+
+
+# ---------------------------------------------------------------------------
+# The O2 A-band scene
+# ---------------------------------------------------------------------------
+
+#: First wavenumber of the A-band scene [cm^-1]; at 0.05 cm^-1 steps its
+#: 4096 points span 12980-13184.75 cm^-1 (the P and R branches of 16O2).
+ABAND_NU0 = 12980.0
+#: O2 volume mixing ratio of the A-band scenes, and the seed of their
+#: synthetic line list.
+ABAND_VMR_O2, ABAND_SEED = 0.2095, 12
+#: Band origin [cm^-1], lower- and upper-state rotational constants [cm^-1]
+#: and relative abundance of the synthetic list's three O2 isotopologues
+#: (HITRAN iso 1 16O2, 2 16O18O, 3 16O17O).
+ABAND_ISOS = {1: (13122.0, 1.438, 1.391, 1.0),
+              2: (13118.0, 1.357, 1.313, 4.0e-3),
+              3: (13120.0, 1.395, 1.350, 7.4e-4)}
+#: Strength [cm/molecule] of the strongest 16O2 line, the number of weak
+#: background lines and their strength range.
+ABAND_S_MAX, ABAND_N_WEAK, ABAND_S_WEAK = 1e-23, 636, (1e-28, 1e-26)
+
+
+def aband_lines(seed=ABAND_SEED) -> dict:
+    """A SYNTHETIC O2 A-band line list, drawn from ``seed`` with numpy: the
+    columns of a ``HitranTable`` (molecule 7).
+
+    No HITRAN O2 line list is in the repository, so the A-band scenes run
+    on this one; a real HITRAN list replaces it once one is in the
+    repository. The lines are the P and R branches of a rigid rotor: for
+    each isotopologue of ``ABAND_ISOS``, nu = nu0 + B' J'(J' + 1) -
+    B'' J''(J'' + 1) with J' = J'' -+ 1, E'' = B'' J''(J'' + 1), strengths
+    on a 296 K Boltzmann envelope (2 J'' + 1) exp(-c2 E'' / 296) scaled so
+    that the strongest 16O2 line is ``ABAND_S_MAX`` and the others by their
+    abundance: 16O2 with odd J'' <= 61 in two spin components 1.9 cm^-1
+    apart, the minor isotopologues with every J'' <= 60; plus
+    ``ABAND_N_WEAK`` weak 16O2 lines spread over 12940-13225 cm^-1. Line
+    cores saturate (column tau >> 1) while the points between the branches
+    stay near the Rayleigh optical depth. gamma_air 0.04-0.05, n_air ~0.7,
+    delta_air ~-0.008."""
+    rng = np.random.default_rng(seed)
+    c2 = 1.4387769
+    cols = {k: [] for k in ("iso", "nu", "sw", "e_lower")}
+    for iso, (nu0, b_lo, b_up, abund) in ABAND_ISOS.items():
+        J = np.arange(1, 62, 2) if iso == 1 else np.arange(1, 61)
+        e_low = b_lo * J * (J + 1)
+        envelope = (2 * J + 1) * np.exp(-c2 * e_low / 296.0)
+        envelope = abund * envelope / envelope.max()
+        for Jp in (J - 1, J + 1):                       # P and R branches
+            nu = nu0 + b_up * Jp * (Jp + 1) - e_low
+            for shift in ((0.0, 1.9) if iso == 1 else (0.0,)):
+                cols["iso"].append(np.full(J.size, iso))
+                cols["nu"].append(nu + shift)
+                cols["sw"].append(envelope)
+                cols["e_lower"].append(e_low)
+    cols = {k: np.concatenate(v) for k, v in cols.items()}
+    cols["sw"] = ABAND_S_MAX * cols["sw"]
+    n = cols["nu"].size + ABAND_N_WEAK
+    cols["iso"] = np.concatenate([cols["iso"], np.ones(ABAND_N_WEAK, int)])
+    cols["nu"] = np.concatenate([cols["nu"],
+                                 rng.uniform(12940.0, 13225.0, ABAND_N_WEAK)])
+    cols["sw"] = np.concatenate([cols["sw"], 10 ** rng.uniform(
+        *np.log10(ABAND_S_WEAK), ABAND_N_WEAK)])
+    cols["e_lower"] = np.concatenate([cols["e_lower"],
+                                      rng.uniform(0.0, 1500.0, ABAND_N_WEAK)])
+    order = np.argsort(cols["nu"], kind="stable")
+    out = {k: v[order] for k, v in cols.items()}
+    out["mol"] = np.full(n, 7)
+    out["gamma_air"] = rng.uniform(0.04, 0.05, n)
+    out["gamma_self"] = out["gamma_air"] + 0.002
+    out["n_air"] = 0.7 + rng.uniform(-0.03, 0.03, n)
+    out["delta_air"] = -0.008 + rng.uniform(-0.001, 0.001, n)
+    return out
+
+
+def write_aband_par(path=None, seed=ABAND_SEED) -> str:
+    """Write ``aband_lines(seed)`` as a HITRAN .par file of 160-character
+    records to ``path`` (default ``aband_synthetic_<seed>.par`` in the
+    temporary directory), replaced atomically, and return the path."""
+    path = Path(path) if path is not None else \
+        Path(tempfile.gettempdir()) / f"aband_synthetic_{seed}.par"
+    lines = aband_lines(seed)
+    fd, tmp = tempfile.mkstemp(dir=path.parent, suffix=".par")
+    with os.fdopen(fd, "w") as f:
+        for k in range(len(lines["nu"])):
+            # the fields a HitranTable reads; Einstein A 1e-9, the rest blank
+            rec = (f"{int(lines['mol'][k]):2d}{int(lines['iso'][k]):1d}"
+                   f"{lines['nu'][k]:12.6f}{lines['sw'][k]:10.3E}{1e-9:10.3E}"
+                   f"{lines['gamma_air'][k]:5.3f}"
+                   f"{lines['gamma_self'][k]:5.3f}"
+                   f"{lines['e_lower'][k]:10.4f}{lines['n_air'][k]:4.2f}"
+                   f"{lines['delta_air'][k]:8.5f}")
+            f.write(rec.ljust(160) + "\n")
+    os.replace(tmp, path)
+    return str(path)
+
+
+def aband_absorption(par_path) -> dict:
+    """``AbsorptionParams`` keywords of the A-band scenes: O2 at
+    ``ABAND_VMR_O2`` from the line list at ``par_path`` (Voigt, the
+    Humlicek/Weideman CEF, 40 cm^-1 wings; plain data, so the JAX
+    package's ``AbsorptionParams`` takes them too)."""
+    return dict(molecules=[["O2"]], vmr={"O2": ABAND_VMR_O2},
+                par_paths={"O2": str(par_path)})
+
+
+def aband_params(n_spec=4096, dtype=np.float32, nstreams=8, nz=None,
+                 fused=None):
+    """``Parameters`` keywords of the A-band scene, less ``surfaces``,
+    ``polarization`` and ``absorption_params``: the flagship's
+    (``flagship_params``) from ``ABAND_NU0``."""
+    return flagship_params(n_spec, dtype, nstreams, nz, fused,
+                           nu0=ABAND_NU0)
+
+
+def aband_model(n_spec=4096, dtype=np.float32, nstreams=8, nz=None,
+                fused=None, device=None, par_path=None):
+    """RTModel of the O2 A-band scene: the flagship's column (33 layers),
+    Cox-Munk ocean (wind 5), IQUV and nstreams 8 (N = 52) from
+    ``ABAND_NU0`` at 0.05 cm^-1 steps, with O2 absorption from the
+    synthetic line list (``write_aband_par`` unless ``par_path`` names
+    one). The line sum runs on ``device`` (CUDA unless given). Its Jacobian
+    layout is ("vmr_O2", "wind_speed")."""
+    par = par_path if par_path is not None else write_aband_par()
+    return model_from_parameters(Parameters(
+        surfaces=[SurfaceDescriptor("CoxMunkSurface", [],
+                                    {"wind_speed": 5.0})],
+        polarization=STOKES_IQUV,
+        absorption_params=AbsorptionParams(**aband_absorption(par)),
+        **aband_params(n_spec, dtype, nstreams, nz, fused)), device=device)
+
+
+#: Spectral points of the small A-band scene and their spacing [cm^-1]:
+#: 3.75 cm^-1 around the strongest 16O2 line of the scene's grid.
+ABAND_REF_N_SPEC, ABAND_REF_STEP = 16, 0.25
+
+
+def aband_ref_params(dtype=np.float32):
+    """``Parameters`` keywords of the small A-band scene, less
+    ``surfaces``, ``polarization`` and ``absorption_params``: 3 layers,
+    nstreams 4, sza 40, two views, 16 points 0.25 cm^-1 apart from 2 cm^-1
+    below the strongest 16O2 line (plain data: the JAX package's
+    ``Parameters`` takes them too)."""
+    lines = aband_lines()
+    strong = lines["nu"][np.argmax(np.where(lines["iso"] == 1, lines["sw"],
+                                            0.0))]
+    nu0 = np.round(strong, 1) - 2.0
+    return dict(spec_bands=[nu0 + ABAND_REF_STEP * np.arange(
+        ABAND_REF_N_SPEC)], nstreams=4, sza=40.0, vza=[10.0, 45.0],
+        vaz=[30.0, 150.0], obs_alt=0.0, T=np.array([230.0, 260.0, 285.0]),
+        p=np.array([10.0, 400.0, 800.0, 1013.0]), depol=-1.0,
+        float_type=dtype)
+
+
+def aband_ref_model(dtype=np.float32, surface="coxmunk", device=None,
+                    par_path=None):
+    """RTModel of the small A-band scene: ``aband_ref_params`` over a wind-5
+    Cox-Munk ocean (or, with ``surface="lambertian"``, a 0.2-albedo floor),
+    IQU, O2 from the synthetic line list; its Jacobian layout is ("vmr_O2",
+    "wind_speed") (or ("vmr_O2", "albedo"))."""
+    par = par_path if par_path is not None else write_aband_par()
+    surf = SurfaceDescriptor("CoxMunkSurface", [], {"wind_speed": 5.0}) \
+        if surface == "coxmunk" else \
+        SurfaceDescriptor("LambertianSurfaceScalar", [0.2])
+    return model_from_parameters(Parameters(
+        surfaces=[surf], polarization=STOKES_IQU,
+        absorption_params=AbsorptionParams(**aband_absorption(par)),
+        **aband_ref_params(dtype)), device=device)
