@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Seven paths
+Run from the root of a checkout: ``python3 chip_smoke.py``. Ten paths
 are driven: the flagship forward ``rt_run`` (band kernel K1), the
 rotational-Raman forward ``rt_run_inelastic`` (K1 for the elastic half, the
 block-bichromatic RRS kernel K3 for the inelastic one), the aerosol
@@ -14,8 +14,13 @@ probes P1-P9 of ``scripts/`` through their Hopper counterparts
 (``vsmartmom_tpu_torch/probes``: the dot_chain, lane_dot_chain, layout and
 band-stage kernels); and the gas path: the line-by-line absorption build
 of the O2 A-band scene on the card (plain torch, float64) and its
-``rt_run`` (K1) and VMR Jacobian ``rt_run_lin`` (K2 at P = 2). Phases,
-each of which fails the run (non-zero exit) on a miss:
+``rt_run`` (K1) and VMR Jacobian ``rt_run_lin`` (K2 at P = 2); and the
+Raman paths: vibrational Raman ``rt_run_inelastic(mode="VS_0to1")`` and
+the stellar vibrational ``rt_run_stellar(mode="sol_VS_0to1")`` (plain
+fixed-source solves on the card), the stellar rotational
+``rt_run_stellar(mode="sol_RRS")`` (K1 and K3, the ie ladder at full
+resolution) and the multisensor Raman ``rt_run_ms_rrs`` (plain torch).
+Phases, each of which fails the run (non-zero exit) on a miss:
 
 1. setup — the card's name and power limit; every CUDA kernel of the port
    built from ``vsmartmom_tpu_torch/csrc`` (one nvcc per source, in parallel);
@@ -187,7 +192,36 @@ each of which fails the run (non-zero exit) on a miss:
    of 3 after a warm-up), ``aband_lin_pts_per_s`` (best of 2), the scene
    and line-sum seconds, and K2's time a launch at P = 2 against its bound
    at the least work (1 + 2P primal moments), its plain version's beside
-   it (not in the kernels line, which keeps the flagship shapes).
+   it (not in the kernels line, which keeps the flagship shapes);
+10. Raman (``raman_phase``), every run with every launch counter set to 0
+   just before and read just after — (a) ``rt_run_inelastic`` in VS_0to1
+   on ``flagship.vs_sif_model`` (the RRS+SIF column, N = 36, on
+   ``vs_band_grid(25000.0)``: 1335 points, 15 targets with weight): no
+   kernel launched, every output finite, ieR exactly 0 at the incident
+   point and > 0 at every weighted target, the small VS scene in both
+   modes against ``data/vs_ref_f64.npz`` (<= 1e-4); (b) ``rt_run_stellar``
+   in sol_RRS on ``flagship.stellar_sif_model`` (the column from 18000
+   cm^-1 at 1.5625 cm^-1, 1024 points, 8 H2 shifts, a 70% line in
+   ``f0_spec``): K3's plan at the full ie ladder (ndoubl, pool, shared
+   memory), K1 and K3 (a call and its diagonal launch) once per moment
+   and nothing else, outputs finite, the kernel path against the plain
+   ``rt_solve_rrs`` on the card (R and ieR <= 1e-4), the Ring fill-in at
+   the line (ieR/R at its core above its median), the small stellar
+   scene against ``data/stellar_ref_f64.npz`` (R and ieR <= 1e-4); (c)
+   ``rt_run_stellar`` in sol_VS_0to1 on ``flagship.stellar_vs_sif_model``
+   (``sol_vs_plus_grid(540.0, dnu=1.0)``, 3552 points): no kernel, finite,
+   ie light on the band, the small scenes of both VS modes against the
+   stored reference (<= 1e-4); (d) ``rt_run_ms_rrs`` of the MS bench
+   scene (RRS+SIF, nSpec 256, levels 0, 4, 8, 58 shifts) with the bytes
+   of its per-layer ie stash printed first: no kernel, finite, level 0
+   against the plain ``rt_solve_rrs`` on the card (<= 1e-4), the small
+   scene in RRS and VS_0to1 against ``data/ms_rrs_ref_f64.npz`` (<=
+   1e-4); timing: ``vs_pts_per_s``, ``stellar_rrs_pts_per_s``,
+   ``stellar_vs_pts_per_s`` and ``ms_rrs_pts_per_s`` (each solve alone,
+   best of 3 after a warm-up, synchronised) and K3's time a call at the
+   stellar shape against its least-work bound (``rrs_flops``), with its
+   plain version's (not in the kernels line, which keeps the RRS+SIF
+   shapes).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel. Without CUDA it exits non-zero and prints no result.
@@ -1020,6 +1054,246 @@ def probes_phase(smi):
             if site == "P7":
                 entries[-1]["chain_launches"] = launches["band_chain"]
     return entries
+
+
+def ref_errors(out, ref, prefix, keys):
+    """{key: max|d| / max|ref|} of a run's outputs against the stored
+    reference's "<prefix>_<key>" arrays (a shape mismatch fails)."""
+    errs = {}
+    for k, v in zip(keys, out):
+        if np.shape(v) != ref[f"{prefix}_{k}"].shape:
+            fail(f"{prefix} {k} of shape {np.shape(v)}, the stored "
+                 f"reference's {ref[f'{prefix}_{k}'].shape}")
+        errs[k] = rel(v, ref[f"{prefix}_{k}"])
+    return errs
+
+
+def raman_phase(dev, smi):
+    """The vibrational, stellar and multisensor Raman paths (see the module
+    docstring, phase 10)."""
+    from vsmartmom_tpu_torch import (rt_run_inelastic, rt_run_ms_rrs,
+                                     rt_run_stellar)
+    from vsmartmom_tpu_torch.core.inelastic import (
+        _src_fixed0, inelastic_setup, raman_z_stack, rayleigh_fraction,
+        rrs_moment_args, rt_solve_rrs, rt_solve_rrs_fused)
+    from vsmartmom_tpu_torch.core.multisensor import (ie_stash_bytes,
+                                                      rt_solve_ms_rrs)
+    from vsmartmom_tpu_torch.core.types import rrs_setup_from_numpy
+    from vsmartmom_tpu_torch.flagship import (
+        MS_RRS_REF_LEVELS, ms_rrs_ref_model, rrs_sif_model,
+        stellar_ref_model, stellar_sif_model, stellar_vs_sif_model,
+        vs_ref_model, vs_sif_model)
+    from vsmartmom_tpu_torch.inelastic.stellar import (
+        get_raman_solar_constants, greek_raman_stellar,
+        greek_raman_stellar_vs, sol_rrs_setup, sol_vs_redistribution)
+    from vsmartmom_tpu_torch.inelastic.vs_setup import vs_redistribution
+    from vsmartmom_tpu_torch.ops import fused_rrs
+    keys = ("R", "T", "ieR", "ieT")
+    data = Path(__file__).resolve().parent / "vsmartmom_tpu_torch" / "data"
+    counted = launch_counted()
+    phase_t0 = time.perf_counter()
+
+    def run_counted(fn):
+        for c in counted.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counted.items()
+                     if c.launches}
+
+    # (a) Vibrational Raman: the plain fixed-source solve on the card.
+    vs_model = vs_sif_model("VS_0to1")
+    nu = vs_model.bands[0].nu_grid
+    w_vs, _, _ = vs_redistribution(nu, "VS_0to1")
+    vs, vs_launches = run_counted(lambda: dict(zip(keys, rt_run_inelastic(
+        vs_model, mode="VS_0to1", device=dev))))
+    hit = w_vs > 0
+    print(f"VS_0to1: nSpec={len(nu)} (incident {nu[0]} cm^-1), targets "
+          f"with weight {int(hit.sum())}, launches {vs_launches} (want "
+          f"none: plain); ieR max {np.abs(vs['ieR']).max():.4g}, ieR/R at "
+          f"the targets {np.max(vs['ieR'][0, 0, hit] / vs['R'][0, 0, hit]):.3g}",
+          flush=True)
+    if vs_launches or not all(np.isfinite(v).all() for v in vs.values()):
+        fail(f"VS run: launches {vs_launches}, or non-finite output")
+    if not (np.all(vs["ieR"][:, :, 0] == 0.0)
+            and np.all(vs["ieR"][:, 0, hit] > 0)):
+        fail("VS ieR not zero at the incident point or not > 0 where the "
+             "weight is")
+    ref = np.load(data / "vs_ref_f64.npz")
+    for mode in ("VS_0to1", "VS_1to0"):
+        e = ref_errors(rt_run_inelastic(vs_ref_model(mode), mode=mode,
+                                        device=dev), ref, mode, keys)
+        print(f"{mode} small scene (plain, card) vs JAX f64 reference: "
+              + " ".join(f"{k}={v:.2e}" for k, v in e.items()), flush=True)
+        if not all(v <= GATE for v in e.values()):
+            fail(f"{mode} port vs stored JAX reference: {e}")
+    vs_inputs, vs_config, *vs_rrs = inelastic_setup(vs_model, mode="VS_0to1",
+                                                    device=dev)
+    vs_s, vs_all = best_of_3(lambda: rt_solve_rrs(
+        vs_inputs, vs_config, *vs_rrs, device=dev, src_fn=_src_fixed0))
+
+    # (b) Stellar rotational Raman through K1 and K3 (full ie resolution).
+    st_model = stellar_sif_model()
+    st_nu = st_model.bands[0].nu_grid
+    n_st = len(st_nu)
+    st_inputs, st_config, *st = sol_rrs_setup(st_model, device=dev)
+    if not st_config.fused:
+        fail("the stellar f32 model on CUDA did not pick the kernel path")
+    shifts = st[0]
+    n_rc = min(len(shifts), 32768 // n_st)
+    k3_args, k3_kw = rrs_moment_args(st_inputs, st_config, *st, 0, dev, True)
+    sched = fused_rrs.norm_sched(k3_kw["ns_sched"], k3_kw["ndoubl"])
+    k3_info = fused_rrs.launch_info(st_config.N, st_config.nz, sched,
+                                    k3_kw["ns_inter"])
+    print(f"stellar RRS config: N={st_config.N} nz={st_config.nz} "
+          f"ndoubl={st_config.ndoubl} ns_sched={st_config.ns_sched} "
+          f"ns_inter={st_config.ns_inter}; H2 shifts {list(shifts)}; ie "
+          f"ladder (full) ndoubl={k3_kw['ndoubl']} ns_sched={sched}; K3 "
+          f"launches {json.dumps(k3_info)}", flush=True)
+    if not (k3_kw["ndoubl"] == st_config.ndoubl and
+            k3_info["pair_smem_bytes"] == fused_rrs.pair_smem_bytes(
+                st_config.N, k3_info["pool"]) <= fused_rrs.SMEM_LIMIT):
+        fail(f"K3's stellar plan: {k3_info}")
+    st_out, st_launches = run_counted(lambda: dict(zip(keys, rt_run_stellar(
+        st_model, device=dev))))
+    n_m = st_config.m_max + 1
+    want = {"fused_moment": n_m,
+            "fused_moment_rrs": n_m * -(-len(shifts) // n_rc),
+            "rrs_diagonal": n_m * -(-len(shifts) // n_rc)}
+    print(f"main path: rt_run_stellar sol_RRS nSpec={n_st}, launches "
+          f"{st_launches} (want {want})", flush=True)
+    if st_launches != want:
+        fail(f"stellar RRS launches {st_launches}, want {want}")
+    shape = (len(st_config.vza_idx), st_config.n_stokes, n_st)
+    if not all(np.isfinite(v).all() and v.shape == shape
+               for v in st_out.values()):
+        fail("stellar RRS output not finite or of the wrong shape")
+    plain = rt_solve_rrs(st_inputs, dataclasses.replace(st_config,
+                                                        fused=False),
+                         *st, device=dev)
+    e_route = {k: rel(st_out[k], plain[k].cpu()) for k in keys}
+    ratio = st_out["ieR"][0, 0] / st_out["R"][0, 0]
+    i_core = int(np.argmin(st_model.bands[0].f0_spec))
+    fill_in = float(ratio[i_core] - np.median(ratio[n_st // 8:-n_st // 8]))
+    print("stellar RRS kernel path (full ie) vs plain path: " + " ".join(
+        f"{k}={v:.2e}" for k, v in e_route.items()) + f"; Ring fill-in at "
+        f"the dip (ieR/R at the core minus its median) {fill_in:.4g}",
+        flush=True)
+    if not (e_route["R"] <= GATE and e_route["ieR"] <= GATE
+            and fill_in > 0):
+        fail(f"stellar RRS route vs plain {e_route}, fill-in {fill_in}")
+    ref = np.load(data / "stellar_ref_f64.npz")
+    e = ref_errors(rt_run_stellar(stellar_ref_model(), device=dev), ref,
+                   "sol_RRS", keys)
+    print("sol_RRS small scene (kernel path) vs JAX f64 reference: "
+          + " ".join(f"{k}={v:.2e}" for k, v in e.items()), flush=True)
+    if not (e["R"] <= GATE and e["ieR"] <= GATE):
+        fail(f"sol_RRS port vs stored JAX reference: {e}")
+    st_s, st_all = best_of_3(lambda: rt_solve_rrs_fused(
+        st_inputs, st_config, *st, device=dev, ie_fullres=True))
+    ops = fused_rrs.rrs_operands(*k3_args, **{
+        k: v for k, v in k3_kw.items() if k not in ("ns_sched", "ns_inter")})
+    _, pairs, _ = fused_rrs.kernel_plan(ops, shifts, sched,
+                                        k3_kw["ns_inter"])
+    k3_ms = cuda_time_ms(lambda: fused_rrs._launch_kernel(
+        ops, shifts, sched, k3_kw["ns_inter"]), reps=3)
+    k3_plain_ms = cuda_time_ms(lambda: fused_rrs.moment_rrs_body_reference(
+        ops, sched, k3_kw["ns_inter"]), reps=2)
+    out = fused_rrs._launch_kernel(ops, shifts, sched, k3_kw["ns_inter"])
+    n_on = int(pairs.shape[0])
+    k3_flops = rrs_flops(ops, n_st, n_on, sched, k3_kw["ns_inter"])
+    k3_bytes = nbytes(*ops) + nbytes(*out)
+    t_ops, t_bytes = k3_flops / FP32_PEAK_FLOPS * 1e3, \
+        k3_bytes / HBM_BYTES_PER_S * 1e3
+    k3_bound = max(t_ops, t_bytes)
+
+    # (c) Stellar vibrational Raman: two plain fixed-source passes.
+    sv_model = stellar_vs_sif_model("sol_VS_0to1")
+    sv_nu = sv_model.bands[0].nu_grid
+    sv, sv_launches = run_counted(lambda: dict(zip(keys, rt_run_stellar(
+        sv_model, mode="sol_VS_0to1", device=dev))))
+    print(f"sol_VS_0to1: nSpec={len(sv_nu)}, launches {sv_launches} (want "
+          f"none: plain), ieR max {np.abs(sv['ieR']).max():.4g}", flush=True)
+    if sv_launches or not all(np.isfinite(v).all() for v in sv.values()) \
+            or not np.abs(sv["ieR"][:, :, 1:]).max() > 0:
+        fail(f"stellar VS run: launches {sv_launches}, non-finite or no ie")
+    for mode in ("sol_VS_0to1", "sol_VS_1to0"):
+        e = ref_errors(rt_run_stellar(stellar_ref_model(mode), mode=mode,
+                                      device=dev), ref, mode, keys)
+        print(f"{mode} small scene (plain, card) vs JAX f64 reference: "
+              + " ".join(f"{k}={v:.2e}" for k, v in e.items()), flush=True)
+        if not all(v <= GATE for v in e.values()):
+            fail(f"{mode} port vs stored JAX reference: {e}")
+    sv_inputs, sv_config = sv_model.build_band(0, device=dev, rrs=True)
+    band = sv_model.bands[0]
+    w_rvrs, w_vrs, _, _ = sol_vs_redistribution(band.nu_grid, "sol_VS_0to1")
+    h2 = get_raman_solar_constants(float(band.nu_grid[0]))
+    passes = [rrs_setup_from_numpy(
+        (0,), w[None, :], *raman_z_stack(sv_model, sv_config, g),
+        rayleigh_fraction(band), dev)
+        for w, g in ((w_rvrs, greek_raman_stellar()),
+                     (w_vrs, greek_raman_stellar_vs(h2)))]
+    sv_s, sv_all = best_of_3(lambda: [rt_solve_rrs(
+        sv_inputs, sv_config, *p, device=dev, src_fn=_src_fixed0)
+        for p in passes])
+
+    # (d) Multisensor Raman: the MS bench scene, plain torch on the card.
+    ms_model = rrs_sif_model(n_spec=MS_RRS_N_SPEC)
+    ms_inputs, ms_config, *ms = inelastic_setup(ms_model, device=dev)
+    n_r = len(ms[0])
+    stash = ie_stash_bytes(ms_config, n_r)
+    dims = (ms_config.nz, n_r, MS_RRS_N_SPEC, ms_config.N, ms_config.N)
+    print(f"MS-RRS: nSpec={MS_RRS_N_SPEC} levels {MS_RRS_LEVELS} shifts "
+          f"{n_r}; the per-layer ie stash of one moment: four matrix fields "
+          f"of (nz, nR, nSpec, N, N) = {dims} and two source fields of "
+          f"{dims[:-1]}, {stash} B ({stash / 2 ** 30:.3f} GiB)", flush=True)
+    msr, ms_launches = run_counted(lambda: rt_run_ms_rrs(
+        ms_model, MS_RRS_LEVELS, device=dev))
+    if ms_launches or not all(np.isfinite(v).all() for v in msr):
+        fail(f"MS-RRS run: launches {ms_launches}, or non-finite output")
+    plain = rt_solve_rrs(ms_inputs, dataclasses.replace(ms_config,
+                                                        fused=False),
+                         *ms, device=dev)
+    e_lvl0 = {k: rel(v[0], plain[p].cpu()) for k, v, p in zip(
+        ("uwJ", "dwJ", "ieuwJ", "iedwJ"), msr, keys)}
+    print("MS-RRS level 0 vs plain rt_solve_rrs (card): " + " ".join(
+        f"{k}={v:.2e}" for k, v in e_lvl0.items()), flush=True)
+    if not all(v <= GATE for v in e_lvl0.values()):
+        fail(f"MS-RRS level 0 vs rt_solve_rrs: {e_lvl0}")
+    ref = np.load(data / "ms_rrs_ref_f64.npz")
+    for mode in ("RRS", "VS_0to1"):
+        e = ref_errors(rt_run_ms_rrs(ms_rrs_ref_model(mode),
+                                     MS_RRS_REF_LEVELS, mode=mode,
+                                     device=dev),
+                       ref, mode, ("uwJ", "dwJ", "ieuwJ", "iedwJ"))
+        print(f"MS-RRS {mode} small scene (levels {MS_RRS_REF_LEVELS}) vs "
+              "JAX f64 reference: " + " ".join(f"{k}={v:.2e}"
+                                               for k, v in e.items()),
+              flush=True)
+        if not all(v <= GATE for v in e.values()):
+            fail(f"MS-RRS {mode} port vs stored JAX reference: {e}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms_s, ms_all = best_of_3(lambda: rt_solve_ms_rrs(
+        ms_inputs, ms_config, MS_RRS_LEVELS, *ms, device=dev))
+    print(json.dumps({
+        "card": smi, "vs_pts_per_s": len(nu) / vs_s, "vs_solve_s": vs_s,
+        "vs_solve_all_s": vs_all, "vs_n_spec": len(nu),
+        "stellar_rrs_pts_per_s": n_st / st_s, "stellar_rrs_solve_s": st_s,
+        "stellar_rrs_solve_all_s": st_all, "stellar_n_spec": n_st,
+        "stellar_vs_pts_per_s": len(sv_nu) / sv_s,
+        "stellar_vs_solve_s": sv_s, "stellar_vs_solve_all_s": sv_all,
+        "stellar_vs_n_spec": len(sv_nu),
+        "ms_rrs_pts_per_s": MS_RRS_N_SPEC / ms_s, "ms_rrs_solve_s": ms_s,
+        "ms_rrs_solve_all_s": ms_all, "ms_rrs_stash_bytes": stash,
+        "ms_rrs_peak_bytes": torch.cuda.max_memory_allocated(dev),
+        "phase_s": time.perf_counter() - phase_t0,
+        "rrs_launch_stellar": {
+            "n_spec": n_st, "shifts": len(shifts), "pairs": len(shifts) * n_st,
+            "pairs_on_grid": n_on, "phases": sched, "kernel_ms": k3_ms,
+            "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_share": k3_bound / k3_ms, "flops": k3_flops,
+            "bytes": k3_bytes, "plan": k3_info}}), flush=True)
 
 
 def lin_ref_gates(out, ref, names):
@@ -2066,6 +2340,7 @@ def main():
     probe_entries = probes_phase(smi)
     k1p_entry = thermal_lin_phase(dev, smi)
     absorption_phase(dev, smi)
+    raman_phase(dev, smi)
     print(f"chip_smoke.py: {time.perf_counter() - script_t0:.1f} s, the "
           "kernels' build included", flush=True)
     print(json.dumps({"kernels": [{

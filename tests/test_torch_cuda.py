@@ -293,6 +293,42 @@ def test_rrs_kernel_matches_plain_version(cuda, pol, nstreams, vza, n_spec,
         (128, 3) if N <= 36 else (384, 1))
 
 
+def test_rrs_kernel_matches_plain_version_on_h2_shifts(cuda):
+    """K3 on the stellar rotational-Raman scene (``stellar_sif_model``:
+    1024 points at 1.5625 cm^-1, a 70% line in the stellar spectrum): the
+    H2 shift set (8 shifts, +-226/227 and +-374-376 steps, so a third to
+    a half of each shift's pairs fall off the band), every moment at the
+    full ie-ladder resolution that ``rt_run_stellar`` runs: <= 1e-4 of
+    max|ref| against the dense plain version; the off-band pairs' ie
+    blocks exactly zero."""
+    from vsmartmom_tpu_torch.core.inelastic import rrs_moment_args
+    from vsmartmom_tpu_torch.flagship import stellar_sif_model
+    from vsmartmom_tpu_torch.inelastic.stellar import sol_rrs_setup
+    from vsmartmom_tpu_torch.ops import fused_rrs
+    n_spec = 1024
+    inputs, config, *rrs = sol_rrs_setup(stellar_sif_model(n_spec),
+                                         device=cuda)
+    shifts = rrs[0]
+    assert config.fused and config.N == 36
+    assert sorted(abs(s) for s in shifts) == [226, 227, 227, 228, 374, 375,
+                                              375, 376]
+    off = np.array([[not 0 <= i + sh < n_spec for i in range(n_spec)]
+                    for sh in shifts])
+    assert 0.2 < off.mean() < 0.4
+    off = torch.as_tensor(off, device=cuda)
+    for m in range(config.m_max + 1):
+        args, kw = rrs_moment_args(inputs, config, *rrs, m, cuda, True)
+        assert kw["ndoubl"] == config.ndoubl
+        out = fused_rrs.fused_moment_rrs(*args, **kw)
+        torch.cuda.synchronize()
+        ref = fused_rrs.moment_rrs_reference(*args, **kw)
+        for a, b in zip(out, ref):
+            a = a.reshape(b.shape)
+            assert torch.isfinite(a).all() and _rel(a, b) <= GATE
+            assert (a[off] == 0).all()
+            assert a[~off].abs().max() > 0
+
+
 def test_rrs_kernel_path_matches_plain_path(cuda):
     from vsmartmom_tpu_torch.core.inelastic import (rt_solve_rrs,
                                                     rt_solve_rrs_fused)

@@ -258,7 +258,8 @@ def test_fused_solve_matches_jax_interpret(setups, fullres, monkeypatch):
 
 def test_rt_run_inelastic_on_the_cpu():
     """The entry point end to end on the port's own build: the f32 model on
-    the CPU takes the plain path and lands on the stored JAX reference."""
+    the CPU takes the plain path and lands on the stored JAX reference; a
+    VS mode on this RRS grid finds no vibrational line to carry."""
     from vsmartmom_tpu_torch.core.inelastic import rt_run_inelastic
     stored = np.load(REF_PATH)
     out = dict(zip(KEYS, rt_run_inelastic(port_model("STOKES_IQU"),
@@ -266,7 +267,9 @@ def test_rt_run_inelastic_on_the_cpu():
     for k in KEYS:
         assert out[k].shape == stored[k].shape
         assert _rel(out[k], stored[k]) <= 2e-5, k
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # A VS mode needs a grid whose first point is the incident wavelength
+    # and onto which a vibrational line lands (vs_setup.vs_band_grid).
+    with pytest.raises(ValueError, match="no VS_0to1 Raman line lands"):
         rt_run_inelastic(port_model("STOKES_I"), mode="VS_0to1",
                          device="cpu")
 

@@ -202,6 +202,45 @@ def test_rt_run_lin_needs_cuda_or_an_explicit_device(monkeypatch):
         rt_run_lin(flagship_model(n_spec=2, nstreams=2))
 
 
+#: The Raman modules of the port: the vibrational lines, the VS and stellar
+#: setups and entry points, the fixed-source map and the multisensor Raman
+#: solve.
+RAMAN_MODULES = ("inelastic.molecular", "inelastic.vs_setup",
+                 "inelastic.stellar", "core.inelastic", "core.multisensor")
+
+
+@pytest.fixture(scope="module")
+def raman_imports():
+    """The forbidden modules that importing each Raman module of the port
+    loads, in a fresh interpreter: {module: [jax / vsmartmom_tpu loaded]}."""
+    code = ("import sys, json\nout = {}\n"
+            "for m in %r:\n"
+            "    __import__('vsmartmom_tpu_torch.' + m)\n"
+            "    out[m] = [k for k in %r if k in sys.modules]\n"
+            "print(json.dumps(out))\n" % (RAMAN_MODULES, FORBIDDEN))
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    import json
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", RAMAN_MODULES)
+def test_raman_modules_import_no_jax(raman_imports, module):
+    path = ROOT / "vsmartmom_tpu_torch" / (module.replace(".", "/") + ".py")
+    assert path in _port_files()
+    assert raman_imports[module] == []
+
+
+@pytest.mark.parametrize("mode", ["RRS", "VS_0to1"])
+def test_rt_run_inelastic_needs_cuda_or_an_explicit_device(monkeypatch,
+                                                            mode):
+    from vsmartmom_tpu_torch import rt_run_inelastic
+    from vsmartmom_tpu_torch.flagship import vs_ref_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rt_run_inelastic(vs_ref_model(), mode=mode)
+
+
 @pytest.fixture(scope="module")
 def mt_cpu_operands():
     """K2's operands for a tiny band and two tangents (CPU, f32)."""

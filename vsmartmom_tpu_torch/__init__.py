@@ -6,7 +6,7 @@ profiles, depolarization, Greek coefficients, Z supermatrices, surfaces, the
 Newton-Schulz schedule probe) is the port's own float64 NumPy copy. The
 solver runs on torch tensors; the whole-moment band path launches the
 hand-written Hopper kernel ``csrc/fused_band.cu`` and the rotational-Raman
-path also ``csrc/fused_rrs.cu``, the Jacobian path ``csrc/fused_lin.cu``
+paths (air and stellar) also ``csrc/fused_rrs.cu``, the Jacobian path ``csrc/fused_lin.cu``
 (for solar and, after ``add_thermal_emission``, solar + Planck sources) and
 the multisensor path the per-layer doubling kernel of ``csrc/fused_rt.cu``,
 each built by ``nvcc`` at first use into ``vsmartmom_tpu_torch/_build/``.
@@ -14,22 +14,27 @@ Gas absorption (``absorption/``) sums HITRAN lines in float64 on the
 device (plain torch) when a model is built.
 
 Entry points (``rt_run``, ``rt_run_full``, ``rt_run_streams``, ``rt_solve``,
-``rt_run_inelastic``, ``rt_run_lin``, ``rt_run_ms``) run on CUDA unless the
-caller passes ``device`` (e.g. ``device="cpu"``); without CUDA and without a
-device they raise.
+``rt_run_inelastic`` (rotational and vibrational Raman), ``rt_run_stellar``
+(H2 Raman), ``rt_run_lin``, ``rt_run_ms``, ``rt_run_ms_rrs``) run on CUDA
+unless the caller passes ``device`` (e.g. ``device="cpu"``); without CUDA
+and without a device they raise.
 """
 
 from .core.inelastic import rt_run_inelastic
 from .core.linearization import ParameterLayout, default_layout, rt_run_lin
 from .core.model import Parameters, SurfaceDescriptor, model_from_parameters
-from .core.multisensor import rt_run_ms
+from .core.multisensor import rt_run_ms, rt_run_ms_rrs
 from .core.solver import rt_run, rt_run_full, rt_run_streams, rt_solve
 from .flagship import (aband_model, flagship_model, rrs_sif_model,
-                       thermal_lin_model)
+                       stellar_sif_model, stellar_vs_sif_model,
+                       thermal_lin_model, vs_sif_model)
+from .inelastic.stellar import rt_run_stellar
 from .solar import add_thermal_emission
 
 __all__ = ["Parameters", "SurfaceDescriptor", "model_from_parameters",
            "rt_run", "rt_run_full", "rt_run_streams", "rt_solve",
-           "rt_run_inelastic", "rt_run_lin", "rt_run_ms", "default_layout",
-           "ParameterLayout", "flagship_model", "rrs_sif_model",
-           "thermal_lin_model", "aband_model", "add_thermal_emission"]
+           "rt_run_inelastic", "rt_run_lin", "rt_run_ms", "rt_run_ms_rrs",
+           "rt_run_stellar", "default_layout", "ParameterLayout",
+           "flagship_model", "rrs_sif_model", "vs_sif_model",
+           "stellar_sif_model", "stellar_vs_sif_model", "thermal_lin_model",
+           "aband_model", "add_thermal_emission"]

@@ -1,4 +1,4 @@
-"""Rotational Raman scattering (RRS) transport.
+"""Inelastic (rotational and vibrational Raman) transport.
 
 Counterpart of ``vsmartmom_tpu/core/inelastic.py``. Behavioral reference:
 vSmartMOM.jl src/CoreRT/CoreKernel/{elemental_inelastic.jl,
@@ -16,18 +16,22 @@ and every adding/doubling composition keeps that form, so the ieX blocks
 evolve by the product rule: in every operator product exactly one factor
 is replaced by its ie counterpart, factors to its LEFT evaluate at n1 and
 to its RIGHT at n0 (doubling_inelastic.jl:74-143). The n0 role of an
-elastic array is a zero-padded slice along the spectral axis
-(``ops/fused_rrs.roll_stack``); the Raman shifts are a leading batch axis
-of the ie arrays.
+elastic array comes from a source map: for rotational Raman (RRS) a
+zero-padded slice along the spectral axis (``_roll0``,
+``ops/fused_rrs.roll_stack``), for vibrational Raman (VS) the incident
+grid point 0 for every target (``_src_fixed0``, the reference's VS
+convention, elemental_inelastic.jl:279). The Raman shifts are a leading
+batch axis of the ie arrays; VS has one slot whose weight is a vector over
+the targets.
 
 Two solves: ``rt_solve_rrs``, the plain path (a Python loop over moments
 and layers with ``torch.linalg.solve``), and ``rt_solve_rrs_fused``, whose
 elastic composite comes from the band kernel (``ops/fused_band.py``) and
 whose whole ie ladder and per-layer adding run in the block-bichromatic
 RRS kernel (``ops/fused_rrs.py``); only the surface step runs the plain
-``ie_interaction``. Entry points run on CUDA unless the caller passes
-``device``. Only the RRS mode is ported: the vibrational (VS) modes are
-queued in ROADMAP.md.
+``ie_interaction``. RRS takes the kernel route where it can; VS runs the
+plain solve on any device, as in the JAX package. Entry points run on
+CUDA unless the caller passes ``device``.
 """
 
 import dataclasses
@@ -42,8 +46,8 @@ from ..ops.fused_rrs import (KERNEL_MAX_N, fused_moment_rrs,
 from .kernels import (AddedLayer, CompositeLayer, _exp, _expm1,
                       identity_composite, interaction)
 from .solver import _elemental_and_sources, _surface_layer, band_moment_args
-from .types import (kernel_takes_width, resolve_device, rrs_setup_from_numpy,
-                    stokes_d_vector)
+from .types import (SolverInputs, kernel_takes_width, resolve_device,
+                    rrs_setup_from_numpy, stokes_d_vector)
 
 
 class IEAdded(NamedTuple):
@@ -81,9 +85,31 @@ def _roll0(x, shift: int):
     return roll_stack((x,), (shift,), axis=0)[0][0]
 
 
-def _roll_all(shifts, *arrays):
-    """Per-shift source-wavelength views (nR, ...) of elastic arrays."""
-    return roll_stack(arrays, shifts, axis=0)
+def _src_fixed0(x, shift: int):
+    """Fixed-source map of vibrational Raman: the incident wavelength is
+    grid point 0 (get_elem_rt_VS!, elemental_inelastic.jl:279) and every
+    target receives from it; ``shift`` is ignored."""
+    return x[0:1].expand(x.shape)
+
+
+def source_map(mode: str):
+    """The source map of an inelastic mode: ``_roll0`` for "RRS" (and the
+    stellar "sol_RRS"), ``_src_fixed0`` for the vibrational modes."""
+    if mode in ("RRS", "sol_RRS"):
+        return _roll0
+    if mode in ("VS_0to1", "VS_1to0", "sol_VS_0to1", "sol_VS_1to0"):
+        return _src_fixed0
+    raise ValueError(f"unknown inelastic mode {mode!r}")
+
+
+def _roll_all(src_fn, shifts, *arrays):
+    """Per-shift source-wavelength views (nR, ...) of elastic arrays: slices
+    of one zero-padded copy for the RRS roll, the source map per shift
+    otherwise."""
+    if src_fn is _roll0:
+        return roll_stack(arrays, shifts, axis=0)
+    return tuple(torch.stack([src_fn(a, sh) for sh in shifts])
+                 for a in arrays)
 
 
 def _mv(a, v):
@@ -109,18 +135,20 @@ def _Bv(X, y):
 
 
 def ie_elemental(shift, w_rr, fscatt, dtau, tau_sum, Z_pp_r, Z_mp_r,
-                 qp_mu_N, wct, mu0, i_mu0_start, n_stokes, F0, fourier_w):
+                 qp_mu_N, wct, mu0, i_mu0_start, n_stokes, F0, fourier_w,
+                 src_fn=_roll0):
     """Inelastic elemental operators for ONE Raman shift (get_elem_rt_RRS!,
     elemental_inelastic.jl:117-206; SFI kernel l.480-598).
 
-    shift int, w_rr scalar Raman weight, fscatt (s,) Rayleigh scattering
-    fraction, dtau (s,) elemental depth, tau_sum (s,), Z_pp_r/Z_mp_r (N, N)
-    Raman phase matrices, wct (N,) scaled weights. Returns (ier_mp, iet_pp,
-    iejp, iejm); the reverse operators come from the D symmetry after
-    doubling."""
+    shift int, w_rr the Raman weight: a scalar (RRS, one a shift) or a
+    per-target vector (s,) (VS, weights over the output grid); fscatt (s,)
+    Rayleigh scattering fraction, dtau (s,) elemental depth, tau_sum (s,),
+    Z_pp_r/Z_mp_r (N, N) Raman phase matrices, wct (N,) scaled weights,
+    src_fn the source map. Returns (ier_mp, iet_pp, iejp, iejm); the
+    reverse operators come from the D symmetry after doubling."""
     d1 = dtau                                     # target wavelength n1
-    d0 = _roll0(dtau, shift)                      # source wavelength n0
-    fsc0 = _roll0(fscatt, shift)
+    d0 = src_fn(dtau, shift)                      # source wavelength n0
+    fsc0 = src_fn(fscatt, shift)
     valid = (d0 > 0).to(dtau.dtype)
     mu_i = qp_mu_N[:, None]
     mu_j = qp_mu_N[None, :]
@@ -150,7 +178,7 @@ def ie_elemental(shift, w_rr, fscatt, dtau, tau_sum, Z_pp_r, Z_mp_r,
     # SFI sources: incident-wavelength quantities at n0.
     ns = n_stokes
     sl = slice(i_mu0_start, i_mu0_start + ns)
-    F0_0 = _roll0(F0.T, shift)                    # (s, ns)
+    F0_0 = src_fn(F0.T, shift)                    # (s, ns)
     Zp_I0 = torch.einsum("ik,sk->si", Z_pp_r[:, sl], F0_0)
     Zm_I0 = torch.einsum("ik,sk->si", Z_mp_r[:, sl], F0_0)
 
@@ -175,11 +203,12 @@ def ie_elemental(shift, w_rr, fscatt, dtau, tau_sum, Z_pp_r, Z_mp_r,
     iejm = prefv * Zm_I0 * (1.0 / (mu_v / mu0 + d1v / safe_d0[:, None])) \
         * one_m_EE0
 
-    att0 = _exp(-_roll0(tau_sum, shift) / mu0)[:, None]
+    att0 = _exp(-src_fn(tau_sum, shift) / mu0)[:, None]
     return ier, iet, iejp * att0, iejm * att0
 
 
-def ie_doubling_step(r, t, jp, jm, ek, gp, tt_gp, ie_carry, shifts):
+def ie_doubling_step(r, t, jp, jm, ek, gp, tt_gp, ie_carry, shifts,
+                     src_fn=_roll0):
     """One doubling step of the (starred) ie quantities given the elastic
     starred state of the same step (doubling_inelastic.jl:74-143).
 
@@ -195,9 +224,10 @@ def ie_doubling_step(r, t, jp, jm, ek, gp, tt_gp, ie_carry, shifts):
     gp_r = gp @ r
     gp_r_t = gp_r @ t
 
-    r0, t0, G_t0, G_rt0, G_r0 = _roll_all(shifts, r, t, gp_t, gp_r_t, gp_r)
-    ek0, j1m0, jp0, tmp1_0, tmp2_0 = _roll_all(shifts, ek, j1m, jp, tmp1,
-                                               tmp2)
+    r0, t0, G_t0, G_rt0, G_r0 = _roll_all(src_fn, shifts, r, t, gp_t,
+                                          gp_r_t, gp_r)
+    ek0, j1m0, jp0, tmp1_0, tmp2_0 = _roll_all(src_fn, shifts, ek, j1m, jp,
+                                               tmp1, tmp2)
 
     iej1p = iejp * ek0[:, :, None]
     iej1m = iejm * ek0[:, :, None]
@@ -220,7 +250,7 @@ def _solve_eye(A):
 
 
 def ie_interaction(comp, add, comp_ie: IEComposite, add_ie: IEAdded,
-                   shifts) -> IEComposite:
+                   shifts, src_fn=_roll0) -> IEComposite:
     """ie part of the adding step, by the bichromatic product rule on
     ``kernels.interaction`` (interaction_inelastic.jl). ``comp``
     (CompositeLayer) and ``add`` (AddedLayer) are the elastic PRE-interaction
@@ -243,8 +273,8 @@ def ie_interaction(comp, add, comp_ie: IEComposite, add_ie: IEAdded,
     u2 = Jp_c + _mv(Rpm_c, jm_a)
 
     (Rpm0, inv1_0, rT0, tmm0, ra0, inv2_0, Tpp0, Rt0) = _roll_all(
-        shifts, Rpm_c, inv1, rT, tmm_a, r_a, inv2, Tpp_c, Rt)
-    (u1_0, Jp0, u2_0, jm0) = _roll_all(shifts, u1, Jp_c, u2, jm_a)
+        src_fn, shifts, Rpm_c, inv1, rT, tmm_a, r_a, inv2, Tpp_c, Rt)
+    (u1_0, Jp0, u2_0, jm0) = _roll_all(src_fn, shifts, u1, Jp_c, u2, jm_a)
 
     (ieR_mp, ieR_pm, ieT_pp, ieT_mm, ieJp, ieJm) = comp_ie
     (ier_mp, ier_pm, iet_pp, iet_mm, iejp, iejm) = add_ie
@@ -290,7 +320,7 @@ def ie_unstar(ie_fields, d_vec) -> IEAdded:
 
 
 def doubling_rs(r_mp, t_pp, j0_p, j0_m, expk, ie_fields, ndoubl: int,
-                d_vec, shifts):
+                d_vec, shifts, src_fn=_roll0):
     """Elastic + inelastic doubling (doubling_helper! RRS,
     doubling_inelastic.jl:13-164); elastic sources are (s, N) solar
     vectors. Returns (AddedLayer with K = 1 sources, IEAdded)."""
@@ -308,7 +338,8 @@ def doubling_rs(r_mp, t_pp, j0_p, j0_m, expk, ie_fields, ndoubl: int,
         gp = _solve_eye(eye - r @ r)
         tt_gp = t @ gp
         # ie update first: it reads the pre-update elastic state.
-        ie = ie_doubling_step(r, t, jp, jm, ek, gp, tt_gp, ie, shifts)
+        ie = ie_doubling_step(r, t, jp, jm, ek, gp, tt_gp, ie, shifts,
+                              src_fn)
         j1p = jp * ek[:, None]
         j1m = jm * ek[:, None]
         jm_new = jm + _mv(tt_gp, j1m + _mv(r, jp))
@@ -342,68 +373,107 @@ def _weigh(J, vza_rows, vza_w_m):
     return J[:, vza_rows].permute(1, 2, 0) * vza_w_m[:, :, None]
 
 
+class _RSColumn(NamedTuple):
+    """The inputs of an inelastic solve on its device in ``config.dtype``,
+    with the quantities every layer and moment reads."""
+    inp: SolverInputs
+    w_shifts: torch.Tensor
+    Z_r_pp: torch.Tensor
+    Z_r_mp: torch.Tensor
+    fscatt: torch.Tensor
+    mu0: torch.Tensor
+    d_vec: torch.Tensor
+    tau_sum: torch.Tensor    # (nz + 1, nSpec): optical depth above each level
+    vza_rows: torch.Tensor
+
+
+def _rs_column(inputs, config, dev, w_shifts, Z_r_pp, Z_r_mp, fscatt):
+    inp, *rrs = _cast_inputs(inputs, config, dev, w_shifts, Z_r_pp, Z_r_mp,
+                             fscatt)
+    dtype = config.torch_dtype
+    return _RSColumn(
+        inp, *rrs, inp.qp_mu_N[config.i_mu0_start],
+        torch.as_tensor(stokes_d_vector(config.n_stokes, config.nquad),
+                        dtype=dtype, device=dev),
+        torch.cat([torch.zeros((1, config.n_spec), dtype=dtype, device=dev),
+                   torch.cumsum(inp.tau, dim=0)], dim=0),
+        _vza_rows(config, dev))
+
+
+def _added_layer_rs(col: _RSColumn, config, m: int, z: int, shifts,
+                    src_fn):
+    """Layer z's elastic and ie added operators at moment m: (AddedLayer
+    with K = 1 sources, IEAdded), every shift's elemental ie operators
+    doubled with the elastic ladder (``doubling_rs``)."""
+    inp = col.inp
+    fw = 0.5 if m == 0 else 0.25
+    dtau = inp.tau[z] / (2 ** config.ndoubl)
+    r_mp, t_pp, j_p, j_m, expk = _elemental_and_sources(
+        inp.tau[z], inp.scat_w[z], col.tau_sum[z], inp.thermal_b[z],
+        Z_pp_m=inp.Z_pp[m], Z_mp_m=inp.Z_mp[m], qp_mu_N=inp.qp_mu_N,
+        wt_mu_N=inp.wt_mu_N, mu0=col.mu0, config=config, F0=inp.F0,
+        fourier_w=fw, is_m0=m == 0)
+    ie_el = [ie_elemental(sh, col.w_shifts[k], col.fscatt[z], dtau,
+                          col.tau_sum[z], col.Z_r_pp[m], col.Z_r_mp[m],
+                          inp.qp_mu_N, fw * inp.wt_mu_N, col.mu0,
+                          config.i_mu0_start, config.n_stokes, inp.F0, fw,
+                          src_fn)
+             for k, sh in enumerate(shifts)]
+    ie_el = tuple(torch.stack(f) for f in zip(*ie_el))
+    return doubling_rs(r_mp, t_pp, j_p[..., 0], j_m[..., 0], expk[:, 0],
+                       ie_el, config.ndoubl, col.d_vec, shifts, src_fn)
+
+
+def _surface_rs(col: _RSColumn, config, m: int):
+    inp = col.inp
+    return _surface_layer(inp.surf_r[m], inp.surf_j_m[m],
+                          inp.surf_direct_m[m], inp.surf_spec, inp.F0,
+                          col.tau_sum[config.nz], col.mu0, inp.sif_spec,
+                          m == 0, config)
+
+
 def rt_solve_rrs(inputs, config, shifts, w_shifts, Z_r_pp, Z_r_mp, fscatt,
-                 device=None):
-    """Full RRS solve on the plain path (rt_run(RRS(), model),
+                 device=None, src_fn=_roll0):
+    """Full inelastic solve on the plain path (rt_run(RRS(), model),
     rt_run.jl:238-539 with the inelastic kernels). Returns a dict with the
     elastic R/T and the inelastic ieR/ieT, each (nVZA, n_stokes, nSpec).
 
     shifts: tuple of nR int index offsets; w_shifts (nR,) normalized Raman
-    weights; Z_r_pp/Z_r_mp (n_m, N, N) Raman phase matrices; fscatt
-    (Nz, nSpec) Rayleigh fraction of layer scattering."""
+    weights, or (nR, nSpec) per-target weights (VS: one slot, shifts
+    (0,)); Z_r_pp/Z_r_mp (n_m, N, N) Raman phase matrices; fscatt (Nz,
+    nSpec) Rayleigh fraction of layer scattering; src_fn the source map
+    (``_roll0`` for RRS, ``_src_fixed0`` for VS)."""
     dev = resolve_device(device)
     dtype = config.torch_dtype
-    n_spec, N, nz, ns = config.n_spec, config.N, config.nz, config.n_stokes
+    n_spec, N, ns = config.n_spec, config.N, config.n_stokes
     n_r = len(shifts)
-    inp, w_shifts, Z_r_pp, Z_r_mp, fscatt = _cast_inputs(
-        inputs, config, dev, w_shifts, Z_r_pp, Z_r_mp, fscatt)
-    qp_mu_N, wt_mu_N = inp.qp_mu_N, inp.wt_mu_N
-    mu0 = qp_mu_N[config.i_mu0_start]
-    d_vec = torch.as_tensor(stokes_d_vector(ns, config.nquad), dtype=dtype,
-                            device=dev)
-    tau, scat_w, F0 = inp.tau, inp.scat_w, inp.F0
-    tau_sum = torch.cat([torch.zeros((1, n_spec), dtype=dtype, device=dev),
-                         torch.cumsum(tau, dim=0)], dim=0)
-    vza_rows = _vza_rows(config, dev)
+    col = _rs_column(inputs, config, dev, w_shifts, Z_r_pp, Z_r_mp, fscatt)
+    inp = col.inp
     R = torch.zeros((len(config.vza_idx), ns, n_spec), dtype=dtype,
                     device=dev)
     T, ieR, ieT = torch.zeros_like(R), torch.zeros_like(R), \
         torch.zeros_like(R)
 
     for m in range(config.m_max + 1):
-        fw = 0.5 if m == 0 else 0.25
-        wct = fw * wt_mu_N
         comp = identity_composite(n_spec, N, dtype, dev, 1)
         comp_ie = zero_ie_composite(n_r, n_spec, N, dtype, dev)
-        for z in range(nz):
-            dtau = tau[z] / (2 ** config.ndoubl)
-            r_mp, t_pp, j_p, j_m, expk = _elemental_and_sources(
-                tau[z], scat_w[z], tau_sum[z], inp.thermal_b[z],
-                Z_pp_m=inp.Z_pp[m], Z_mp_m=inp.Z_mp[m], qp_mu_N=qp_mu_N,
-                wt_mu_N=wt_mu_N, mu0=mu0, config=config, F0=F0,
-                fourier_w=fw, is_m0=m == 0)
-            ie_el = [ie_elemental(sh, w_shifts[k], fscatt[z], dtau,
-                                  tau_sum[z], Z_r_pp[m], Z_r_mp[m], qp_mu_N,
-                                  wct, mu0, config.i_mu0_start, ns, F0, fw)
-                     for k, sh in enumerate(shifts)]
-            ie_el = tuple(torch.stack(f) for f in zip(*ie_el))
-            add, add_ie = doubling_rs(r_mp, t_pp, j_p[..., 0], j_m[..., 0],
-                                      expk[:, 0], ie_el, config.ndoubl,
-                                      d_vec, shifts)
-            comp_ie = ie_interaction(comp, add, comp_ie, add_ie, shifts)
+        for z in range(config.nz):
+            add, add_ie = _added_layer_rs(col, config, m, z, shifts, src_fn)
+            comp_ie = ie_interaction(comp, add, comp_ie, add_ie, shifts,
+                                     src_fn)
             comp = interaction(comp, add)
 
-        surf = _surface_layer(inp.surf_r[m], inp.surf_j_m[m],
-                              inp.surf_direct_m[m], inp.surf_spec, F0,
-                              tau_sum[nz], mu0, inp.sif_spec, m == 0, config)
+        surf = _surface_rs(col, config, m)
         comp_ie = ie_interaction(comp, surf, comp_ie,
                                  ie_added_zero(n_r, n_spec, N, dtype, dev),
-                                 shifts)
+                                 shifts, src_fn)
         comp = interaction(comp, surf)
-        R = R + _weigh(comp.J0_m[..., 0], vza_rows, inp.vza_w[m])
-        T = T + _weigh(comp.J0_p[..., 0], vza_rows, inp.vza_w[m])
-        ieR = ieR + _weigh(comp_ie.ieJm.sum(dim=0), vza_rows, inp.vza_w[m])
-        ieT = ieT + _weigh(comp_ie.ieJp.sum(dim=0), vza_rows, inp.vza_w[m])
+        R = R + _weigh(comp.J0_m[..., 0], col.vza_rows, inp.vza_w[m])
+        T = T + _weigh(comp.J0_p[..., 0], col.vza_rows, inp.vza_w[m])
+        ieR = ieR + _weigh(comp_ie.ieJm.sum(dim=0), col.vza_rows,
+                           inp.vza_w[m])
+        ieT = ieT + _weigh(comp_ie.ieJp.sum(dim=0), col.vza_rows,
+                           inp.vza_w[m])
     return {"R": R, "T": T, "ieR": ieR, "ieT": ieT}
 
 
@@ -453,7 +523,11 @@ def rt_solve_rrs_fused(inputs, config, shifts, w_shifts, Z_r_pp, Z_r_mp,
     only the surface step runs the plain ``ie_interaction``. The ie ladder
     runs at ``ie_ladder_resolution`` (two doublings coarser, a shorter NS
     schedule) with its own precursors; ``ie_fullres=True`` runs it at the
-    elastic resolution. Same returns as ``rt_solve_rrs``."""
+    elastic resolution. Same returns as ``rt_solve_rrs``. The kernels take
+    the RRS roll only: per-target (VS) weights are refused."""
+    if torch.as_tensor(w_shifts).ndim != 1:
+        raise ValueError("rt_solve_rrs_fused takes the RRS roll (one weight "
+                         "a shift); a VS setup runs rt_solve_rrs")
     dev = resolve_device(device)
     dtype = config.torch_dtype
     n_spec, N, ns = config.n_spec, config.N, config.n_stokes
@@ -497,70 +571,112 @@ def rt_solve_rrs_fused(inputs, config, shifts, w_shifts, Z_r_pp, Z_r_mp,
     return {"R": R, "T": T, "ieR": ieR, "ieT": ieT}
 
 
-def inelastic_setup(model, i_band: int = 0, mode: str = "RRS", device=None):
-    """Setup of the inelastic solves: (inputs, config, shifts, w_shifts,
-    Z_r_pp, Z_r_mp, fscatt), tensors on ``device`` as float64. Only
-    ``mode="RRS"`` is ported."""
-    if mode in ("VS_0to1", "VS_1to0"):
-        raise NotImplementedError(
-            f"inelastic mode {mode!r} (vibrational Raman) is not ported yet; "
-            "it is queued in ROADMAP.md")
-    if mode != "RRS":
-        raise ValueError(f"unknown inelastic mode {mode!r}")
-    from ..inelastic.rrs_setup import greek_raman, rrs_redistribution
-    from .model import z_moment_stack
-
-    dev = resolve_device(device)
-    band = model.bands[i_band]
+def refuse_thermal(band):
+    """The inelastic solves carry the solar source only: a band with a
+    Planck source is refused. (The JAX package's RRS and VS solvers never
+    read ``thermal_b`` and return the solar-only answer for such a scene;
+    the port does not copy that.)"""
     if band.thermal_b is not None:
-        raise NotImplementedError("the RRS solve carries the solar source "
-                                  "only; thermal emission is not ported")
-    inputs, config = model.build_band(i_band, device=dev, rrs=True)
-    shifts, w_shifts, _ = rrs_redistribution(band.nu_grid)
-    if len(shifts) == 0:
-        raise ValueError("spectral grid too narrow/coarse for any rotational-"
-                         "Raman shift (lines span ~ +-200 cm^-1)")
-    # The band's Cabannes fraction normalizes the weights, so the elastic +
-    # inelastic split matches the elastic path.
-    w_shifts = w_shifts * (1.0 - band.pi_cabannes) / w_shifts.sum()
+        raise NotImplementedError(
+            "the inelastic solves carry the solar source only; a scene with "
+            "thermal emission is refused")
 
-    Z_r_pp, Z_r_mp = (z[:, 0] for z in z_moment_stack(
-        model.params.polarization, model.quad.qp_mu, [greek_raman()],
-        config.m_max + 1))
-    # Rayleigh fraction of layer scattering (fScattRayleigh,
-    # compEffectiveLayerProperties.jl:56): tau_rayl / (tau_rayl + tau_aer).
+
+def rayleigh_fraction(band) -> np.ndarray:
+    """(Nz, nSpec) Rayleigh fraction of layer scattering (fScattRayleigh,
+    compEffectiveLayerProperties.jl:56): tau_rayl / (tau_rayl + tau_aer)."""
     tau_scat_mix = band.tau_rayl.T.copy()          # (Nz, s)
     for aer in band.aerosols:
         prof = np.asarray(aer.tau_profile)
         tau_scat_mix = tau_scat_mix + (prof[:, None] if prof.ndim == 1
                                        else prof.T)
-    fscatt = band.tau_rayl.T / np.where(tau_scat_mix > 0, tau_scat_mix, 1.0)
-    return (inputs, config, *rrs_setup_from_numpy(
-        shifts, w_shifts, Z_r_pp, Z_r_mp, fscatt, dev))
+    return band.tau_rayl.T / np.where(tau_scat_mix > 0, tau_scat_mix, 1.0)
 
 
-def rt_run_inelastic(model, i_band: int = 0, mode: str = "RRS", device=None,
-                     ie_fullres=False):
-    """User-facing inelastic forward run (reference rt_run(RRS(), model)):
-    every spectral point exchanges with its rotational-line neighbourhood.
+def raman_z_stack(model, config, greek):
+    """(n_m, N, N) Raman phase matrices (Z++, Z-+) of one Greek set."""
+    from .model import z_moment_stack
+    Z_pp, Z_mp = (z[:, 0] for z in z_moment_stack(
+        model.params.polarization, model.quad.qp_mu, [greek],
+        config.m_max + 1))
+    return Z_pp, Z_mp
 
-    An f32 model on CUDA runs the kernel path (``rt_solve_rrs_fused``),
-    anything else the plain path; so does a scene wider than K3 takes
-    (N > ``ops.fused_rrs.KERNEL_MAX_N``), with one warning, when
-    ``model.params.fused`` was left at None. Returns numpy (R, T, ieR, ieT):
-    the elastic radiance factors and the inelastic contributions, each
-    (nVZA, n_stokes, nSpec). Total = R + ieR."""
+
+def inelastic_setup(model, i_band: int = 0, mode: str = "RRS", device=None):
+    """Setup of the inelastic solves: (inputs, config, shifts, w_shifts,
+    Z_r_pp, Z_r_mp, fscatt), tensors on ``device`` as float64. "RRS":
+    every rotational shift with its weight (nR,); "VS_0to1" / "VS_1to0":
+    one fixed-source slot, shifts (0,), with the per-target weights
+    (1, nSpec) (the grid's first point is the incident wavelength;
+    ``inelastic.vs_setup.vs_band_grid``). The source map of the mode is
+    ``source_map(mode)``."""
+    from ..inelastic.rrs_setup import greek_raman, rrs_redistribution
+
+    src_fn = source_map(mode)
     dev = resolve_device(device)
-    (inputs, config, shifts, w_shifts, Z_r_pp, Z_r_mp,
-     fscatt) = inelastic_setup(model, i_band, mode, dev)
+    band = model.bands[i_band]
+    refuse_thermal(band)
+    inputs, config = model.build_band(i_band, device=dev, rrs=True)
+    if src_fn is _roll0:
+        shifts, w_shifts, _ = rrs_redistribution(band.nu_grid)
+        if len(shifts) == 0:
+            raise ValueError("spectral grid too narrow/coarse for any "
+                             "rotational-Raman shift (lines span ~ +-200 "
+                             "cm^-1)")
+        # The band's Cabannes fraction normalizes the weights, so the
+        # elastic + inelastic split matches the elastic path.
+        w_shifts = w_shifts * (1.0 - band.pi_cabannes) / w_shifts.sum()
+    else:
+        from ..inelastic.vs_setup import vs_redistribution
+        w_targets, _, _ = vs_redistribution(band.nu_grid, mode)
+        if not np.any(w_targets > 0):
+            raise ValueError(
+                f"no {mode} Raman line lands on the scattered band; build "
+                "the grid with vs_setup.vs_band_grid (first point = "
+                "incident wavelength)")
+        shifts = np.zeros(1, dtype=np.int32)      # one fixed-source slot
+        w_shifts = w_targets[None, :]             # (1, nSpec) target weights
+
+    Z_r_pp, Z_r_mp = raman_z_stack(model, config, greek_raman())
+    return (inputs, config, *rrs_setup_from_numpy(
+        shifts, w_shifts, Z_r_pp, Z_r_mp, rayleigh_fraction(band), dev))
+
+
+def solve_rrs_route(model, inputs, config, rrs, dev, ie_fullres=False):
+    """The RRS solve of a set-up scene (``rrs`` = (shifts, w_shifts, Z_r_pp,
+    Z_r_mp, fscatt)) by its route: an f32 model on CUDA runs the kernel
+    path (``rt_solve_rrs_fused``), anything else the plain path; so does a
+    scene wider than K3 takes (N > ``ops.fused_rrs.KERNEL_MAX_N``), with
+    one warning, when ``model.params.fused`` was left at None."""
     if config.fused and model.params.fused is None and not \
             kernel_takes_width("K3 (csrc/fused_rrs.cu)", KERNEL_MAX_N,
                                config.N):
         config = dataclasses.replace(config, fused=False)
     if config.fused:
-        out = rt_solve_rrs_fused(inputs, config, shifts, w_shifts, Z_r_pp,
-                                 Z_r_mp, fscatt, dev, ie_fullres=ie_fullres)
+        return rt_solve_rrs_fused(inputs, config, *rrs, dev,
+                                  ie_fullres=ie_fullres)
+    return rt_solve_rrs(inputs, config, *rrs, dev)
+
+
+def rt_run_inelastic(model, i_band: int = 0, mode: str = "RRS", device=None,
+                     ie_fullres=False):
+    """User-facing inelastic forward run (reference rt_run(RS_type, model)
+    for RS_type in RRS / VS_0to1 / VS_1to0).
+
+    mode="RRS": rotational Raman, every spectral point exchanges with its
+    rotational-line neighbourhood; ``solve_rrs_route`` picks the kernel or
+    the plain path. mode="VS_0to1" / "VS_1to0": vibrational Raman, the
+    FIRST grid point is the incident wavelength and the rest of the grid
+    the scattered band (elemental_inelastic.jl:279-294; build such grids
+    with ``inelastic.vs_setup.vs_band_grid``); it runs the plain
+    fixed-source solve on any device, as in the JAX package. Returns numpy
+    (R, T, ieR, ieT): the elastic radiance factors and the inelastic
+    contributions, each (nVZA, n_stokes, nSpec). Total = R + ieR."""
+    dev = resolve_device(device)
+    inputs, config, *rrs = inelastic_setup(model, i_band, mode, dev)
+    src_fn = source_map(mode)
+    if src_fn is _roll0:
+        out = solve_rrs_route(model, inputs, config, rrs, dev, ie_fullres)
     else:
-        out = rt_solve_rrs(inputs, config, shifts, w_shifts, Z_r_pp, Z_r_mp,
-                           fscatt, dev)
+        out = rt_solve_rrs(inputs, config, *rrs, dev, src_fn=src_fn)
     return tuple(out[k].cpu().numpy() for k in ("R", "T", "ieR", "ieT"))

@@ -169,6 +169,8 @@ class BandData:
     sif_spec: Optional[np.ndarray] = None
     # per-molecule absorption components (nSpec, Nz), for gas-VMR Jacobians
     tau_abs_by_mol: dict = field(default_factory=dict)
+    # optional solar or stellar irradiance spectrum (nSpec,) scaling F0
+    f0_spec: Optional[np.ndarray] = None
 
     @property
     def n_spec(self) -> int:
@@ -328,6 +330,8 @@ class RTModel:
                 vza_w[m, iv] = w * np.array([cosm, cosm, sinm, sinm][:ns])
 
         F0 = np.tile(pol.I0[:, None], (1, n_spec))
+        if band.f0_spec is not None:
+            F0 = F0 * np.asarray(band.f0_spec)[None, :]
         if not params.include_solar:
             F0 = np.zeros_like(F0)
 

@@ -128,7 +128,8 @@ class SolverInputs(NamedTuple):
 
 def solver_inputs_from_numpy(fields: dict, device, dtype=torch.float64):
     """``SolverInputs`` from a dict of arrays (e.g. the fields of the JAX
-    package's ``build_band`` inputs), copied to ``device`` as ``dtype``."""
+    package's ``build_band`` inputs), copied to ``device`` as ``dtype``.
+    F0 is taken as given: a band's ``f0_spec`` has already scaled it."""
     dev = torch.device(device)
     return SolverInputs(**{
         f: torch.as_tensor(np.asarray(fields[f]), dtype=dtype, device=dev)
@@ -151,14 +152,22 @@ def solver_config_from_dict(d: dict) -> SolverConfig:
 
 def rrs_setup_from_numpy(shifts, w_shifts, Z_r_pp, Z_r_mp, fscatt, device,
                          dtype=torch.float64):
-    """The Raman part of an RRS setup (e.g. the JAX package's
+    """The Raman part of an inelastic setup (e.g. the JAX package's
     ``inelastic_setup`` outputs as numpy): (shifts as a tuple of ints,
-    w_shifts (nR,), Z_r_pp / Z_r_mp (n_m, N, N), fscatt (Nz, nSpec)) with
-    the arrays copied to ``device`` as ``dtype``."""
+    w_shifts, Z_r_pp / Z_r_mp (n_m, N, N), fscatt (Nz, nSpec)) with the
+    arrays copied to ``device`` as ``dtype``. w_shifts is (nR,), one
+    weight a shift (RRS), or (nR, nSpec), per-target weights (VS: shifts
+    (0,) and one row); any other shape is refused."""
     dev = torch.device(device)
-    return (tuple(int(v) for v in np.asarray(shifts)),
-            *(torch.as_tensor(np.array(x), dtype=dtype, device=dev)
-              for x in (w_shifts, Z_r_pp, Z_r_mp, fscatt)))
+    shifts = tuple(int(v) for v in np.asarray(shifts).reshape(-1))
+    w = np.asarray(w_shifts)
+    n_spec = np.asarray(fscatt).shape[-1]
+    if w.shape not in ((len(shifts),), (len(shifts), n_spec)):
+        raise ValueError(f"w_shifts of shape {w.shape} for {len(shifts)} "
+                         f"shifts and {n_spec} points: want ({len(shifts)},)"
+                         f" or ({len(shifts)}, {n_spec})")
+    return (shifts, *(torch.as_tensor(np.array(x), dtype=dtype, device=dev)
+                      for x in (w, Z_r_pp, Z_r_mp, fscatt)))
 
 
 def stokes_d_vector(n_stokes: int, nquad: int, dtype=np.float64) -> np.ndarray:

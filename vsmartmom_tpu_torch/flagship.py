@@ -14,6 +14,13 @@
 * The small RRS scene of the stored JAX reference ``data/rrs_ref_f64.npz``
   and the small aerosol Jacobian scene of ``data/lin_ref_f64.npz``, which
   the CPU tests and the chip smoke test both build from here.
+* The Raman scenes on the RRS+SIF column (``sif_column_model``): the
+  vibrational ``vs_sif_model``, the stellar rotational ``stellar_sif_model``
+  (a dipped stellar spectrum) and the stellar vibrational
+  ``stellar_vs_sif_model``; and the small scenes of the stored JAX
+  references ``data/vs_ref_f64.npz``, ``data/stellar_ref_f64.npz`` and
+  ``data/ms_rrs_ref_f64.npz`` (``vs_ref_model``, ``stellar_ref_model``,
+  ``ms_rrs_ref_model``).
 * The O2 A-band scene ``aband_model``: the flagship moved to 12980 cm^-1
   with O2 line absorption from a synthetic line list
   (``write_aband_par``), and its small twin ``aband_ref_model`` of the
@@ -124,22 +131,74 @@ def thermal_lin_model(n_spec=1024, dtype=np.float32, thermal=True):
     return add_thermal_emission(model) if thermal else model
 
 
-def rrs_sif_model(n_spec=256, dtype=np.float32, nstreams=8,
-                  polarization=STOKES_IQU, fused=None):
-    """RTModel of the RRS+SIF scene: 8 Rayleigh layers (230-290 K, 50-1013
-    hPa) over a 0.05-albedo Lambertian floor emitting SIF of 1e-3, sza 45,
-    vza 0/30/60; at nSpec = 256 the rotational-Raman redistribution has
-    58 shifts."""
+def sif_column_model(nu_grid, dtype=np.float32, nstreams=8,
+                     polarization=STOKES_IQU, fused=None):
+    """RTModel of the RRS+SIF scene's column on the wavenumber grid
+    ``nu_grid``: 8 Rayleigh layers (230-290 K, 50-1013 hPa) over a
+    0.05-albedo Lambertian floor emitting SIF of 1e-3, sza 45, vza
+    0/30/60."""
+    nu_grid = np.asarray(nu_grid, dtype=np.float64)
     params = Parameters(
-        spec_bands=[12950.0 + 0.6 * np.arange(n_spec)],
+        spec_bands=[nu_grid],
         surfaces=[SurfaceDescriptor("LambertianSurfaceScalar", [0.05])],
         nstreams=nstreams, polarization=polarization,
         sza=45.0, vza=[0.0, 30.0, 60.0], vaz=[0.0, 0.0, 0.0], obs_alt=0.0,
         T=np.linspace(230.0, 290.0, 8), p=np.linspace(50.0, 1013.0, 9),
         depol=-1.0, float_type=dtype, fused=fused)
     model = model_from_parameters(params)
-    model.bands[0].sif_spec = 1e-3 * np.ones(n_spec)
+    model.bands[0].sif_spec = 1e-3 * np.ones(len(nu_grid))
     return model
+
+
+def rrs_sif_model(n_spec=256, dtype=np.float32, nstreams=8,
+                  polarization=STOKES_IQU, fused=None):
+    """RTModel of the RRS+SIF scene: ``sif_column_model`` from 12950
+    cm^-1 at 0.6 cm^-1 steps; at nSpec = 256 the rotational-Raman
+    redistribution has 58 shifts."""
+    return sif_column_model(12950.0 + 0.6 * np.arange(n_spec), dtype,
+                            nstreams, polarization, fused)
+
+
+def vs_sif_model(mode="VS_0to1", dtype=np.float32):
+    """RTModel of the vibrational-Raman scene: the RRS+SIF column on
+    ``vs_band_grid(25000.0, mode=mode)`` (the reference's recipe: the
+    incident 25000 cm^-1, then the scattered band 400 cm^-1 wide at 0.3
+    cm^-1 around the mean N2/O2 Q-branch shift; 1335 points, 15 of them
+    with weight)."""
+    from .inelastic.vs_setup import vs_band_grid
+    return sif_column_model(vs_band_grid(25000.0, mode=mode), dtype)
+
+
+def stellar_f0_dip(nu_grid, width=12.0, depth=0.7):
+    """A Fraunhofer-like line in a flat stellar spectrum: 1 - depth
+    exp(-((nu - nu_c) / width)^2) about the grid's middle point nu_c (the
+    JAX package's stellar Ring test: a 70% deep line, 12 cm^-1 wide)."""
+    nu_grid = np.asarray(nu_grid, dtype=np.float64)
+    x = (nu_grid - nu_grid[len(nu_grid) // 2]) / width
+    return 1.0 - depth * np.exp(-x ** 2)
+
+
+#: The stellar rotational-Raman scene's grid: 1024 points from 18000 cm^-1
+#: (555.6 nm) at 1.5625 cm^-1, which the H2 lines reach in 8 shifts.
+STELLAR_NU0, STELLAR_STEP = 18000.0, 1.5625
+
+
+def stellar_sif_model(n_spec=1024, dtype=np.float32):
+    """RTModel of the stellar rotational-Raman scene: the RRS+SIF column
+    from ``STELLAR_NU0`` at ``STELLAR_STEP`` with the stellar spectrum
+    ``stellar_f0_dip`` as ``f0_spec``."""
+    nu = STELLAR_NU0 + STELLAR_STEP * np.arange(n_spec)
+    model = sif_column_model(nu, dtype)
+    model.bands[0].f0_spec = stellar_f0_dip(nu)
+    return model
+
+
+def stellar_vs_sif_model(mode="sol_VS_0to1", dtype=np.float32):
+    """RTModel of the stellar vibrational-Raman scene: the RRS+SIF column
+    on ``sol_vs_plus_grid(540.0, mode, dnu=1.0)`` (the incident 540 nm,
+    then the H2 rovibrational band: 3552 points for sol_VS_0to1)."""
+    from .inelastic.stellar import sol_vs_plus_grid
+    return sif_column_model(sol_vs_plus_grid(540.0, mode, dnu=1.0), dtype)
 
 
 #: The small RRS scene of ``data/rrs_ref_f64.npz`` (the scene of the JAX
@@ -227,6 +286,113 @@ def lin_thermal_model(dtype=np.float32):
     model = lin_ref_model(dtype)
     model.bands[0].thermal_b = lin_thermal_b(model.profile.nz,
                                              model.bands[0].n_spec)
+    return model
+
+
+#: The small vibrational-Raman scene of ``data/vs_ref_f64.npz`` (the scene
+#: of the JAX package's tests/test_raman.py TestVibrationalRaman, its grid
+#: cut to 102 points): ``vs_band_grid(25000.0, VS_REF_HALF_WIDTH,
+#: VS_REF_STEP)`` (15 targets with weight) and the column's Rayleigh depth.
+VS_REF_HALF_WIDTH, VS_REF_STEP, VS_REF_TAU = 200.0, 4.0, 0.15
+
+
+def vs_ref_params(mode="VS_0to1"):
+    """``Parameters`` keywords of the small VS scene, less ``surfaces`` and
+    ``polarization``: 2 layers, nstreams 4, sza 45, f32 (plain data, so
+    the JAX package's ``Parameters`` takes them too)."""
+    from .inelastic.vs_setup import vs_band_grid
+    return dict(spec_bands=[vs_band_grid(25000.0, VS_REF_HALF_WIDTH,
+                                         VS_REF_STEP, mode)],
+                nstreams=4, sza=45.0, vza=[0.0, 40.0], vaz=[0.0, 90.0],
+                obs_alt=0.0, T=np.array([250.0, 275.0]),
+                p=np.array([100.0, 500.0, 1013.0]), depol=-1.0,
+                float_type=np.float32)
+
+
+def vs_ref_model(mode="VS_0to1", polarization=STOKES_IQU):
+    """RTModel of the small VS scene: ``vs_ref_params`` over a black
+    Lambertian floor, the Rayleigh depth ``VS_REF_TAU`` split evenly over
+    the two layers."""
+    model = model_from_parameters(Parameters(
+        surfaces=[SurfaceDescriptor("LambertianSurfaceScalar", [0.0])],
+        polarization=polarization, **vs_ref_params(mode)))
+    model.bands[0].tau_rayl[:] = VS_REF_TAU / 2
+    return model
+
+
+#: The small stellar scenes of ``data/stellar_ref_f64.npz`` (the scene of
+#: the JAX package's tests/test_stellar_raman.py): the sol_RRS grid
+#: (200 points, 8 H2 shifts), the sol_VS grid step and the column's
+#: scattering depth.
+STELLAR_REF_NU = np.arange(18000.0, 19600.0, 8.0)
+STELLAR_REF_VS_STEP, STELLAR_REF_TAU = 16.0, 0.3
+
+
+def stellar_ref_params(mode="sol_RRS"):
+    """``Parameters`` keywords of the small stellar scene, less
+    ``surfaces`` and ``polarization``: 2 layers, nstreams 4, sza 30, the
+    H2 Rayleigh depolarization 0.02, f32; the grid ``STELLAR_REF_NU`` for
+    sol_RRS, ``sol_vs_plus_grid(540.0, mode, STELLAR_REF_VS_STEP)``
+    otherwise (plain data: the JAX package's ``Parameters`` takes them
+    too)."""
+    from .inelastic.stellar import sol_vs_plus_grid
+    nu = STELLAR_REF_NU if mode == "sol_RRS" else \
+        sol_vs_plus_grid(540.0, mode, dnu=STELLAR_REF_VS_STEP)
+    return dict(spec_bands=[np.asarray(nu, dtype=np.float64)], nstreams=4,
+                sza=30.0, vza=[0.0, 40.0], vaz=[0.0, 0.0], obs_alt=0.0,
+                T=np.array([200.0, 300.0]),
+                p=np.array([100.0, 500.0, 1013.0]), depol=0.02,
+                float_type=np.float32)
+
+
+def stellar_ref_model(mode="sol_RRS"):
+    """RTModel of the small stellar scene: ``stellar_ref_params(mode)``,
+    Stokes I, over a black Lambertian floor, the scattering depth
+    ``STELLAR_REF_TAU`` split evenly over the layers (the H2 column); for
+    sol_RRS the stellar spectrum ``stellar_f0_dip`` as ``f0_spec``."""
+    from .scattering.stokes import STOKES_I
+    model = model_from_parameters(Parameters(
+        surfaces=[SurfaceDescriptor("LambertianSurfaceScalar", [0.0])],
+        polarization=STOKES_I, **stellar_ref_params(mode)))
+    band = model.bands[0]
+    band.tau_rayl[:] = STELLAR_REF_TAU / band.tau_rayl.shape[1]
+    if mode == "sol_RRS":
+        band.f0_spec = stellar_f0_dip(band.nu_grid)
+    return model
+
+
+#: The small multisensor-Raman scene of ``data/ms_rrs_ref_f64.npz`` (the
+#: scene of the JAX package's tests/test_multisensor_rrs.py, its RRS grid
+#: cut to 16 points, 6 shifts): the RRS grid, the floor's albedo, each
+#: layer's Rayleigh depth and the sensor levels.
+MS_RRS_REF_NU = 12950.0 + 2.0 * np.arange(16)
+MS_RRS_REF_ALBEDO, MS_RRS_REF_TAUS = 0.3, (0.075, 0.075)
+MS_RRS_REF_LEVELS = (0, 1, 2)
+
+
+def ms_rrs_ref_params(mode="RRS"):
+    """``Parameters`` keywords of the small multisensor-Raman scene, less
+    ``surfaces`` and ``polarization``: 2 layers, nstreams 4, sza 45, f32;
+    the grid ``MS_RRS_REF_NU`` for RRS, ``vs_ref_params``'s for the VS
+    modes (plain data: the JAX package's ``Parameters`` takes them too)."""
+    nu = MS_RRS_REF_NU if mode == "RRS" else \
+        vs_ref_params(mode)["spec_bands"][0]
+    return dict(spec_bands=[nu], nstreams=4, sza=45.0, vza=[0.0, 40.0],
+                vaz=[0.0, 90.0], obs_alt=0.0, T=np.linspace(250.0, 285.0, 2),
+                p=np.linspace(100.0, 1013.0, 3), depol=-1.0,
+                float_type=np.float32)
+
+
+def ms_rrs_ref_model(mode="RRS", polarization=STOKES_IQU):
+    """RTModel of the small multisensor-Raman scene: ``ms_rrs_ref_params``
+    over a ``MS_RRS_REF_ALBEDO`` Lambertian floor, layer Rayleigh depths
+    ``MS_RRS_REF_TAUS``."""
+    model = model_from_parameters(Parameters(
+        surfaces=[SurfaceDescriptor("LambertianSurfaceScalar",
+                                    [MS_RRS_REF_ALBEDO])],
+        polarization=polarization, **ms_rrs_ref_params(mode)))
+    for i, t in enumerate(MS_RRS_REF_TAUS):
+        model.bands[0].tau_rayl[:, i] = t
     return model
 
 

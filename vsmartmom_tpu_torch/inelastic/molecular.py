@@ -3,9 +3,10 @@
 Computes, per wavelength, the effective polarizability, anisotropy,
 rotational-Raman line strengths (Placzek theory), and from them the
 Rayleigh/Cabannes depolarization factors and the Cabannes (elastic)
-single-scattering fraction of air. The port carries only what
-the "auto depol" path (params.depol < 0) of the model build needs; the
-vibrational and rovibrational lines wait for the inelastic slice.
+single-scattering fraction of air. These drive the "auto depol" path
+(params.depol < 0) of the model build and the RRS redistribution weights;
+the vibrational Q-branch and rovibrational O/S-branch lines (v 0<->1)
+drive the vibrational-Raman setups (``vs_setup.py``, ``stellar.py``).
 
 Behavioral references:
   vSmartMOM.jl src/Inelastic/src/molecular_constructors.jl:1-143
@@ -52,6 +53,8 @@ class Molecule:
     # Effective, computed fields
     alpha_bar: float = 0.0
     gamma_bar: float = 0.0
+    alpha_prime: float = 0.0
+    gamma_prime: float = 0.0
     gamma_C_Rayl: float = 0.0
     sigma_Rayl_coeff: float = 0.0
     E_vJ: np.ndarray = field(default=None, repr=False)
@@ -60,6 +63,23 @@ class Molecule:
     sigma_RR_Jm2: np.ndarray = field(default=None, repr=False)
     dnu_RR_Jp2: np.ndarray = field(default=None, repr=False)
     dnu_RR_Jm2: np.ndarray = field(default=None, repr=False)
+    # Vibrational Raman Q-branch lines v: 0<->1 per Ji
+    # (compute_sigma_Rayl_VibRaman_coeff_hires!,
+    # inelastic_cross_section.jl:84-153)
+    sigma_VR_0to1: np.ndarray = field(default=None, repr=False)
+    sigma_VR_1to0: np.ndarray = field(default=None, repr=False)
+    dnu_VR_0to1: np.ndarray = field(default=None, repr=False)
+    dnu_VR_1to0: np.ndarray = field(default=None, repr=False)
+    # Rovibrational Raman O/S branches (J -> J+-2, v: 0<->1)
+    # (compute_sigma_RoVibRaman_coeff!, inelastic_cross_section.jl:222-376)
+    sigma_RVR_0to1_Jp2: np.ndarray = field(default=None, repr=False)
+    sigma_RVR_0to1_Jm2: np.ndarray = field(default=None, repr=False)
+    sigma_RVR_1to0_Jp2: np.ndarray = field(default=None, repr=False)
+    sigma_RVR_1to0_Jm2: np.ndarray = field(default=None, repr=False)
+    dnu_RVR_0to1_Jp2: np.ndarray = field(default=None, repr=False)
+    dnu_RVR_0to1_Jm2: np.ndarray = field(default=None, repr=False)
+    dnu_RVR_1to0_Jp2: np.ndarray = field(default=None, repr=False)
+    dnu_RVR_1to0_Jm2: np.ndarray = field(default=None, repr=False)
 
 
 def _n2(vmr=0.8) -> Molecule:
@@ -111,6 +131,8 @@ def compute_molecular_constants(nu_eff: float, T: float, mol: Molecule) -> Molec
     mol.alpha_bar = (mol.alpha00 * (1 + mol.alpha_b * T + mol.alpha_c * T ** 2)
                      / (1 - (C_CGS * nu_eff / mol.omega0) ** 2))
     mol.gamma_bar = mol.gamma00
+    mol.alpha_prime = mol.alpha00_prime * np.sqrt(mol.Y[0, 1] / mol.Y[1, 0])
+    mol.gamma_prime = mol.gamma00_prime * np.sqrt(mol.Y[0, 1] / mol.Y[1, 0])
     eps = mol.alpha_bar / mol.gamma_bar
     mol.gamma_C_Rayl = 3.0 / (45.0 * eps ** 2 + 4.0)
 
@@ -147,6 +169,47 @@ def compute_molecular_constants(nu_eff: float, T: float, mol: Molecule) -> Molec
     mol.dnu_RR_Jm2 = np.where(Ji >= 2, dnu_m2, 0.0)
     mol.dnu_RR_Jp2 = np.where(Ji + 2 <= JMAX, dnu_p2, 0.0)
 
+    # --- Vibrational Raman v: 0<->1 ---------------------------------------
+    # Q-branch (Delta J = 0) lines with the polarizability-derivative
+    # anisotropy ratio (compute_sigma_Rayl_VibRaman_coeff_hires!,
+    # inelastic_cross_section.jl:84-153): per-line gamma_C from
+    # 3/(4 + 45 (alpha'/(b_JJ gamma'))^2).
+    E1 = mol.E_vJ[1, :]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        b_JJ = Ji * (Ji + 1) / ((2 * Ji - 1.0) * (2 * Ji + 3.0))
+        # Ji = 0: b_JJ = 0 -> gamma_C -> 3/(4+inf) = 0 (isotropic Q line)
+        gamma_C_vib = 3.0 / (4.0 + 45.0 * (mol.alpha_prime
+                                           / (b_JJ * mol.gamma_prime)) ** 2)
+    pol_fac = (1.0 + 2.0 * gamma_C_vib) / (3.0 - 4.0 * gamma_C_vib)
+    kv = _RAYL_PREFACTOR * mol.alpha_prime ** 2
+    mol.sigma_VR_0to1 = kv * gN * (2 * Ji + 1) * boltz0 * pol_fac / Z_pf
+    mol.sigma_VR_1to0 = kv * gN * (2 * Ji + 1) * boltz1 * pol_fac / Z_pf
+    mol.dnu_VR_0to1 = -(E1 - E0)           # Stokes: scattered nu decreases
+    mol.dnu_VR_1to0 = -(E0 - E1)           # anti-Stokes
+
+    # O/S branches (Delta J = +-2) with gamma_prime^2 and Placzek b-factors
+    # (compute_sigma_RoVibRaman_coeff!, inelastic_cross_section.jl:222-376).
+    base_rv0 = (_ROVIB_PREFACTOR * gN * (2 * Ji + 1) * boltz0
+                * mol.gamma_prime ** 2 / Z_pf)
+    base_rv1 = (_ROVIB_PREFACTOR * gN * (2 * Ji + 1) * boltz1
+                * mol.gamma_prime ** 2 / Z_pf)
+    mol.sigma_RVR_0to1_Jm2 = np.where(Ji >= 2, base_rv0 * b_Jm2, 0.0)
+    mol.sigma_RVR_0to1_Jp2 = np.where(Ji + 2 <= JMAX, base_rv0 * b_Jp2, 0.0)
+    mol.sigma_RVR_1to0_Jm2 = np.where(Ji >= 2, base_rv1 * b_Jm2, 0.0)
+    mol.sigma_RVR_1to0_Jp2 = np.where(Ji + 2 <= JMAX, base_rv1 * b_Jp2, 0.0)
+
+    def _dnu(vf_E, vi_E, dJ):
+        out = np.zeros(JMAX + 1)
+        if dJ == -2:
+            out[2:] = -(vf_E[:-2] - vi_E[2:])
+        else:
+            out[:-2] = -(vf_E[2:] - vi_E[:-2])
+        return out
+
+    mol.dnu_RVR_0to1_Jm2 = np.where(Ji >= 2, _dnu(E1, E0, -2), 0.0)
+    mol.dnu_RVR_0to1_Jp2 = np.where(Ji + 2 <= JMAX, _dnu(E1, E0, +2), 0.0)
+    mol.dnu_RVR_1to0_Jm2 = np.where(Ji >= 2, _dnu(E0, E1, -2), 0.0)
+    mol.dnu_RVR_1to0_Jp2 = np.where(Ji + 2 <= JMAX, _dnu(E0, E1, +2), 0.0)
     return mol
 
 
