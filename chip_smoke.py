@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Ten paths
+Run from the root of a checkout: ``python3 chip_smoke.py``. Eleven paths
 are driven: the flagship forward ``rt_run`` (band kernel K1), the
 rotational-Raman forward ``rt_run_inelastic`` (K1 for the elastic half, the
 block-bichromatic RRS kernel K3 for the inelastic one), the aerosol
@@ -19,7 +19,9 @@ Raman paths: vibrational Raman ``rt_run_inelastic(mode="VS_0to1")`` and
 the stellar vibrational ``rt_run_stellar(mode="sol_VS_0to1")`` (plain
 fixed-source solves on the card), the stellar rotational
 ``rt_run_stellar(mode="sol_RRS")`` (K1 and K3, the ie ladder at full
-resolution) and the multisensor Raman ``rt_run_ms_rrs`` (plain torch).
+resolution) and the multisensor Raman ``rt_run_ms_rrs`` (plain torch);
+and a GEOS-Chem column from its (synthetic) GCHP collections through the
+TOML front end and ``model_from_parameters`` to ``rt_run`` (K1).
 Phases, each of which fails the run (non-zero exit) on a miss:
 
 1. setup — the card's name and power limit; every CUDA kernel of the port
@@ -221,7 +223,26 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    best of 3 after a warm-up, synchronised) and K3's time a call at the
    stellar shape against its least-work bound (``rrs_flops``), with its
    plain version's (not in the kernels line, which keeps the RRS+SIF
-   shapes).
+   shapes);
+11. GEOS-Chem (``geoschem_phase``) on ``flagship.geoschem_model`` (the
+   synthetic StateMet and Aerosols collections of
+   ``flagship.write_geoschem_column`` in GCHP's C order, written to a
+   temporary directory; the TOML scene with the column's profile,
+   ``parameters_from_dict`` with ``validate=False``, as this machine has
+   no jsonschema; three two-moment Mie aerosols by ``to_rt_aerosols`` at
+   the column's mid-pressures; 72 layers, C = 4, N = 52, nSpec 4096) —
+   the build timed (``geoschem_build_s``: file reads, ``to_rt_aerosols``,
+   the Mie builds and ``build_band``, synchronised); the aerosol profiles
+   read from the GCHP-ordered files equal to those read from their
+   ``(lev, time)`` twins, exactly, for both scenes; ``rt_run`` counted (K1
+   4 x (m_scat + 1) times, nothing else: no moment took the plain route),
+   R and T finite; the kernel path against the plain path on the first
+   chunk (<= 1e-4) and K1 against its plain version at m = 0 and m_scat
+   (<= 1e-4); the small GEOS-Chem scene (``flagship.geoschem_ref_model``,
+   6 levels, f32) through K1 against ``data/geoschem_ref_f64.npz``
+   (<= 1e-4); timing: ``geoschem_pts_per_s`` (best of 3 after a warm-up)
+   and K1's time a launch at 72 layers against its bound and its plain
+   version's (not in the kernels line, which keeps the flagship shapes).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel. Without CUDA it exits non-zero and prints no result.
@@ -270,6 +291,8 @@ ABAND_N_SPEC, ABAND_LIN_N_SPEC, ABAND_SLICE = 4096, 1024, 64
 #: mid-column, and the JAX package's MS bench scene (scripts/bench_ms.py).
 MS_N_SPEC, MS_LEVELS = 1024, (0, 16, 33)
 MS_RRS_N_SPEC, MS_RRS_LEVELS = 256, (0, 4, 8)
+#: The GEOS-Chem column scene's width (``flagship.geoschem_model``).
+GEOSCHEM_N_SPEC = 4096
 
 
 def fail(msg):
@@ -1789,6 +1812,172 @@ def absorption_phase(dev, smi):
                          "bytes": k2_bytes, "plan": k2_plan}}), flush=True)
 
 
+def geoschem_phase(dev, smi):
+    """The GEOS-Chem column path: synthetic GCHP collections -> the TOML
+    scene file -> ``Parameters`` -> ``model_from_parameters`` -> ``rt_run``
+    through K1 (see the module docstring, phase 11)."""
+    import tempfile
+
+    from vsmartmom_tpu_torch import rt_run
+    from vsmartmom_tpu_torch.aerosols import read_aerosol_data
+    from vsmartmom_tpu_torch.core.solver import (band_moment_args, rt_solve,
+                                                 spectral_slice)
+    from vsmartmom_tpu_torch.flagship import (
+        GEOSCHEM_REF_N_LEV, GEOSCHEM_REF_SPECIES, GEOSCHEM_SPECIES,
+        geoschem_aerosol_config,
+        geoschem_model, geoschem_ref_model, write_geoschem_column)
+    from vsmartmom_tpu_torch.ops import fused_band
+    counted = launch_counted()
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        # 1. The collections, then the user's build, timed (file reads,
+        # to_rt_aerosols, the Mie builds and build_band, synchronised).
+        files = write_geoschem_column(d)
+        small = write_geoschem_column(d, n_lev=GEOSCHEM_REF_N_LEV,
+                                      species=GEOSCHEM_REF_SPECIES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = geoschem_model(GEOSCHEM_N_SPEC, files=files, device=dev,
+                               validate=False)
+        inputs, config = model.build_band(0, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        band = model.bands[0]
+        tau = band.tau_rayl + band.tau_abs + sum(
+            c.tau_profile[None, :] for c in band.aerosols)
+        n_comp = 1 + len(band.aerosols)
+        print(f"GEOS-Chem scene (synthetic GCHP collections, column "
+              f"(idx, idy, idf) (1, 2, 3); front end validate=False: no "
+              f"jsonschema on this machine): nSpec={GEOSCHEM_N_SPEC} "
+              f"nz={config.nz} C={n_comp} N={config.N} ndoubl="
+              f"{config.ndoubl} ns_sched={config.ns_sched} ns_inter="
+              f"{config.ns_inter} m_scat={config.m_scat} m_max="
+              f"{config.m_max}; aerosol tau_ref "
+              + " ".join(f"{a.tau_ref:.4f}" for a in
+                         model.params.scattering_params.rt_aerosols)
+              + f"; max layer tau {tau.max():.4g}, max dtau "
+              f"{tau.max() / 2 ** config.ndoubl:.3g}; build {build_s:.2f} s",
+              flush=True)
+        if not (config.fused and config.nz == 72 and n_comp == 4
+                and config.N == 52 and np.isfinite(tau).all()):
+            fail(f"GEOS-Chem scene: fused={config.fused} nz={config.nz} "
+                 f"C={n_comp} N={config.N}")
+
+        # 2. The profiles read from GCHP's order against the (lev, time)
+        # twin, exactly, for both scenes' collections.
+        for fs, species in ((files, tuple(GEOSCHEM_SPECIES)),
+                            (small, GEOSCHEM_REF_SPECIES)):
+            cfg = geoschem_aerosol_config(species)
+            a = read_aerosol_data(cfg, fs["aerosols"])
+            b = read_aerosol_data(cfg, fs["aerosols_lev_time"])
+            same = all(np.array_equal(v, b.species_data[sp].data[k])
+                       for sp, dd in a.species_data.items()
+                       for k, v in dd.data.items())
+            print(f"aerosol profiles, GCHP order vs (lev, time) twin "
+                  f"({len(a.species_data)} species, "
+                  f"{len(next(iter(a.species_data.values())).data['aod'])} "
+                  f"levels): {'equal' if same else 'DIFFER'}", flush=True)
+            if not same:
+                fail("aerosol profiles from GCHP's order differ from the "
+                     "(lev, time) twin")
+
+        # 3. rt_run, counted; kernel path vs plain path on the first chunk.
+        for fn in counted.values():
+            fn.launches = 0
+        R, T = rt_run(model, device=dev, spectral_chunk=N_CHUNK)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counted.items()}
+        want = {k: 0 for k in counted}
+        want["fused_moment"] = (GEOSCHEM_N_SPEC // N_CHUNK) \
+            * (config.m_scat + 1)
+        print(f"main path: GEOS-Chem rt_run nSpec={GEOSCHEM_N_SPEC}, "
+              f"launches {launches} (want {want})", flush=True)
+        if launches != want:
+            fail(f"GEOS-Chem rt_run launches {launches}, want {want}")
+        if R.shape != (9, 4, GEOSCHEM_N_SPEC) or not (
+                np.isfinite(R).all() and np.isfinite(T).all()):
+            fail(f"GEOS-Chem R/T not finite or of the wrong shape {R.shape}")
+        chunk0 = spectral_slice(inputs, config, 0, N_CHUNK)
+        kern = rt_solve(*chunk0, dev)
+        plain = rt_solve(chunk0[0], dataclasses.replace(
+            chunk0[1], fused=False, m_scat=-1, ns_sched=(), ns_inter=6), dev)
+        e_plain = {k: rel(kern[k], plain[k]) for k in ("R", "T")}
+        names = ("R_mp", "R_pm", "T_pp", "T_mm", "J0_p", "J0_m")
+        e_k1, abs_err = {}, 0.0
+        for m in (0, config.m_scat):
+            args = band_moment_args(*chunk0, m, dev)
+            out = fused_band.fused_moment(*args[0], **args[1])
+            torch.cuda.synchronize()
+            ref = fused_band.moment_reference(*args[0], **args[1])
+            e_k1[m] = max(rel(x, y) for x, y in zip(out, ref))
+            abs_err = max([abs_err] + [float((x - y).abs().max())
+                                       for x, y in zip(out, ref)])
+        print(f"GEOS-Chem kernel path vs plain path (chunk 0): "
+              f"R={e_plain['R']:.2e} T={e_plain['T']:.2e}; K1 vs plain "
+              "per moment (max over " + ",".join(names) + "): "
+              + " ".join(f"m={m}: {e:.2e}" for m, e in e_k1.items())
+              + f" (max |d| {abs_err:.2e})", flush=True)
+        if not (all(e <= GATE for e in e_plain.values())
+                and all(e <= GATE for e in e_k1.values())):
+            fail(f"GEOS-Chem kernel path vs plain path: {e_plain}, K1 "
+                 f"{e_k1}")
+
+        # 4. The small scene against the stored JAX f64 reference.
+        ref = np.load(Path(__file__).resolve().parent / "vsmartmom_tpu_torch"
+                      / "data" / "geoschem_ref_f64.npz")
+        for fn in counted.values():
+            fn.launches = 0
+        small_model = geoschem_ref_model(np.float32, files=small, device=dev)
+        R_s, T_s = rt_run(small_model, device=dev)
+        torch.cuda.synchronize()
+        small_k1 = counted["fused_moment"].launches
+        e_ref = {"R": rel(R_s, ref["R"]), "T": rel(T_s, ref["T"])}
+        print("GEOS-Chem kernel path vs JAX f64 reference (small scene, "
+              f"{GEOSCHEM_REF_N_LEV} levels, K1 launches {small_k1}): "
+              + " ".join(f"{k}={e:.2e}" for k, e in e_ref.items()),
+              flush=True)
+        if not (small_k1 > 0 and all(e <= GATE for e in e_ref.values())):
+            fail(f"GEOS-Chem port vs stored JAX reference: {e_ref}, K1 "
+                 f"launches {small_k1}")
+
+    # 5. Timing: the solve alone (best of 3 after a warm-up) and K1 a launch
+    # at 72 layers and four components.
+    chunks = [spectral_slice(inputs, config, c, c + N_CHUNK)
+              for c in range(0, GEOSCHEM_N_SPEC, N_CHUNK)]
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [rt_solve(i, c, dev)["R"] for i, c in chunks]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not all(bool(torch.isfinite(o).all()) for o in outs):
+            fail("non-finite R in the timed GEOS-Chem solve")
+    args = band_moment_args(*chunk0, 0, dev)
+    k_ms = cuda_time_ms(lambda: fused_band.fused_moment(*args[0], **args[1]))
+    p_ms = cuda_time_ms(
+        lambda: fused_band.moment_reference(*args[0], **args[1]), reps=3)
+    out = fused_band.fused_moment(*args[0], **args[1])
+    flops = moment_flops(config, N_CHUNK)
+    k1_bytes = moment_bytes(args, out)
+    t_ops, t_bytes = flops / FP32_PEAK_FLOPS * 1e3, \
+        k1_bytes / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    print(json.dumps({
+        "card": smi, "geoschem_pts_per_s": GEOSCHEM_N_SPEC / min(times[1:]),
+        "geoschem_build_s": build_s, "geoschem_solve_s": min(times[1:]),
+        "geoschem_solve_all_s": times, "n_spec": GEOSCHEM_N_SPEC,
+        "nz": config.nz, "components": n_comp, "validate": False,
+        "launches": launches, "max_abs_err": abs_err,
+        "phase_s": time.perf_counter() - phase_t0,
+        "moment_launch_nz72": {
+            "n_spec": N_CHUNK, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes
+            else "bytes", "bound_share": bound / k_ms, "flops": flops,
+            "bytes": k1_bytes, "achieved_tflops": flops / k_ms / 1e9}}),
+        flush=True)
+
+
 def moment_bytes(args, out):
     """Bytes one launch must move: its operands read once (the plain prep's
     compact row tables) and the composite written once."""
@@ -2341,6 +2530,7 @@ def main():
     k1p_entry = thermal_lin_phase(dev, smi)
     absorption_phase(dev, smi)
     raman_phase(dev, smi)
+    geoschem_phase(dev, smi)
     print(f"chip_smoke.py: {time.perf_counter() - script_t0:.1f} s, the "
           "kernels' build included", flush=True)
     print(json.dumps({"kernels": [{

@@ -1241,3 +1241,46 @@ def test_mt_kernel_at_p2_matches_jvp_route_on_aband(cuda, aband):
     for q in range(2):
         assert torch.isfinite(kern[2][q]).all()
         assert _rel(kern[2][q], plain[2][q]) <= 2e-4, q
+
+
+# -- the GEOS-Chem path: K1 on the small GEOS-Chem scene ---------------------
+
+def test_geoschem_small_scene_runs_k1_and_matches_plain(cuda, tmp_path):
+    """The small GEOS-Chem scene (``flagship.geoschem_ref_model``: 6 levels,
+    sulfate and dust, nstreams 3, IQU, 8 points) in f32 on the card:
+    ``rt_run`` launches K1 once per moment up to m_scat and no other
+    kernel; its R and T against the plain path on the card <= 1e-4 of max
+    and against the stored JAX f64 reference <= 1e-4."""
+    from pathlib import Path
+
+    from vsmartmom_tpu_torch import rt_run
+    from vsmartmom_tpu_torch.core.solver import rt_solve
+    from vsmartmom_tpu_torch.flagship import (GEOSCHEM_REF_N_LEV,
+                                              GEOSCHEM_REF_SPECIES,
+                                              geoschem_ref_model,
+                                              write_geoschem_column)
+    from vsmartmom_tpu_torch.ops import (fused_band, fused_lin, fused_rrs,
+                                         fused_rt)
+    files = write_geoschem_column(tmp_path, n_lev=GEOSCHEM_REF_N_LEV,
+                                  species=GEOSCHEM_REF_SPECIES)
+    model = geoschem_ref_model(np.float32, files=files)
+    inputs, config = model.build_band(0, device=cuda)
+    assert config.fused and config.nz == GEOSCHEM_REF_N_LEV
+    counted = (fused_band.fused_moment, fused_rrs.fused_moment_rrs,
+               fused_lin.fused_moment_multitangent, fused_rt.fused_doubling,
+               fused_rt.fused_layer_step)
+    before = [fn.launches for fn in counted]
+    R, T = rt_run(model, device=cuda)
+    torch.cuda.synchronize()
+    after = [fn.launches - b for fn, b in zip(counted, before)]
+    assert after == [config.m_scat + 1, 0, 0, 0, 0]
+    assert np.isfinite(R).all() and np.isfinite(T).all()
+    kern = rt_solve(inputs, config, cuda)
+    plain = rt_solve(inputs, dataclasses.replace(
+        config, fused=False, m_scat=-1, ns_sched=(), ns_inter=6), cuda)
+    for k in ("R", "T"):
+        assert _rel(kern[k], plain[k]) <= GATE, k
+    ref = np.load(Path(__file__).resolve().parents[1] / "vsmartmom_tpu_torch"
+                  / "data" / "geoschem_ref_f64.npz")
+    assert _rel(torch.as_tensor(R), torch.as_tensor(ref["R"])) <= GATE
+    assert _rel(torch.as_tensor(T), torch.as_tensor(ref["T"])) <= GATE

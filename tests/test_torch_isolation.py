@@ -344,3 +344,65 @@ def test_layer_kernel_wrappers_refuse(monkeypatch, kernel, case, match):
             fused_rt._launch_layer_step((*mats[:4], *vecs[:2]), mats[4],
                                         mats[5], vecs[2], vecs[3], ek, d,
                                         sched, 2)
+
+
+#: The GEOS-Chem slice's modules: aerosol ingest, the PCW / Wigner
+#: decomposition, the scene-file front end and the scenes that drive them.
+INGEST_MODULES = ("aerosols", "aerosols.ncio", "aerosols.schemes",
+                  "aerosols.refractive", "aerosols.readers",
+                  "aerosols.optics", "scattering.wigner", "scattering.pcw",
+                  "scattering.stokes", "io.formats", "io.yaml_input",
+                  "io.geoschem", "flagship")
+#: Packages the card's machine lacks: PyYAML, jsonschema, h5py.
+OPTIONAL = ("yaml", "jsonschema", "h5py")
+
+
+@pytest.fixture(scope="module")
+def ingest_imports():
+    """In a fresh interpreter with PyYAML, jsonschema and h5py blocked
+    (``sys.modules[name] = None``, so importing them raises): each ingest
+    module's import error (None if it imported) and the forbidden modules
+    it loaded; then the small GEOS-Chem scene built from its NetCDF-3
+    collections and TOML scene file without schema validation, as
+    chip_smoke.py builds it ("ok" or the error)."""
+    code = ("import sys, json, tempfile\n"
+            "for name in %r:\n"
+            "    sys.modules[name] = None\n"
+            "out = {}\n"
+            "for m in %r:\n"
+            "    try:\n"
+            "        __import__('vsmartmom_tpu_torch.' + m)\n"
+            "        err = None\n"
+            "    except Exception as e:\n"
+            "        err = repr(e)\n"
+            "    out[m] = [err, [k for k in %r if k in sys.modules]]\n"
+            "from vsmartmom_tpu_torch import flagship\n"
+            "try:\n"
+            "    with tempfile.TemporaryDirectory() as d:\n"
+            "        files = flagship.write_geoschem_column(\n"
+            "            d, n_lev=6, species=('SO4', 'DST'))\n"
+            "        flagship.geoschem_ref_model(files=files)\n"
+            "    out['scene'] = 'ok'\n"
+            "except Exception as e:\n"
+            "    out['scene'] = repr(e)\n"
+            "print(json.dumps(out))\n" % (OPTIONAL, INGEST_MODULES,
+                                           FORBIDDEN))
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    import json
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", INGEST_MODULES)
+def test_ingest_modules_import_without_yaml_jsonschema_h5py(ingest_imports,
+                                                            module):
+    """Each ingest module imports with PyYAML, jsonschema and h5py blocked,
+    and loads neither JAX nor the JAX package."""
+    path = ROOT / "vsmartmom_tpu_torch" / module.replace(".", "/")
+    assert path.with_suffix(".py") in _port_files() or \
+        path / "__init__.py" in _port_files()
+    assert ingest_imports[module] == [None, []]
+
+
+def test_geoschem_scene_builds_without_yaml_jsonschema_h5py(ingest_imports):
+    assert ingest_imports["scene"] == "ok"

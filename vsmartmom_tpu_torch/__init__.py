@@ -11,7 +11,9 @@ paths (air and stellar) also ``csrc/fused_rrs.cu``, the Jacobian path ``csrc/fus
 the multisensor path the per-layer doubling kernel of ``csrc/fused_rt.cu``,
 each built by ``nvcc`` at first use into ``vsmartmom_tpu_torch/_build/``.
 Gas absorption (``absorption/``) sums HITRAN lines in float64 on the
-device (plain torch) when a model is built.
+device (plain torch) when a model is built. Scenes come from a YAML, TOML
+or JSON scene file (``parameters_from_file``, ``io/``) and from GEOS-Chem
+output (``io.geoschem``, ``aerosols/``).
 
 Entry points (``rt_run``, ``rt_run_full``, ``rt_run_streams``, ``rt_solve``,
 ``rt_run_inelastic`` (rotational and vibrational Raman), ``rt_run_stellar``
@@ -29,6 +31,8 @@ from .flagship import (aband_model, flagship_model, rrs_sif_model,
                        stellar_sif_model, stellar_vs_sif_model,
                        thermal_lin_model, vs_sif_model)
 from .inelastic.stellar import rt_run_stellar
+from .io.yaml_input import (parameters_from_dict, parameters_from_file,
+                            parameters_from_toml, parameters_from_yaml)
 from .solar import add_thermal_emission
 
 __all__ = ["Parameters", "SurfaceDescriptor", "model_from_parameters",
@@ -37,4 +41,6 @@ __all__ = ["Parameters", "SurfaceDescriptor", "model_from_parameters",
            "rt_run_stellar", "default_layout", "ParameterLayout",
            "flagship_model", "rrs_sif_model", "vs_sif_model",
            "stellar_sif_model", "stellar_vs_sif_model", "thermal_lin_model",
-           "aband_model", "add_thermal_emission"]
+           "aband_model", "add_thermal_emission", "parameters_from_yaml",
+           "parameters_from_dict", "parameters_from_file",
+           "parameters_from_toml"]

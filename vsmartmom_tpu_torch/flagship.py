@@ -25,6 +25,11 @@
   with O2 line absorption from a synthetic line list
   (``write_aband_par``), and its small twin ``aband_ref_model`` of the
   stored JAX reference ``data/aband_ref_f64.npz``.
+* The GEOS-Chem column ``geoschem_model``: SYNTHETIC GCHP StateMet and
+  Aerosols collections (``write_geoschem_column``, 72 levels, three
+  two-moment aerosols) driven through the TOML scene-file front end with
+  the flagship's settings, and its small twin ``geoschem_ref_model`` of
+  the stored JAX reference ``data/geoschem_ref_f64.npz``.
 """
 
 import os
@@ -562,3 +567,288 @@ def aband_ref_model(dtype=np.float32, surface="coxmunk", device=None,
         surfaces=[surf], polarization=STOKES_IQU,
         absorption_params=AbsorptionParams(**aband_absorption(par)),
         **aband_ref_params(dtype)), device=device)
+
+
+# ---------------------------------------------------------------------------
+# The GEOS-Chem column scene
+# ---------------------------------------------------------------------------
+
+#: GCHP's native level count, the synthetic collections' cubed-sphere grid
+#: (6 faces of 4 x 4 cells), the column the scenes read (idx, idy, idf;
+#: 0-based) and the seed of the synthetic fields.
+GEOSCHEM_N_LEV = 72
+GEOSCHEM_NF, GEOSCHEM_NY, GEOSCHEM_NX = 6, 4, 4
+GEOSCHEM_COLUMN = (1, 2, 3)
+GEOSCHEM_SEED = 14
+#: Top of the synthetic level grid [hPa]: at 72 levels its top layer is
+#: ~0.01 hPa thick and its bottom one ~16 hPa, GEOS's 72-level shape.
+GEOSCHEM_P_TOP = 0.04
+#: The two-moment species of the synthetic Aerosols collection: the
+#: two-moment reader's keys (GCHP's AOD and hygroscopic-radius diagnostics
+#: for sulfate and accumulation-mode sea salt; GEOS-Chem fixes dust radii
+#: per size bin, so the synthetic file carries a dust radius field of its
+#: own) and, for the writer, the column AOD at 550 nm, the effective
+#: radius [um] and the vertical shape: an exponential of scale height
+#: ``h_km`` or, with ``z_km``, a Gaussian layer of 1/e half-width ``h_km``.
+GEOSCHEM_SPECIES = {
+    "SO4": dict(aod_variable="AODHyg550nm_{species}",
+                radius_variable="AerHygroscopicRadius_{species}",
+                sigma_g=1.6, refractive_index="sulfate_suso",
+                aod_reference_wavelength=0.55,
+                column_aod=0.12, r_eff=0.15, h_km=2.0),
+    "SALA": dict(aod_variable="AODHyg550nm_{species}",
+                 radius_variable="AerHygroscopicRadius_{species}",
+                 sigma_g=1.5, refractive_index="seasalt_sscm",
+                 aod_reference_wavelength=0.55,
+                 column_aod=0.05, r_eff=0.35, h_km=0.8),
+    "DST": dict(aod_variable="AODDust550nm",
+                radius_variable="AerDustRadius",
+                sigma_g=1.8, refractive_index="dust_opac",
+                aod_reference_wavelength=0.55,
+                column_aod=0.08, r_eff=0.8, h_km=1.2, z_km=3.0)}
+#: Keys of a GEOSCHEM_SPECIES entry that the two-moment reader reads.
+_TWO_MOMENT_KEYS = ("aod_variable", "radius_variable", "sigma_g",
+                    "refractive_index", "aod_reference_wavelength")
+#: The small GEOS-Chem scene of ``data/geoschem_ref_f64.npz``: levels,
+#: species, streams, points and Mie radius nodes.
+GEOSCHEM_REF_N_LEV, GEOSCHEM_REF_SPECIES = 6, ("SO4", "DST")
+GEOSCHEM_REF_NSTREAMS, GEOSCHEM_REF_N_SPEC = 3, 8
+GEOSCHEM_REF_NQUAD = 60
+
+
+def geoschem_aerosol_config(species=tuple(GEOSCHEM_SPECIES)) -> dict:
+    """The two-moment reader's configuration of the synthetic Aerosols
+    collection (plain data: the JAX package's ``read_aerosol_data`` takes
+    it too), with ``vertical_flip`` so that the aerosol levels run TOA ->
+    BOA like the met column of ``geoschem_to_dict``."""
+    return {"aerosol_scheme": {
+        "type": "two_moment",
+        "species": {s: {k: GEOSCHEM_SPECIES[s][k] for k in _TWO_MOMENT_KEYS}
+                    for s in species}},
+        "processing": {"vertical_flip": True}}
+
+
+def _us_standard_temperature(z_km):
+    """US Standard Atmosphere 1976 temperature [K] at altitude z [km]."""
+    base = [(0.0, 288.15, -6.5), (11.0, 216.65, 0.0), (20.0, 216.65, 1.0),
+            (32.0, 228.65, 2.8), (47.0, 270.65, 0.0), (51.0, 270.65, -2.8),
+            (71.0, 214.65, -2.0)]
+    T = np.empty_like(z_km)
+    for z0, t0, lapse in base:
+        at = z_km >= z0
+        T[at] = t0 + lapse * (z_km[at] - z0)
+    return T
+
+
+def geoschem_fields(seed=GEOSCHEM_SEED, n_lev=GEOSCHEM_N_LEV,
+                    species=tuple(GEOSCHEM_SPECIES)) -> dict:
+    """SYNTHETIC GCHP fields, drawn from ``seed`` with numpy, in GCHP's C
+    order ``(time=1, lev, nf, Ydim, Xdim)`` with ``lev`` BOA -> TOA (the
+    surface pressure ``(time, nf, Ydim, Xdim)``).
+
+    No GEOS-Chem output is in the repository; these fields stand in for
+    it. Met: ``Met_PS2WET`` about 1000 hPa (+-5); ``Met_DELP`` [hPa] on
+    edges ps exp(ln(p_top / ps) (k / n_lev)^1.5); ``Met_T`` the US Standard
+    Atmosphere at z = 7 km ln(1000 / p) plus 1 K noise; ``Met_SPHU``
+    12 exp(-z / 2.2 km) + 0.003 g/kg. Aerosols: for each species of
+    ``GEOSCHEM_SPECIES``, its AOD diagnostic per layer (its vertical shape
+    times the layer's pressure thickness, each cell's column scaled by
+    0.8-1.2 of the species' column AOD) and its radius diagnostic (the
+    effective radius, 30% larger in moist layers, 5% noise)."""
+    rng = np.random.default_rng(seed)
+    cells = (GEOSCHEM_NF, GEOSCHEM_NY, GEOSCHEM_NX)
+    ps = 1000.0 + rng.uniform(-5.0, 5.0, (1,) + cells)
+    x = (np.arange(n_lev + 1) / n_lev) ** 1.5
+    edges = ps[:, None] * np.exp(
+        np.log(GEOSCHEM_P_TOP / 1000.0) * x[None, :, None, None, None])
+    delp = edges[:, :-1] - edges[:, 1:]
+    p_mid = 0.5 * (edges[:, :-1] + edges[:, 1:])
+    z = 7.0 * np.log(1000.0 / p_mid)
+    shape = (1, n_lev) + cells
+    fields = {
+        "Met_PS2WET": ps, "Met_DELP": delp,
+        "Met_T": _us_standard_temperature(z) + rng.normal(0.0, 1.0, shape),
+        "Met_SPHU": 12.0 * np.exp(-z / 2.2) + 0.003}
+    moist = np.exp(-z / 2.2)
+    for s in species:
+        sp = GEOSCHEM_SPECIES[s]
+        if "z_km" in sp:
+            prof = np.exp(-((z - sp["z_km"]) / sp["h_km"]) ** 2)
+        else:
+            prof = np.exp(-z / sp["h_km"])
+        aod = prof * delp
+        aod *= sp["column_aod"] * rng.uniform(0.8, 1.2, (1, 1) + cells) \
+            / aod.sum(axis=1, keepdims=True)
+        radius = sp["r_eff"] * (1.0 + 0.3 * moist) \
+            * (1.0 + 0.05 * rng.standard_normal(shape))
+        fields[sp["aod_variable"].replace("{species}", s)] = aod
+        fields[sp["radius_variable"].replace("{species}", s)] = radius
+    return fields
+
+
+_GCHP_DIMS = ("time", "lev", "nf", "Ydim", "Xdim")
+
+
+def _write_netcdf3(path, variables, dims, n_lev):
+    """Write ``variables`` ({name: (dimension names, array)}) with a ``lev``
+    (1..n_lev) and a ``time`` coordinate as NetCDF-3 float64 through
+    scipy, replacing ``path`` atomically."""
+    from scipy.io import netcdf_file
+    path = Path(path)
+    fd, tmp = tempfile.mkstemp(dir=path.parent, suffix=".nc")
+    os.close(fd)
+    with netcdf_file(tmp, "w") as nc:
+        for name, size in dims.items():
+            nc.createDimension(name, size)
+        lev = nc.createVariable("lev", "d", ("lev",))
+        lev[:] = np.arange(1, n_lev + 1, dtype=np.float64)
+        lev.positive = b"up"
+        time = nc.createVariable("time", "d", ("time",))
+        time[:] = [0.0]
+        for name, (var_dims, arr) in variables.items():
+            nc.createVariable(name, "d", var_dims)[:] = arr
+    os.replace(tmp, path)
+    return str(path)
+
+
+def write_geoschem_column(directory=None, seed=GEOSCHEM_SEED,
+                          n_lev=GEOSCHEM_N_LEV,
+                          species=tuple(GEOSCHEM_SPECIES)) -> dict:
+    """Write ``geoschem_fields(seed, n_lev, species)`` as two SYNTHETIC
+    GCHP collections, NetCDF-3 through scipy, into ``directory`` (default:
+    the temporary directory): ``met``, the StateMet collection, and
+    ``aerosols``, the Aerosols collection, both in GCHP's C order ``(time,
+    lev, nf, Ydim, Xdim)``; and ``aerosols_lev_time``, the same aerosol
+    profiles as ``(lev, time)`` fields (each the horizontal mean profile of
+    its GCHP field, ``aerosols.ncio.horizontal_mean_profile``): the layout
+    the JAX package's aerosol readers read right. Returns the three paths
+    by those names."""
+    from .aerosols.ncio import horizontal_mean_profile
+    directory = Path(directory) if directory is not None else \
+        Path(tempfile.gettempdir())
+    fields = geoschem_fields(seed, n_lev, species)
+    dims = dict(zip(_GCHP_DIMS, (1, n_lev, GEOSCHEM_NF, GEOSCHEM_NY,
+                                 GEOSCHEM_NX)))
+    met = {k: (_GCHP_DIMS if v.ndim == 5 else ("time", "nf", "Ydim", "Xdim"),
+               v) for k, v in fields.items() if k.startswith("Met_")}
+    aer = {k: (_GCHP_DIMS, v) for k, v in fields.items()
+           if not k.startswith("Met_")}
+    twin = {k: (("lev", "time"), horizontal_mean_profile(v, d)[:, None])
+            for k, (d, v) in aer.items()}
+    tag = f"{seed}_{n_lev}_{'_'.join(species)}"
+    return {
+        "met": _write_netcdf3(directory / f"GEOSChem.StateMet.{tag}.nc",
+                              met, dims, n_lev),
+        "aerosols": _write_netcdf3(directory / f"GEOSChem.Aerosols.{tag}.nc",
+                                   aer, dims, n_lev),
+        "aerosols_lev_time": _write_netcdf3(
+            directory / f"GEOSChem.Aerosols.{tag}.lev_time.nc", twin,
+            {"lev": n_lev, "time": 1}, n_lev)}
+
+
+def _toml_value(v):
+    if isinstance(v, str):
+        return '"' + v.replace("\\", "\\\\").replace('"', '\\"') + '"'
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_toml_value(x) for x in v) + "]"
+    return repr(float(v)) if isinstance(v, float) else str(v)
+
+
+def geoschem_scene_toml(n_spec=4096, dtype=np.float32, nstreams=8,
+                        polarization="Stokes_IQUV",
+                        nquad_radius=FLAGSHIP_MIE["nquad_radius"]) -> str:
+    """The GEOS-Chem scene file (TOML): the flagship's settings
+    (``flagship_params``: sza 30, nine views, 0.05 cm^-1 steps from
+    ``FLAGSHIP_NU0``) over a wind-5 Cox-Munk ocean, the automatic
+    (delta-BGE) phase truncation, and a ``scattering`` block (the
+    flagship's Mie radius range, lambda_ref 0.55 um) with no aerosol of its
+    own: the aerosols, and the atmospheric profile, come from the
+    GEOS-Chem collections (``geoschem_model``)."""
+    flag = flagship_params(n_spec, dtype, nstreams)
+    nu = FLAGSHIP_NU0 + 0.05 * (n_spec - 1)
+    sections = {
+        "radiative_transfer": {
+            "spec_bands": [f"{FLAGSHIP_NU0!r}:0.05:{nu!r}"],
+            "surface": ["CoxMunkSurface(wind_speed=5.0)"],
+            "polarization_type": f"{polarization}()",
+            "nstreams": nstreams, "truncation": "auto", "depol": -1.0,
+            "float_type": "Float32" if dtype == np.float32 else "Float64",
+            "architecture": "default_architecture"},
+        "geometry": {k: flag[k] for k in ("sza", "vza", "vaz", "obs_alt")},
+        "scattering": {"aerosols": [], "r_max": FLAGSHIP_MIE["r_max"],
+                       "nquad_radius": nquad_radius,
+                       "λ_ref": 0.55, "decomp_type": "NAI2()"}}
+    lines = ["# GEOS-Chem column scene: the atmospheric profile and the",
+             "# aerosols are read from the GEOS-Chem collections."]
+    for name, sec in sections.items():
+        lines.append(f"\n[{name}]")
+        for k, v in sec.items():
+            key = k if k.isascii() else f'"{k}"'
+            lines.append(f"{key} = {_toml_value(v)}")
+    return "\n".join(lines) + "\n"
+
+
+def geoschem_model(n_spec=4096, dtype=np.float32, files=None, device=None,
+                   validate=False, nstreams=8, polarization="Stokes_IQUV",
+                   species=tuple(GEOSCHEM_SPECIES),
+                   nquad_radius=FLAGSHIP_MIE["nquad_radius"],
+                   n_lev=GEOSCHEM_N_LEV):
+    """RTModel of the GEOS-Chem column scene, built as a user of the front
+    end builds it: the scene file (``geoschem_scene_toml``, written next to
+    the collections) loaded (``io.formats.load_config``) with the
+    ``atmospheric_profile`` of the GCHP column ``GEOSCHEM_COLUMN`` (idx,
+    idy, idf) put in (``io.geoschem.geoschem_to_dict``; checked against
+    the schema with ``validate``, which needs ``jsonschema``), then
+    ``parameters_from_dict``, then the two-moment aerosols of the Aerosols
+    collection (``read_aerosol_data`` in GCHP's layout, ``to_rt_aerosols``
+    at the column's layer mid-pressures) as the scene's aerosols, then
+    ``model_from_parameters`` (on ``device``, used by a gas line sum only).
+
+    ``files`` are ``write_geoschem_column``'s paths; by default the
+    collections of ``GEOSCHEM_SEED``, ``n_lev`` and ``species`` are written
+    to the temporary directory. At the defaults: 72 layers, three Mie
+    aerosols (sulfate, sea salt, dust; 300 radius nodes to 10 um), IQUV and
+    nstreams 8 (N = 52), f32, 4096 points."""
+    from .aerosols import (load_refractive_index_database,
+                           read_aerosol_data, to_rt_aerosols)
+    from .io.formats import load_config, validate_config
+    from .io.geoschem import GeosChemSource, geoschem_to_dict
+    from .io.yaml_input import parameters_from_dict
+    if files is None:
+        files = write_geoschem_column(n_lev=n_lev, species=species)
+    met = Path(files["met"])
+    scene = met.with_name(f"geoschem_scene_{n_spec}_{np.dtype(dtype).name}_"
+                          f"{nstreams}_{polarization}_{nquad_radius}.toml")
+    fd, tmp = tempfile.mkstemp(dir=scene.parent, suffix=".toml")
+    with os.fdopen(fd, "w") as f:
+        f.write(geoschem_scene_toml(n_spec, dtype, nstreams, polarization,
+                                    nquad_radius))
+    os.replace(tmp, scene)
+    d = load_config(str(scene))
+    prof = geoschem_to_dict(GeosChemSource(str(met), *GEOSCHEM_COLUMN))
+    d["atmospheric_profile"] = {            # lists: the schema's arrays
+        k: v.tolist() if isinstance(v, np.ndarray) else v
+        for k, v in prof["atmospheric_profile"].items()}
+    if validate:
+        validate_config(d)
+    params = parameters_from_dict(d)
+    p_half = np.asarray(d["atmospheric_profile"]["p"])
+    data = read_aerosol_data(geoschem_aerosol_config(species),
+                             files["aerosols"])
+    params.scattering_params.rt_aerosols = to_rt_aerosols(
+        data, load_refractive_index_database(),
+        p_full=0.5 * (p_half[1:] + p_half[:-1]))
+    return model_from_parameters(params, device=device)
+
+
+def geoschem_ref_model(dtype=np.float64, files=None, device=None,
+                       validate=False):
+    """RTModel of the small GEOS-Chem scene of ``data/geoschem_ref_f64.npz``:
+    ``geoschem_model`` on collections of ``GEOSCHEM_REF_N_LEV`` levels and
+    the species ``GEOSCHEM_REF_SPECIES``, nstreams 3, IQU, 8 points, 60
+    Mie radius nodes, f64 by default."""
+    return geoschem_model(
+        GEOSCHEM_REF_N_SPEC, dtype, files, device, validate,
+        nstreams=GEOSCHEM_REF_NSTREAMS, polarization="Stokes_IQU",
+        species=GEOSCHEM_REF_SPECIES, nquad_radius=GEOSCHEM_REF_NQUAD,
+        n_lev=GEOSCHEM_REF_N_LEV)

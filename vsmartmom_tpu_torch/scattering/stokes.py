@@ -29,3 +29,15 @@ STOKES_I = _pol("Stokes_I", [1.0], [1.0])
 STOKES_IQ = _pol("Stokes_IQ", [1.0, 1.0], [1.0, 0.0])
 STOKES_IQU = _pol("Stokes_IQU", [1.0, 1.0, -1.0], [1.0, 0.0, 0.0])
 STOKES_IQUV = _pol("Stokes_IQUV", [1.0, 1.0, -1.0, -1.0], [1.0, 0.0, 0.0, 0.0])
+
+BY_NAME = {p.name: p for p in (STOKES_I, STOKES_IQ, STOKES_IQU, STOKES_IQUV)}
+
+
+def polarization_from_name(name: str) -> Polarization:
+    """The Polarization of a scene file's ``polarization_type`` string
+    (``"Stokes_IQU"`` or ``"Stokes_IQU()"``)."""
+    key = name.strip().replace("()", "")
+    if key not in BY_NAME:
+        raise ValueError(f"Unknown polarization type {name!r}; "
+                         f"choose from {sorted(BY_NAME)}")
+    return BY_NAME[key]
