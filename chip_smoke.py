@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Eleven paths
-are driven: the flagship forward ``rt_run`` (band kernel K1), the
+Run from the root of a checkout: ``python3 chip_smoke.py``. Twelve groups of
+paths are driven: the flagship forward ``rt_run`` (band kernel K1), the
 rotational-Raman forward ``rt_run_inelastic`` (K1 for the elastic half, the
 block-bichromatic RRS kernel K3 for the inelastic one), the aerosol
 Jacobian run ``rt_run_lin`` (the multitangent kernel K2), the thermal
@@ -21,7 +21,11 @@ fixed-source solves on the card), the stellar rotational
 ``rt_run_stellar(mode="sol_RRS")`` (K1 and K3, the ie ladder at full
 resolution) and the multisensor Raman ``rt_run_ms_rrs`` (plain torch);
 and a GEOS-Chem column from its (synthetic) GCHP collections through the
-TOML front end and ``model_from_parameters`` to ``rt_run`` (K1).
+TOML front end and ``model_from_parameters`` to ``rt_run`` (K1); and the
+land and single-scatter paths: a vegetated red-edge column (a canopy over
+an RPV soil, built on the card) through ``rt_run_full`` (K1) and
+``rt_run_ss``, the standalone exact single scatter ``run_exact_ss`` and
+the flagship on Gauss-Radau streams (K1).
 Phases, each of which fails the run (non-zero exit) on a miss:
 
 1. setup — the card's name and power limit; every CUDA kernel of the port
@@ -242,7 +246,38 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    6 levels, f32) through K1 against ``data/geoschem_ref_f64.npz``
    (<= 1e-4); timing: ``geoschem_pts_per_s`` (best of 3 after a warm-up)
    and K1's time a launch at 72 layers against its bound and its plain
-   version's (not in the kernels line, which keeps the flagship shapes).
+   version's (not in the kernels line, which keeps the flagship shapes);
+12. surfaces (``surfaces_phase``) — (a) ``flagship.canopy_model`` (the
+   flagship's column, IQUV, N = 52, over 755 -> 672 nm at nSpec 4096; a
+   canopy of LAI 3 in 3 sublayers with SYNTHETIC red-edge leaf optics, 7
+   leaf-optics nodes, over an RPV soil; the synthetic solar spectrum and
+   the default SIF) built on the card, timed (``canopy_build_s``: the
+   slab in f64 on the card, the operators interpolated on the host, a
+   (16, 4096, 52, 52) surface kept there and moved a chunk at a time);
+   ``rt_run_full`` counted (K1 4 x (m_scat + 1) times, nothing else: the
+   moments above m_scat on the Beer-law tail), R, T and hdr finite, the
+   kernel path against the plain path (every moment down the full path)
+   on the first chunk and K1 against its plain version (<= 1e-4), the
+   small canopy scene (``canopy_ref_model``, f32) through K1 against
+   ``data/surfaces_ref_f64.npz`` (<= 1e-4), and the scene at LAI 1e-6
+   against the bare RPV soil (<= 1e-4); (b) ``rt_run_ss`` of the canopy
+   column: no kernel, finite, its Stokes I at or below the full solve's
+   (within 1e-4 of max), the small single-scatter scenes against the
+   stored reference (<= 1e-4); (c) ``run_exact_ss`` at the flagship's
+   geometry (33 Rayleigh layers and an HG aerosol, nSpec 4096): "all"
+   paths over Lambertian and paths_1_2 over Cox-Munk finite, no kernel,
+   the small configs and their Jacobians against the stored reference
+   (1e-4; 2e-4 of each parameter's max); (d) the flagship at IQU on
+   Gauss-Radau streams (``radau_model``, nSpec 1024, 17 nodes, N = 51,
+   the solar node weighted): K1 against its plain version at every moment
+   up to m_scat, ``rt_run`` counted, the kernel path against the plain
+   path, the small Radau scene against the stored reference (<= 1e-4);
+   timing: ``canopy_pts_per_s``, ``ss_pts_per_s`` and
+   ``exact_ss_pts_per_s`` (each solve alone, best of 3 after a warm-up,
+   synchronised), ``canopy_build_s`` with its surface stage (the stage
+   table of ``utils.timing``), the move of the four chunks' 4-D surface
+   to the card, and K1's time a launch on the canopy scene against its
+   bound and its plain version's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel. Without CUDA it exits non-zero and prints no result.
@@ -293,6 +328,9 @@ MS_N_SPEC, MS_LEVELS = 1024, (0, 16, 33)
 MS_RRS_N_SPEC, MS_RRS_LEVELS = 256, (0, 4, 8)
 #: The GEOS-Chem column scene's width (``flagship.geoschem_model``).
 GEOSCHEM_N_SPEC = 4096
+#: The vegetated red-edge column's width (``flagship.canopy_model``) and the
+#: Gauss-Radau flagship's (``flagship.radau_model``, IQU).
+CANOPY_N_SPEC, RADAU_N_SPEC = 4096, 1024
 
 
 def fail(msg):
@@ -1978,6 +2016,250 @@ def geoschem_phase(dev, smi):
         flush=True)
 
 
+def per_parameter_errors(out, ref):
+    """max|d| / max|ref| of each parameter (the trailing axes after the
+    output's (nGeom, nStokes, S)) of a Jacobian, parameters with a zero
+    reference left out: a list."""
+    out = np.asarray(out).reshape(-1, *np.shape(out)[3:])
+    ref = np.asarray(ref).reshape(-1, *np.shape(ref)[3:])
+    out, ref = out.reshape(out.shape[0], -1), ref.reshape(ref.shape[0], -1)
+    scale = np.abs(ref).max(axis=0)
+    err = np.abs(out - ref).max(axis=0)
+    return list(err[scale > 0] / scale[scale > 0])
+
+
+def surfaces_phase(dev, smi):
+    """The land and single-scatter paths: the vegetated red-edge column
+    through ``rt_run_full`` (K1 on the atmosphere, the canopy surface after
+    it), ``rt_run_ss`` on it, the standalone exact single scatter and the
+    Gauss-Radau flagship (see the module docstring, phase 12)."""
+    from vsmartmom_tpu_torch import (canopy_model, rt_run, rt_run_full,
+                                     rt_run_ss)
+    from vsmartmom_tpu_torch.core.singlescatter import rt_solve_ss
+    from vsmartmom_tpu_torch.core.solver import (band_moment_args, rt_solve,
+                                                 spectral_slice)
+    from vsmartmom_tpu_torch.flagship import (canopy_ref_model,
+                                              exact_ss_config, radau_model,
+                                              surfaces_ref_outputs)
+    from vsmartmom_tpu_torch.ops import fused_band
+    from vsmartmom_tpu_torch.standalone_ss import (_on_device, _pack,
+                                                   _ss_paths, run_exact_ss)
+    counted = launch_counted()
+    phase_t0 = time.perf_counter()
+    stored = np.load(Path(__file__).resolve().parent / "vsmartmom_tpu_torch"
+                     / "data" / "surfaces_ref_f64.npz")
+
+    def zero():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {k: fn.launches for k, fn in counted.items()}
+
+    def against_stored(name, dtype=np.float32):
+        out = surfaces_ref_outputs(name, dtype, dev)
+        return {k[len(name) + 1:]: rel(v, stored[k]) for k, v in out.items()
+                if np.abs(stored[k]).max() > 0}
+
+    # 1. The canopy column: the user's build (the canopy's slab on the
+    # card in f64, its operators interpolated on the host), timed, and its
+    # surface stage read from the stage table (it ends on the host).
+    from vsmartmom_tpu_torch.utils import timing
+    timing.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = canopy_model(CANOPY_N_SPEC, device=dev)
+    inputs, config = model.build_band(0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    surface_s = sum(timing._REGISTRY.get("surface[0]", [0.0]))
+    print(f"canopy scene (SYNTHETIC leaf optics, RPV soil, solar spectrum, "
+          f"SIF): nSpec={CANOPY_N_SPEC} nz={config.nz} N={config.N} "
+          f"ndoubl={config.ndoubl} ns_sched={config.ns_sched} m_scat="
+          f"{config.m_scat} m_max={config.m_max}; surf_r "
+          f"{tuple(inputs.surf_r.shape)} on {inputs.surf_r.device}; build "
+          f"{build_s:.2f} s, its surface stage {surface_s:.2f} s", flush=True)
+    if not (config.fused and config.N == 52 and inputs.surf_r.dim() == 4
+            and config.m_scat < config.m_max):
+        fail(f"canopy scene: fused={config.fused} N={config.N} surf_r "
+             f"{tuple(inputs.surf_r.shape)} m_scat={config.m_scat}")
+
+    # 2. rt_run_full, counted: K1 for moments 0..m_scat of every chunk.
+    zero()
+    out = rt_run_full(model, device=dev, spectral_chunk=N_CHUNK)
+    launches = read()
+    want = {k: 0 for k in counted}
+    want["fused_moment"] = (CANOPY_N_SPEC // N_CHUNK) * (config.m_scat + 1)
+    print(f"main path: canopy rt_run_full nSpec={CANOPY_N_SPEC}, launches "
+          f"{launches} (want {want})", flush=True)
+    if launches != want:
+        fail(f"canopy rt_run launches {launches}, want {want}")
+    if out["R"].shape != (9, 4, CANOPY_N_SPEC) or not all(
+            np.isfinite(out[k]).all() for k in ("R", "T", "hdr")):
+        fail("canopy R, T or hdr not finite or of the wrong shape")
+    chunk0 = spectral_slice(inputs, config, 0, N_CHUNK)
+    kern = rt_solve(*chunk0, dev)
+    plain = rt_solve(chunk0[0], dataclasses.replace(
+        chunk0[1], fused=False, m_scat=-1, ns_sched=(), ns_inter=6), dev)
+    e_plain = {k: rel(kern[k], plain[k]) for k in ("R", "T", "hdr")}
+    args = band_moment_args(*chunk0, 0, dev)
+    k1_out = fused_band.fused_moment(*args[0], **args[1])
+    k1_ref = fused_band.moment_reference(*args[0], **args[1])
+    e_k1 = max(rel(x, y) for x, y in zip(k1_out, k1_ref))
+    print("canopy kernel path vs plain path (chunk 0; plain: every moment "
+          "down the full path): " + " ".join(
+              f"{k}={e:.2e}" for k, e in e_plain.items())
+          + f"; K1 vs plain m=0 {e_k1:.2e}", flush=True)
+    if not (all(e <= GATE for e in e_plain.values()) and e_k1 <= GATE):
+        fail(f"canopy kernel path vs plain: {e_plain}, K1 {e_k1}")
+    zero()
+    e_ref = against_stored("canopy")
+    small_k1 = read()["fused_moment"]
+    print(f"canopy kernel path vs JAX f64 reference (small scene, K1 "
+          f"launches {small_k1}): " + " ".join(
+              f"{k}={e:.2e}" for k, e in e_ref.items()), flush=True)
+    if not (small_k1 > 0 and all(e <= GATE for e in e_ref.values())):
+        fail(f"canopy port vs stored JAX reference: {e_ref}")
+    bare = rt_run_full(canopy_model(N_CHUNK, device=dev, soil_only=True),
+                       device=dev)
+    thin = rt_run_full(canopy_model(N_CHUNK, device=dev, LAI=1e-6),
+                       device=dev)
+    e_lai = {k: rel(thin[k], bare[k]) for k in ("R", "T", "hdr")}
+    print(f"canopy LAI 1e-6 vs the bare RPV soil (nSpec {N_CHUNK}): "
+          + " ".join(f"{k}={e:.2e}" for k, e in e_lai.items()), flush=True)
+    if not all(e <= GATE for e in e_lai.values()):
+        fail(f"canopy at LAI -> 0 differs from the soil: {e_lai}")
+
+    # 3. rt_run_ss on the canopy column: no kernel; below the full solve.
+    zero()
+    ss = rt_run_ss(model, device=dev)
+    ss_launches = read()
+    print(f"rt_run_ss canopy nSpec={CANOPY_N_SPEC}: launches {ss_launches}",
+          flush=True)
+    if any(ss_launches.values()) or not all(
+            np.isfinite(v).all() for v in ss.values()):
+        fail(f"rt_run_ss: launches {ss_launches} or non-finite outputs")
+    excess = float((ss["R"][:, 0] - out["R"][:, 0]).max()
+                   / np.abs(out["R"][:, 0]).max())
+    e_ss = {n: against_stored(n) for n in ("ss_canopy", "ss_coxmunk")}
+    print(f"single scatter above the full solve's I by at most {excess:.2e} "
+          "of max (gate 1e-4); small scenes vs JAX f64 reference: " + "; ".join(
+              f"{n} " + " ".join(f"{k}={e:.2e}" for k, e in v.items())
+              for n, v in e_ss.items()), flush=True)
+    if not (excess <= GATE and all(e <= GATE for v in e_ss.values()
+                                   for e in v.values())):
+        fail(f"rt_run_ss: excess {excess}, stored {e_ss}")
+
+    # 4. The standalone exact single scatter at the flagship's geometry.
+    zero()
+    cfg_all, _ = exact_ss_config(CANOPY_N_SPEC, "lambertian")
+    cfg_cm, _ = exact_ss_config(CANOPY_N_SPEC, "coxmunk")
+    ex_all = run_exact_ss(cfg_all, "all", device=dev)
+    ex_cm = run_exact_ss(cfg_cm, "paths_1_2", device=dev)
+    ex_launches = read()
+    ex_ok = all(np.isfinite(r[k]).all() for r in (ex_all, ex_cm)
+                for k in ("path1", "path2", "path3", "path4", "total"))
+    e_ex, e_jac = {}, {}
+    for name in ("exact_all", "exact_cm"):
+        o = surfaces_ref_outputs(name, np.float64, dev)
+        e_ex[name] = max(rel(o[f"{name}_{k}"], stored[f"{name}_{k}"])
+                         for k in ("path1", "path2", "total"))
+        e_jac[name] = max(max(per_parameter_errors(
+            o[f"{name}_{k}"], stored[f"{name}_{k}"]) or [0.0])
+            for k in ("d_tau", "d_ssa", "d_albedo"))
+    print(f"run_exact_ss nSpec={CANOPY_N_SPEC} (33 layers, Rayleigh + HG): "
+          f"all over Lambertian and paths_1_2 over Cox-Munk finite "
+          f"{ex_ok}, launches {ex_launches}; small configs vs JAX f64 "
+          "reference: " + " ".join(f"{k} {e:.2e}" for k, e in e_ex.items())
+          + "; Jacobians, worst parameter: " + " ".join(
+              f"{k} {e:.2e}" for k, e in e_jac.items()), flush=True)
+    if not (ex_ok and not any(ex_launches.values())
+            and all(e <= GATE for e in e_ex.values())
+            and all(e <= TAN_GATE for e in e_jac.values())):
+        fail(f"run_exact_ss: finite {ex_ok}, {e_ex}, Jacobians {e_jac}")
+
+    # 5. The Radau flagship at IQU (N = 51): K1 against plain at every
+    # moment, the counted run, the small scene against the stored one.
+    r_model = radau_model(RADAU_N_SPEC)
+    r_inputs, r_config = r_model.build_band(0, device=dev)
+    if not (r_config.fused and r_config.N == 51):
+        fail(f"Radau scene: fused={r_config.fused} N={r_config.N}")
+    e_rk1 = []
+    for m in range(r_config.m_scat + 1):
+        a = band_moment_args(r_inputs, r_config, m, dev)
+        e_rk1.append(max(rel(x, y) for x, y in zip(
+            fused_band.fused_moment(*a[0], **a[1]),
+            fused_band.moment_reference(*a[0], **a[1]))))
+    zero()
+    R_r, T_r = rt_run(r_model, device=dev, spectral_chunk=N_CHUNK)
+    r_launches = read()
+    r_want = {k: 0 for k in counted}
+    r_want["fused_moment"] = (RADAU_N_SPEC // N_CHUNK) * (r_config.m_scat + 1)
+    r_kern = rt_solve(r_inputs, r_config, dev)
+    r_plain = rt_solve(r_inputs, dataclasses.replace(
+        r_config, fused=False, m_scat=-1, ns_sched=(), ns_inter=6), dev)
+    e_r = {k: rel(r_kern[k], r_plain[k]) for k in ("R", "T")}
+    e_rref = against_stored("radau")
+    print(f"Radau flagship IQU nSpec={RADAU_N_SPEC} (N={r_config.N}, "
+          f"solar node weight {r_model.quad.wt_mu[r_model.quad.i_mu0]:.4f}): "
+          f"launches {r_launches} (want {r_want}); K1 vs plain per moment "
+          + " ".join(f"{e:.2e}" for e in e_rk1) + "; kernel path vs plain "
+          + " ".join(f"{k}={e:.2e}" for k, e in e_r.items())
+          + "; small scene vs JAX f64 reference " + " ".join(
+              f"{k}={e:.2e}" for k, e in e_rref.items()), flush=True)
+    if not (r_launches == r_want and all(e <= GATE for e in e_rk1)
+            and all(e <= GATE for e in e_r.values())
+            and all(e <= GATE for e in e_rref.values())
+            and np.isfinite(R_r).all()):
+        fail(f"Radau scene: launches {r_launches}, K1 {e_rk1}, path {e_r}, "
+             f"stored {e_rref}")
+
+    # 6. Timing: each solve alone (best of 3 after a warm-up), the canopy's
+    # K1 a launch.
+    chunks = [spectral_slice(inputs, config, c, c + N_CHUNK)
+              for c in range(0, CANOPY_N_SPEC, N_CHUNK)]
+    canopy_s, canopy_all = best_of_3(
+        lambda: [rt_solve(i, c, dev)["R"] for i, c in chunks])
+    ss_s, ss_all = best_of_3(lambda: rt_solve_ss(inputs, config, dev)["R"])
+    # What the chunks' 4-D surface costs to move (f64 host -> f32 card).
+    move_s, _ = best_of_3(lambda: [
+        x.to(dtype=torch.float32).to(device=dev)
+        for i, _ in chunks for x in (i.surf_r, i.surf_j_m)])
+    kw, lamb = _on_device(_pack(cfg_all), dev)
+    ex_s, ex_all_t = best_of_3(lambda: _ss_paths(
+        **kw, n_stokes=cfg_all.n_stokes, lambertian_surface=lamb))
+    k_ms = cuda_time_ms(lambda: fused_band.fused_moment(*args[0], **args[1]))
+    p_ms = cuda_time_ms(
+        lambda: fused_band.moment_reference(*args[0], **args[1]), reps=3)
+    flops = moment_flops(config, N_CHUNK)
+    k1_bytes = moment_bytes(args, k1_out)
+    t_ops, t_bytes = flops / FP32_PEAK_FLOPS * 1e3, \
+        k1_bytes / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    for name, value in (("canopy_pts_per_s", CANOPY_N_SPEC / canopy_s),
+                        ("ss_pts_per_s", CANOPY_N_SPEC / ss_s),
+                        ("exact_ss_pts_per_s", CANOPY_N_SPEC / ex_s),
+                        ("canopy_build_s", build_s),
+                        ("canopy_k1_ms_a_launch", k_ms)):
+        print(f"{name} {value} ({smi})", flush=True)
+    print(json.dumps({
+        "card": smi, "canopy_pts_per_s": CANOPY_N_SPEC / canopy_s,
+        "canopy_build_s": build_s, "canopy_surface_build_s": surface_s,
+        "canopy_surface_move_s": move_s, "canopy_solve_s": canopy_s,
+        "canopy_solve_all_s": canopy_all,
+        "ss_pts_per_s": CANOPY_N_SPEC / ss_s, "ss_solve_all_s": ss_all,
+        "exact_ss_pts_per_s": CANOPY_N_SPEC / ex_s,
+        "exact_ss_all_s": ex_all_t, "n_spec": CANOPY_N_SPEC,
+        "launches": launches, "phase_s": time.perf_counter() - phase_t0,
+        "moment_launch_canopy": {
+            "n_spec": N_CHUNK, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes
+            else "bytes", "bound_share": bound / k_ms, "flops": flops,
+            "bytes": k1_bytes, "achieved_tflops": flops / k_ms / 1e9,
+            "ndoubl": config.ndoubl}}), flush=True)
+
+
 def moment_bytes(args, out):
     """Bytes one launch must move: its operands read once (the plain prep's
     compact row tables) and the composite written once."""
@@ -2531,6 +2813,7 @@ def main():
     absorption_phase(dev, smi)
     raman_phase(dev, smi)
     geoschem_phase(dev, smi)
+    surfaces_phase(dev, smi)
     print(f"chip_smoke.py: {time.perf_counter() - script_t0:.1f} s, the "
           "kernels' build included", flush=True)
     print(json.dumps({"kernels": [{

@@ -1284,3 +1284,74 @@ def test_geoschem_small_scene_runs_k1_and_matches_plain(cuda, tmp_path):
                   / "data" / "geoschem_ref_f64.npz")
     assert _rel(torch.as_tensor(R), torch.as_tensor(ref["R"])) <= GATE
     assert _rel(torch.as_tensor(T), torch.as_tensor(ref["T"])) <= GATE
+
+
+def _counted():
+    from vsmartmom_tpu_torch.ops import (fused_band, fused_lin, fused_rrs,
+                                         fused_rt)
+    return (fused_band.fused_moment, fused_rrs.fused_moment_rrs,
+            fused_lin.fused_moment_multitangent, fused_rt.fused_doubling,
+            fused_rt.fused_layer_step)
+
+
+def test_canopy_small_scene_runs_k1_and_matches_plain(cuda):
+    """The small canopy scene (``flagship.canopy_ref_model``: spectral
+    leaves over an RPV soil, 6 layers, nstreams 3, IQU, 8 points; its slab
+    built on the card in f64) in f32: ``rt_run`` launches K1 once per
+    moment up to m_scat (the 4-D surface's moments above it on the
+    Beer-law tail) and no other kernel; R and T against the plain path on
+    the card and against the stored JAX f64 reference <= 1e-4 of max."""
+    from vsmartmom_tpu_torch import rt_run
+    from vsmartmom_tpu_torch.core.solver import rt_solve
+    from vsmartmom_tpu_torch.flagship import canopy_ref_model
+    model = canopy_ref_model(np.float32, device=cuda)
+    inputs, config = model.build_band(0, device=cuda)
+    assert config.fused and inputs.surf_r.dim() == 4
+    assert inputs.surf_r.device.type == "cpu"
+    before = [fn.launches for fn in _counted()]
+    R, T = rt_run(model, device=cuda)
+    torch.cuda.synchronize()
+    after = [fn.launches - b for fn, b in zip(_counted(), before)]
+    assert after == [config.m_scat + 1, 0, 0, 0, 0]
+    kern = rt_solve(inputs, config, cuda)
+    plain = rt_solve(inputs, dataclasses.replace(
+        config, fused=False, m_scat=-1, ns_sched=(), ns_inter=6), cuda)
+    for k in ("R", "T", "hdr"):
+        assert _rel(kern[k], plain[k]) <= GATE, k
+    from surface_inputs import stored
+    ref = stored()
+    for k, v in (("R", R), ("T", T)):
+        assert _rel(torch.as_tensor(v), torch.as_tensor(ref[f"canopy_{k}"])) \
+            <= GATE, k
+
+
+def test_radau_iqu_runs_k1_and_matches_plain(cuda):
+    """The flagship on Gauss-Radau streams at IQU (17 nodes, N = 51, the
+    solar node weighted): K1 once per moment up to m_scat, K1 against its
+    plain version at every such moment and the kernel path against the
+    plain path <= 1e-4; the small Radau scene against the stored JAX f64
+    reference <= 1e-4."""
+    from vsmartmom_tpu_torch.core.solver import (band_moment_args, rt_solve,
+                                                 spectral_slice)
+    from vsmartmom_tpu_torch.flagship import radau_model, surfaces_ref_outputs
+    from vsmartmom_tpu_torch.ops import fused_band
+    inputs, config = radau_model(256).build_band(0, device=cuda)
+    assert config.fused and config.N == 51
+    chunk = spectral_slice(inputs, config, 0, 128)
+    for m in range(config.m_scat + 1):
+        args, kw = band_moment_args(*chunk, m, cuda)
+        out = fused_band.fused_moment(*args, **kw)
+        ref = fused_band.moment_reference(*args, **kw)
+        for a, b in zip(out, ref):
+            assert torch.isfinite(a).all() and _rel(a, b) <= GATE, m
+    before = fused_band.fused_moment.launches
+    kern = rt_solve(inputs, config, cuda)
+    assert fused_band.fused_moment.launches - before == config.m_scat + 1
+    plain = rt_solve(inputs, dataclasses.replace(
+        config, fused=False, m_scat=-1, ns_sched=(), ns_inter=6), cuda)
+    for k in ("R", "T"):
+        assert _rel(kern[k], plain[k]) <= GATE, k
+    from surface_inputs import stored
+    ref = stored()
+    for k, v in surfaces_ref_outputs("radau", np.float32, cuda).items():
+        assert _rel(torch.as_tensor(v), torch.as_tensor(ref[k])) <= GATE, k

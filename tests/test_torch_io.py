@@ -2,9 +2,8 @@
 ``formats``, ``yaml_input``) against the JAX package's on the CPU: the
 same dicts and files give the same ``Parameters``, field by field (arrays
 equal, bit for bit); the schema, the safe numeric parser and the parse
-errors behave as the JAX package's. A ``canopy:`` section raises
-``NotImplementedError`` in the port (canopy surfaces are not ported yet,
-ROADMAP.md section 1 item 6)."""
+errors behave as the JAX package's. A ``canopy:`` section gives both
+packages' CanopySurface (its fields: ``tests/test_torch_canopy.py``)."""
 
 import copy
 import dataclasses
@@ -258,15 +257,23 @@ def test_unregistered_extension_raises(tmp_path, monkeypatch):
 
 
 def test_canopy_section_raises_not_implemented():
-    """The JAX package wraps each surface in a CanopySurface; the port has
-    no canopy yet and says so."""
+    """Both packages wrap each surface in a CanopySurface (ported since
+    the canopy slice; the full field-by-field check is in
+    tests/test_torch_canopy.py), and both refuse what neither implements:
+    Chen-Leblanc clumping."""
     from vsmartmom_tpu.io.yaml_input import parameters_from_dict as jax_pfd
     from vsmartmom_tpu_torch import parameters_from_dict
     d = _scene("rayleigh")
     d["canopy"] = {"LAI": 2.0, "n_layers": 1}
-    assert jax_pfd(d).surfaces[0].kind == "CanopySurface"
-    with pytest.raises(NotImplementedError, match="item 6"):
-        parameters_from_dict(d)
+    port, ref = parameters_from_dict(d), jax_pfd(d)
+    assert port.surfaces[0].kind == ref.surfaces[0].kind == "CanopySurface"
+    a, b = (p.surfaces[0].kwargs["_surface_obj"] for p in (port, ref))
+    assert (a.LAI, a.n_layers, a.soil.kind) == (b.LAI, b.n_layers,
+                                                b.soil.kind)
+    d["canopy"]["clumping"] = {"type": "ChenLeblanc"}
+    for fn in (parameters_from_dict, jax_pfd):
+        with pytest.raises(ValueError, match="Chen-Leblanc"):
+            fn(d)
 
 
 def test_parse_errors_match_jax():

@@ -406,3 +406,100 @@ def test_ingest_modules_import_without_yaml_jsonschema_h5py(ingest_imports,
 
 def test_geoschem_scene_builds_without_yaml_jsonschema_h5py(ingest_imports):
     assert ingest_imports["scene"] == "ok"
+
+
+#: The land and single-scatter slice's modules: the surfaces, the single-
+#: scatter solvers, the sources, the timing table, the Radau streams.
+LAND_MODULES = ("surfaces.canopy", "surfaces.land_brdf",
+                "surfaces.lambertian", "core.singlescatter", "standalone_ss",
+                "sif", "solar", "utils.timing", "utils.quadrature")
+
+#: A TOML scene with a canopy: section (two sublayers over an RPV soil).
+CANOPY_TOML = """
+[radiative_transfer]
+spec_bands = ["[13300.0 13900.0]"]
+surface = ["rpvSurfaceScalar(0.1, 0.1, 0.75, -0.1)"]
+polarization_type = "Stokes_I()"
+nstreams = 2
+float_type = "Float64"
+[canopy]
+LAI = 2.0
+n_layers = 2
+leaf_reflectance = 0.4
+leaf_transmittance = 0.05
+clumping = "no-clumping"
+[geometry]
+sza = 30.0
+vza = [0.0, 30.0]
+vaz = [0.0, 0.0]
+obs_alt = 1000.0
+[atmospheric_profile]
+T = [250.0, 270.0, 285.0]
+p = [100.0, 500.0, 800.0, 1000.0]
+"""
+
+
+@pytest.fixture(scope="module")
+def land_imports(tmp_path_factory):
+    """In a fresh interpreter with PyYAML, jsonschema and h5py blocked:
+    each land-slice module's import error (None if it imported) and the
+    forbidden modules it loaded; then ``canopy_model``'s construction at 4
+    points and a TOML scene with a ``canopy:`` section through
+    ``parameters_from_file`` (no schema validation) and a canopy build on
+    the CPU ("ok" or the error)."""
+    scene = tmp_path_factory.mktemp("canopy") / "canopy.toml"
+    scene.write_text(CANOPY_TOML)
+    code = ("import sys, json\n"
+            "for name in %r:\n"
+            "    sys.modules[name] = None\n"
+            "out = {}\n"
+            "for m in %r:\n"
+            "    try:\n"
+            "        __import__('vsmartmom_tpu_torch.' + m)\n"
+            "        err = None\n"
+            "    except Exception as e:\n"
+            "        err = repr(e)\n"
+            "    out[m] = [err, [k for k in %r if k in sys.modules]]\n"
+            "import numpy as np\n"
+            "from vsmartmom_tpu_torch import (canopy_model,\n"
+            "    model_from_parameters, parameters_from_file)\n"
+            "try:\n"
+            "    canopy_model(4, np.float64, device='cpu')\n"
+            "    p = parameters_from_file(%r, validate=False)\n"
+            "    assert p.surfaces[0].kind == 'CanopySurface'\n"
+            "    m = model_from_parameters(p, device='cpu')\n"
+            "    inputs, _ = m.build_band(0, device='cpu')\n"
+            "    assert inputs.surf_r.dim() == 3\n"
+            "    out['scene'] = 'ok'\n"
+            "except Exception as e:\n"
+            "    out['scene'] = repr(e)\n"
+            "print(json.dumps(out))\n" % (OPTIONAL, LAND_MODULES, FORBIDDEN,
+                                           str(scene)))
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    import json
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", LAND_MODULES)
+def test_land_modules_import_without_jax_or_yaml(land_imports, module):
+    path = ROOT / "vsmartmom_tpu_torch" / (module.replace(".", "/") + ".py")
+    assert path in _port_files()
+    assert land_imports[module] == [None, []]
+
+
+def test_canopy_scenes_build_without_yaml(land_imports):
+    assert land_imports["scene"] == "ok"
+
+
+@pytest.mark.parametrize("entry", ["rt_run_ss", "run_exact_ss"])
+def test_single_scatter_needs_cuda_or_an_explicit_device(monkeypatch,
+                                                         entry):
+    from vsmartmom_tpu_torch import flagship
+    from vsmartmom_tpu_torch import rt_run_ss, run_exact_ss
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "rt_run_ss":
+            rt_run_ss(flagship.flagship_model(n_spec=2, nstreams=2))
+        else:
+            run_exact_ss(flagship.exact_ss_config(2, nz=3)[0])

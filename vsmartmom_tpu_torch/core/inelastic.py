@@ -46,7 +46,8 @@ from ..ops.fused_rrs import (KERNEL_MAX_N, fused_moment_rrs,
 from .kernels import (AddedLayer, CompositeLayer, _exp, _expm1,
                       identity_composite, interaction)
 from .solver import _elemental_and_sources, _surface_layer, band_moment_args
-from .types import (SolverInputs, kernel_takes_width, resolve_device,
+from .types import (SolverInputs, kernel_takes_width,
+                    refuse_spectral_surface, resolve_device,
                     rrs_setup_from_numpy, stokes_d_vector)
 
 
@@ -617,6 +618,7 @@ def inelastic_setup(model, i_band: int = 0, mode: str = "RRS", device=None):
     band = model.bands[i_band]
     refuse_thermal(band)
     inputs, config = model.build_band(i_band, device=dev, rrs=True)
+    refuse_spectral_surface(inputs, "the inelastic solves")
     if src_fn is _roll0:
         shifts, w_shifts, _ = rrs_redistribution(band.nu_grid)
         if len(shifts) == 0:

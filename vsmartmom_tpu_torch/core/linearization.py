@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from .solver import rt_solve
-from .types import SolverInputs, kernel_takes_width, resolve_device
+from .types import (SolverInputs, kernel_takes_width, refuse_spectral_surface,
+                    resolve_device)
 
 AEROSOL_PARAMS = ("tau_ref", "n_r", "n_i", "r_mode", "sigma_g", "p0",
                   "sigma_p")
@@ -216,6 +217,7 @@ def build_tangent_inputs(model, i_band, layout: ParameterLayout, fd_rel=1e-3,
     dev = resolve_device(device)
     band = model.bands[i_band]
     inputs, config = model.build_band(i_band, device=dev)
+    refuse_spectral_surface(inputs, "rt_run_lin")
     zero = _zero_like(inputs)
     tangents = []
 

@@ -1,20 +1,31 @@
 """Model build: user parameters -> RTModel (host setup + solver inputs).
 
-Counterpart of ``vsmartmom_tpu/core/model.py`` for the scenes the port
-covers: Rayleigh columns with optional Mie or analytic (Henyey-Greenstein)
-aerosols over a Cox-Munk ocean or a Lambertian surface, with optional
-per-layer thermal emission. All setup physics runs on the host in float64
-NumPy, as in the JAX package; ``build_band`` hands the arrays to the device
-as float64 tensors and the solver casts them to ``config.dtype``. The
-generalized spherical functions behind the Z moments are computed once per
-build for every moment and component (``zmatrix.legendre_tables``), not
-once per moment as in the JAX package: the numbers are the same.
+Counterpart of ``vsmartmom_tpu/core/model.py``: Rayleigh columns with
+optional Mie or analytic (Henyey-Greenstein) aerosols and gas absorption
+over any surface the JAX package builds (Lambertian with a scalar,
+per-point, Legendre or spline albedo; Cox-Munk; RPV; Ross-Li; a
+vegetation canopy over any of them), on Gauss-Legendre or Gauss-Radau
+streams, with optional per-layer thermal emission. All setup physics runs
+on the host in float64 NumPy, as in the JAX package; ``build_band`` hands
+the arrays to the device as float64 tensors and the solver casts them to
+``config.dtype``. The generalized spherical functions behind the Z moments
+are computed once per build for every moment and component
+(``zmatrix.legendre_tables``), not once per moment as in the JAX package:
+the numbers are the same.
 
-Gas absorption (``AbsorptionParams``) builds each band's tau_abs from
-HITRAN line lists, look-up tables, CIA and MT_CKD files as the JAX package
-does; the line sum runs on a torch device (``absorption/cross_section.py``)
-and its result comes back to the host. The Radau quadrature and the other
-surfaces raise ``NotImplementedError``; they are queued in ROADMAP.md.
+Two parts of the build run on a torch device, the one
+``model_from_parameters(params, device=...)`` was given (CUDA unless
+given): the line sum of gas absorption (``AbsorptionParams``: HITRAN line
+lists; look-up tables, CIA and MT_CKD stay on the host;
+``absorption/cross_section.py``) and a canopy surface's slab
+(``surfaces/canopy.py``, float64), whose operators come back to the host.
+A canopy with spectral leaf optics gives spectrally resolved surface
+operators, (n_m, nSpec, N, N) and (n_m, nSpec, N, n_stokes); ``build_band``
+keeps those two on the CPU, and the solver moves one spectral chunk of
+them to its device at a time.
+
+The model build's stages (``rayleigh``, ``absorption``, ``mie``, and
+``surface`` in ``build_band``) are timed into ``utils.timing``'s table.
 """
 
 from dataclasses import dataclass, field
@@ -27,9 +38,12 @@ from ..inelastic.molecular import air_depolarization
 from ..scattering.greek import GreekCoefs, greek_rayleigh
 from ..scattering.stokes import Polarization
 from ..scattering.zmatrix import compute_Z_moments, legendre_tables
-from ..surfaces.lambertian import (lambertian_spectral_scale,
+from ..surfaces.lambertian import (lambertian_legendre_scale,
+                                   lambertian_spectral_scale,
                                    lambertian_surface_arrays)
-from ..utils.quadrature import QuadPoints, nearest_index, rt_set_streams
+from ..utils import timing
+from ..utils.quadrature import (QuadPoints, nearest_index, rt_set_streams,
+                                rt_set_streams_radau)
 from .atmosphere import (AtmosphericProfile, aerosol_profile_shape,
                          compute_atmos_profile_fields, compute_ndoubl,
                          rayleigh_layer_tau, reduce_profile)
@@ -59,8 +73,10 @@ class Parameters:
     absorption_params: Optional["AbsorptionParams"] = None
     scattering_params: Optional["ScatteringParams"] = None
     dtau_max_threshold: float = 1e-3
+    dtau_min_floor: Optional[float] = None
     include_solar: bool = True          # zero F0 for thermal-only runs
-    quadrature: str = "GaussLegQuad"
+    quadrature: str = "GaussLegQuad"    # or "RadauQuad" (SZA a weighted node)
+    verbose: bool = False               # print the per-stage timing table
     # Execution strategy (None = auto: the band kernel for f32 on CUDA
     # where the scene's width fits it).
     fused: Optional[bool] = None
@@ -178,49 +194,162 @@ class BandData:
 
 
 def _surface_m_support(surface: SurfaceDescriptor, stream_l_cap: int) -> int:
-    """Fourier support of the surface BRDF (component_m_max.jl:
-    Lambertian -> 0; Cox-Munk -> the stream cap)."""
+    """Fourier support of the surface BRDF (component_m_max.jl): every
+    Lambertian kind -> 0; Cox-Munk, RPV, Ross-Li and a canopy -> the
+    stream cap."""
     if surface.kind.startswith("Lambertian"):
         return 0
     return stream_l_cap
 
 
 def _surface_arrays(surface: SurfaceDescriptor, quad: QuadPoints,
-                    n_stokes: int, n_m: int, n_spec: int):
+                    n_stokes: int, n_m: int, n_spec: int, pol=None,
+                    nu_grid=None, atm_tau=None, device=None):
     """(surf_r, surf_j_m, surf_spec, surf_direct_m), as in the JAX package:
     surf_r[m] includes the m = 0 factor 2 and the diag(mu*w) quadrature
     factor, surf_j_m[m] = mu0 * R_raw[:, solar block], surf_spec scales both
-    spectrally and surf_direct_m masks the moments with a direct-beam j0+."""
+    spectrally and surf_direct_m masks the moments with a direct-beam j0+
+    (Lambertian: m = 0 only; numeric BRDFs: every m). ``nu_grid`` is the
+    band's grid (spline albedos, canopies), ``pol`` its polarization and
+    ``atm_tau`` the within-canopy absorption (``_canopy_atm_tau``); a
+    canopy's slab runs on ``device`` (resolved: CUDA unless given)."""
     kind = surface.kind
-    if kind == "LambertianSurfaceScalar":
-        direct_m = np.zeros(n_m)
-        direct_m[0] = 1.0
+    direct_m = np.zeros(n_m)
+    direct_m[0] = 1.0
+
+    if kind in ("LambertianSurfaceScalar", "LambertianSurfaceSpectrum",
+                "LambertianSurfaceLegendre", "LambertianSurfaceSpline"):
         r, j = lambertian_surface_arrays(quad, n_stokes, n_m)
-        return r, j, lambertian_spectral_scale(surface.args[0], n_spec), \
-            direct_m
+        if kind == "LambertianSurfaceLegendre":
+            spec = lambertian_legendre_scale(np.asarray(surface.args), n_spec)
+        elif kind == "LambertianSurfaceSpline":
+            # Cubic-spline spectral albedo (reference types.jl:545-548 +
+            # lambertian_surface.jl:161-183): knots on a wavelength [nm]
+            # or wavenumber [cm^-1] grid, evaluated on the band grid.
+            from scipy.interpolate import CubicSpline
+            grid = np.asarray(surface.kwargs.get(
+                "grid", surface.args[0] if surface.args else None),
+                dtype=np.float64)
+            vals = np.asarray(surface.kwargs.get(
+                "albedo", surface.args[1] if len(surface.args) > 1 else None),
+                dtype=np.float64)
+            unit = str(surface.kwargs.get("grid_unit", "nm"))
+            if nu_grid is None:
+                raise ValueError("LambertianSurfaceSpline needs the band grid")
+            x = 1e7 / np.asarray(nu_grid) if unit == "nm" else \
+                np.asarray(nu_grid)
+            order = np.argsort(grid)
+            cs = CubicSpline(grid[order], vals[order])
+            spec = np.clip(cs(np.clip(x, grid.min(), grid.max())), 0.0, None)
+        else:
+            albedo = surface.args[0] if kind == "LambertianSurfaceScalar" \
+                else np.asarray(surface.args[0])
+            spec = lambertian_spectral_scale(albedo, n_spec)
+        return r, j, spec, direct_m
+
     if kind == "CoxMunkSurface":
         from ..surfaces.coxmunk import (CoxMunkSurface,
                                         coxmunk_surface_operator_arrays)
-        surf = CoxMunkSurface(**{k: v for k, v in surface.kwargs.items()
-                                 if not k.startswith("_")})
+        surf = surface.kwargs.get("_surface_obj") or CoxMunkSurface(
+            **{k: v for k, v in surface.kwargs.items() if not k.startswith("_")})
         surf_r, surf_j = coxmunk_surface_operator_arrays(
             surf, quad, n_stokes, n_m)
         return surf_r, surf_j, np.ones(n_spec), np.ones(n_m)
-    raise NotImplementedError(f"surface {kind} is not ported yet")
+
+    if kind in ("rpvSurfaceScalar", "RossLiSurfaceScalar"):
+        from ..surfaces.land_brdf import (RPVSurface, RossLiSurface,
+                                          rossli_reflectance, rpv_reflectance,
+                                          scalar_brdf_surface_arrays)
+        if kind == "rpvSurfaceScalar":
+            # ctor order: rpvSurfaceScalar(rho0, rho_c, k, theta)
+            s = RPVSurface(*[float(a) for a in surface.args]) \
+                if surface.args else RPVSurface(**surface.kwargs)
+            fn = lambda mi, mr, dp: rpv_reflectance(s, mi, mr, dp)  # noqa: E731
+        else:
+            # ctor order: RossLiSurfaceScalar(fvol, fgeo, fiso)
+            s = RossLiSurface(*[float(a) for a in surface.args]) \
+                if surface.args else RossLiSurface(**surface.kwargs)
+            fn = lambda mi, mr, dp: rossli_reflectance(s, mi, mr, dp)  # noqa: E731
+        r, j = scalar_brdf_surface_arrays(fn, quad, n_stokes, n_m)
+        return r, j, np.ones(n_spec), np.ones(n_m)
+
+    if kind == "CanopySurface":
+        from ..surfaces.canopy import (CanopySurface, canopy_surface_arrays,
+                                       interp_surface_operators)
+        canopy = surface.kwargs.get("_surface_obj")
+        if canopy is None:
+            canopy = CanopySurface(
+                **{k: v for k, v in surface.kwargs.items()
+                   if not k.startswith("_")})
+        soil_r, soil_j, soil_spec, soil_direct = _surface_arrays(
+            canopy.soil, quad, n_stokes, n_m, n_spec, pol=pol,
+            nu_grid=nu_grid)
+        if nu_grid is None:
+            nu_grid = np.linspace(0.0, 1.0, n_spec)
+        nodes, R_eff, J_eff = canopy_surface_arrays(
+            canopy, quad, pol, n_m, nu_grid, soil_r, soil_j, soil_spec,
+            atm_tau=atm_tau, device=resolve_device(device))
+        # Direct-beam j0+ slot: canopy-TOP bookkeeping, as in the JAX
+        # package. The composite canopy+soil operators act at the canopy
+        # top, so the BOA outputs (T, bhr_dw) are the fields at canopy top,
+        # and the direct slot keeps the soil's mask with the above-canopy
+        # attenuation only: LAI -> 0 reduces continuously to bare soil, and
+        # a conservative surface keeps bhr_uw == bhr_dw. (canopy_surface.jl:
+        # 459 zeroes the slot instead: there the canopy slab carries the
+        # beam.)
+        if len(nodes) == 1:
+            # Spectrally constant canopy: squeeze to the (n_m, N, N) path.
+            return R_eff[:, 0], J_eff[:, 0], np.ones(n_spec), soil_direct
+        R, J = interp_surface_operators(nodes, R_eff, J_eff, nu_grid)
+        return R, J, np.ones(n_spec), soil_direct
+
+    raise NotImplementedError(f"Surface type {kind} not yet implemented")
+
+
+def _canopy_atm_tau(band, profile):
+    """Within-canopy gas absorption spectrum of a CanopySurface scene with
+    ``include_atm`` and ``canopy_dp`` (reference canopy_surface.jl
+    _compute_canopy_atm_tau!): the bottom layer's tau_abs scaled by the
+    canopy's air column vcd = N_A dp / (M g 100^2) * 100 over the bottom
+    layer's dry column. Returns (nSpec,) or None."""
+    surf = band.surface
+    if surf.kind != "CanopySurface":
+        return None
+    canopy = surf.kwargs.get("_surface_obj")
+    if canopy is not None:
+        include, dp = canopy.include_atm, canopy.canopy_dp
+    else:
+        include = surf.kwargs.get("include_atm", False)
+        dp = surf.kwargs.get("canopy_dp")
+    if not include or dp is None:
+        return None
+    iz = profile.nz - 1
+    N_A, g0 = 6.0221408e23, 9.8067
+    dry_mass, wet_mass = 0.028964, 0.018015
+    vmr_h2o = float(np.atleast_1d(profile.vmr_h2o)[iz]) \
+        if profile.vmr_h2o is not None else 0.0
+    M = (1.0 - vmr_h2o) * dry_mass + vmr_h2o * wet_mass
+    vcd_canopy = N_A * float(dp) / (M * g0 * 100.0 ** 2) * 100.0
+    vcd_bot = float(np.atleast_1d(profile.vcd_dry)[iz])
+    if vcd_bot <= 0:
+        return None
+    return np.asarray(band.tau_abs)[:, iz] * (vcd_canopy / vcd_bot)
 
 
 class RTModel:
     """Built model: geometry + profile + per-band optics.
 
     ``build_band`` assembles one band's (SolverInputs, SolverConfig) from the
-    current (possibly user-mutated) optics."""
+    current (possibly user-mutated) optics. ``device`` is where the build's
+    device parts run (a canopy's slab; None: CUDA, resolved at use)."""
 
     def __init__(self, params: Parameters, quad: QuadPoints,
-                 profile: AtmosphericProfile, bands: list):
+                 profile: AtmosphericProfile, bands: list, device=None):
         self.params = params
         self.quad = quad
         self.profile = profile
         self.bands = bands
+        self.device = device
         self.vza_idx = tuple(nearest_index(quad.qp_mu, np.cos(np.deg2rad(v)))
                              for v in params.vza)
 
@@ -289,8 +418,12 @@ class RTModel:
 
         m_max = self._band_m_max(band)
         n_m = m_max + 1
-        surf_r, surf_j, surf_spec, surf_direct_m = _surface_arrays(
-            band.surface, quad, ns, n_m, n_spec)
+        with timing.stage(f"surface[{i_band}]"):
+            surf_r, surf_j, surf_spec, surf_direct_m = _surface_arrays(
+                band.surface, quad, ns, n_m, n_spec, pol=pol,
+                nu_grid=band.nu_grid,
+                atm_tau=_canopy_atm_tau(band, self.profile),
+                device=self.device)
 
         # Phase supermatrices per Fourier moment per scattering component:
         # Rayleigh (or its Cabannes line for RRS runs), then each aerosol.
@@ -318,7 +451,8 @@ class RTModel:
         mu_min = quad.qp_mu[weighted].min()
         ndoubl = max(
             (compute_ndoubl(scat_w[z].sum(axis=0).max(), mu_min,
-                            params.dtau_max_threshold, dtype=ft) for z in range(nz)), default=0)
+                            params.dtau_max_threshold, params.dtau_min_floor,
+                            dtype=ft) for z in range(nz)), default=0)
 
         # Azimuthal postprocessing weights (postprocessing_vza.jl:23-37).
         vza_w = np.zeros((n_m, len(params.vza), ns))
@@ -359,7 +493,11 @@ class RTModel:
             wZ_mp_l = np.einsum("zc,cij->zij", scat_w[:, :, s_star],
                                 Z_mp[0]) / safe_tau[:, None, None]
             d_vec = stokes_d_vector(ns, quad.Nquad)
-            surf_probe = np.asarray(surf_r[0]) * float(np.max(surf_spec)) \
+            surf0 = np.asarray(surf_r[0])
+            if surf0.ndim == 3:
+                # Spectrally resolved surface: probe its brightest point.
+                surf0 = surf0[int(np.argmax(np.abs(surf0).sum(axis=(1, 2))))]
+            surf_probe = surf0 * float(np.max(surf_spec)) \
                 if np.size(surf_spec) else None
             ns_sched, ns_inter = probe_ns_schedule(
                 wZ_pp_l, wZ_mp_l, tau_p, quad.qp_mu_N, quad.wt_mu_N,
@@ -386,7 +524,19 @@ class RTModel:
             thermal_b=thermal_b,
             sif_spec=band.sif_spec if band.sif_spec is not None
             else np.zeros(n_spec))
-        return solver_inputs_from_numpy(fields, dev, torch.float64), config
+        # Spectrally resolved surface operators stay on the host (1.4 GB in
+        # f64 at nSpec 4096, N = 52): the solver moves a chunk at a time.
+        host = [k for k in SPECTRAL_SURFACE if np.ndim(fields[k]) == 4]
+        inputs = solver_inputs_from_numpy(
+            {k: np.zeros(0) if k in host else v for k, v in fields.items()},
+            dev, torch.float64)
+        return inputs._replace(**{
+            k: torch.as_tensor(np.ascontiguousarray(fields[k]),
+                               dtype=torch.float64) for k in host}), config
+
+
+#: The SolverInputs fields a spectrally resolved surface makes 4-D.
+SPECTRAL_SURFACE = ("surf_r", "surf_j_m")
 
 
 def z_moment_stack(pol, mu, greeks, n_m: int):
@@ -544,14 +694,20 @@ def _build_band_absorption(params: Parameters, profile: AtmosphericProfile,
 
 def model_from_parameters(params: Parameters, device=None) -> RTModel:
     """The host build of every band. A band with gas lines
-    (``params.absorption_params``) sums them on ``device``: CUDA unless
-    given, and without CUDA and without a device that build raises. A
-    scene without line lists builds on the host alone."""
-    if params.quadrature != "GaussLegQuad":
-        raise NotImplementedError(
-            f"quadrature {params.quadrature} is not ported yet")
+    (``params.absorption_params``) sums them on ``device``, and
+    ``build_band`` runs a canopy surface's slab there: CUDA unless given,
+    and without CUDA and without a device those builds raise. A scene
+    without line lists or canopy builds on the host alone.
+    ``params.quadrature`` "RadauQuad" takes Gauss-Radau streams with the
+    solar cosine as a weighted node, "GaussLegQuad" Gauss-Legendre."""
     pol = params.polarization
-    quad = rt_set_streams(params.nstreams, params.sza, params.vza, pol.n)
+    if params.quadrature == "RadauQuad":
+        quad = rt_set_streams_radau(params.nstreams, params.sza, params.vza,
+                                    pol.n)
+    elif params.quadrature == "GaussLegQuad":
+        quad = rt_set_streams(params.nstreams, params.sza, params.vza, pol.n)
+    else:
+        raise ValueError(f"Unknown quadrature: {params.quadrature}")
 
     profile = compute_atmos_profile_fields(params.T, params.p, params.q)
     if params.profile_reduction != -1:
@@ -570,15 +726,19 @@ def model_from_parameters(params: Parameters, device=None) -> RTModel:
             depol_ray, depol_cab = depol_ray_auto, depol_cab_auto
         else:
             depol_ray = depol_cab = float(params.depol)
-        tau_rayl = rayleigh_layer_tau(profile.p_half[-1], lam_um, depol_ray,
-                                      profile.vcd_dry)        # (nSpec, Nz)
-        tau_abs, tau_abs_by_mol = _build_band_absorption(
-            params, profile, nu, i_band, device)
+        with timing.stage(f"rayleigh[{i_band}]"):
+            tau_rayl = rayleigh_layer_tau(profile.p_half[-1], lam_um,
+                                          depol_ray,
+                                          profile.vcd_dry)    # (nSpec, Nz)
+        with timing.stage(f"absorption[{i_band}]"):
+            tau_abs, tau_abs_by_mol = _build_band_absorption(
+                params, profile, nu, i_band, device)
         surface = params.surfaces[min(len(bands), len(params.surfaces) - 1)]
         scat = params.scattering_params
-        aerosols = [build_one_aerosol(params, profile, aer,
-                                      band_lambda_um(nu))
-                    for aer in (scat.rt_aerosols if scat else [])]
+        with timing.stage(f"mie[{i_band}]"):
+            aerosols = [build_one_aerosol(params, profile, aer,
+                                          band_lambda_um(nu))
+                        for aer in (scat.rt_aerosols if scat else [])]
         bands.append(BandData(nu_grid=nu, tau_rayl=tau_rayl,
                               tau_abs=tau_abs,
                               greek_rayleigh=greek_rayleigh(depol_ray),
@@ -587,4 +747,5 @@ def model_from_parameters(params: Parameters, device=None) -> RTModel:
                               depol_cabannes=depol_cab,
                               pi_cabannes=pi_cab, surface=surface,
                               tau_abs_by_mol=tau_abs_by_mol))
-    return RTModel(params=params, quad=quad, profile=profile, bands=bands)
+    return RTModel(params=params, quad=quad, profile=profile, bands=bands,
+                   device=device)

@@ -39,7 +39,8 @@ from .inelastic import (IEAdded, IEComposite, _B, _Bv, _L, _Lv,
 from .kernels import (AddedLayer, CompositeLayer, identity_composite,
                       interaction)
 from .solver import _make_added_layer, _surface_layer
-from .types import SolverConfig, SolverInputs, resolve_device, stokes_d_vector
+from .types import (SolverConfig, SolverInputs, refuse_spectral_surface,
+                    resolve_device, stokes_d_vector)
 
 
 def interaction_prepend(add: AddedLayer, comp: CompositeLayer
@@ -143,6 +144,7 @@ def rt_run_ms(model, sensor_levels, i_band: int = 0, device=None):
     model on CUDA takes the kernel route (K5 for each moment's layers)."""
     dev = resolve_device(device)
     inputs, config = model.build_band(i_band, device=dev)
+    refuse_spectral_surface(inputs, "rt_run_ms")
     levels = tuple(int(v) for v in sensor_levels)
     for v in levels:
         if not 0 <= v <= config.nz:

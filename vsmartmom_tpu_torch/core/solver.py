@@ -10,9 +10,13 @@ Fourier moments in Python; each moment up to ``m_scat`` runs either
 
 then the surface layer, its interaction, and the azimuthal weighting.
 Moments above ``m_scat`` see a purely absorbing column and take the exact
-Beer-law shortcut. Outputs follow the reference convention: ``R``/``T`` are
-the radiance factors (I/F0) at TOA (up) and BOA (down), (nVZA, n_stokes,
-nSpec).
+Beer-law shortcut, also under a spectrally resolved surface (a canopy with
+spectral leaf optics: surf_r (n_m, nSpec, N, N), surf_j_m (n_m, nSpec, N,
+n_stokes)), where the JAX package sends every moment down the full path
+(its tail takes (N, N) surfaces only; with no scattering above ``m_scat``
+both are the same arithmetic). Outputs follow the reference convention:
+``R``/``T`` are the radiance factors (I/F0) at TOA (up) and BOA (down),
+(nVZA, n_stokes, nSpec).
 
 Entry points run on CUDA unless the caller passes ``device`` (the tests pass
 ``device="cpu"``); without CUDA and without a device they raise.
@@ -25,6 +29,7 @@ import torch
 
 from ..ops.fused_band import fused_moment
 from ..ops.fused_rt import fused_doubling, unstar
+from ..utils import timing
 from .kernels import (AddedLayer, CompositeLayer, _exp, _expm1, doubling,
                       elemental, identity_composite, interaction)
 from .types import SolverConfig, SolverInputs, resolve_device, stokes_d_vector
@@ -120,11 +125,19 @@ def beer_moment(tau_boa, F0, surf_spec, surf_j_m_m, surf_direct_m_m, qp_mu_N,
     mu0 = qp_mu_N[config.i_mu0_start]
     att = _exp(-tau_boa / mu0)
     Tdiag = _exp(-tau_boa[:, None] / qp_mu_N[None, :])       # (s, N)
-    j0m = torch.einsum("ik,ks->si", surf_j_m_m, F0) \
-        * (att * surf_spec)[:, None]
+    j0m = _surface_source(surf_j_m_m, F0) * (att * surf_spec)[:, None]
     j0p = _solar_block((F0 * att[None, :]).T, config.N,
                        config.i_mu0_start) * surf_direct_m_m
     return j0m, Tdiag * j0m, j0p
+
+
+def _surface_source(surf_j_m, F0):
+    """(s, N) upwelling surface source per unit attenuation, sum_k
+    surf_j_m[i, k] F0[k]: ``surf_j_m`` (N, n_stokes), or (s, N, n_stokes)
+    for a spectrally resolved surface."""
+    if surf_j_m.dim() == 3:
+        return torch.einsum("sik,ks->si", surf_j_m, F0)
+    return torch.einsum("ik,ks->si", surf_j_m, F0)
 
 
 def _surface_layer(surf_r_m, surf_j_m, surf_direct_m, surf_spec, F0,
@@ -133,16 +146,19 @@ def _surface_layer(surf_r_m, surf_j_m, surf_direct_m, surf_spec, F0,
     """Surface as an AddedLayer (Surfaces/*.jl create_surface_layer!):
     ``surf_r_m`` (N, N) includes the quadrature factor, ``surf_j_m``
     (N, n_stokes) is mu0 * R_raw[:, solar block]; both scale by surf_spec
-    and the solar attenuation; ``surf_direct_m`` masks the direct-beam j0+."""
+    and the solar attenuation; ``surf_direct_m`` masks the direct-beam j0+.
+    A spectrally resolved surface (a canopy with spectral leaf optics)
+    gives them as (s, N, N) and (s, N, n_stokes)."""
     n_spec, N, ns = config.n_spec, config.N, config.n_stokes
     dtype, dev = F0.dtype, F0.device
     att = _exp(-tau_sum_boa / mu0)                           # (s,)
-    r_mp = surf_r_m[None] * surf_spec[:, None, None]
+    r_mp = (surf_r_m if surf_r_m.dim() == 3 else surf_r_m[None]) \
+        * surf_spec[:, None, None]
     eye = torch.eye(N, dtype=dtype, device=dev).expand(n_spec, N, N)
     zero_m = torch.zeros((n_spec, N, N), dtype=dtype, device=dev)
     j0_p = _solar_block((F0 * att[None, :]).T * surf_direct_m, N,
                         config.i_mu0_start)
-    j0_m = torch.einsum("ik,ks->si", surf_j_m, F0) * (att * surf_spec)[:, None]
+    j0_m = _surface_source(surf_j_m, F0) * (att * surf_spec)[:, None]
     # Surface SIF: isotropic Lambertian emission into the upwelling source,
     # m = 0 only (surface_sif.jl:24-34,177).
     is_I = ((torch.arange(N, device=dev) % ns) == 0).to(dtype)
@@ -209,7 +225,9 @@ def rt_solve(inputs: SolverInputs, config: SolverConfig, device=None):
     dtype = config.torch_dtype
     n_spec, N, nz = config.n_spec, config.N, config.nz
     ns = config.n_stokes
-    inp = SolverInputs(*(torch.as_tensor(x).to(device=dev, dtype=dtype)
+    # Cast before the move: a spectrally resolved surface arrives as a
+    # host f64 chunk, and crosses to the device in the solver's dtype.
+    inp = SolverInputs(*(torch.as_tensor(x).to(dtype=dtype).to(device=dev)
                          for x in inputs))
 
     qp_mu_N, wt_mu_N = inp.qp_mu_N, inp.wt_mu_N
@@ -294,7 +312,9 @@ def rt_solve(inputs: SolverInputs, config: SolverConfig, device=None):
                                        qp_mu_N, config)
         R = R + weigh(Jtoa, m)
         T = T + weigh(j0p_m, m)
-        hdr_J = torch.matmul(j0p_m, inp.surf_r[m].T) \
+        surf_r_m = inp.surf_r[m]
+        hdr_J = (torch.einsum("sij,sj->si", surf_r_m, j0p_m)
+                 if surf_r_m.dim() == 3 else torch.matmul(j0p_m, surf_r_m.T)) \
             * surf_spec[:, None] + j0m
         hdr = hdr + weigh(hdr_J, m)
         if config.save_streams:
@@ -309,9 +329,10 @@ def rt_solve(inputs: SolverInputs, config: SolverConfig, device=None):
     return out
 
 
-#: Spectral axis of each SolverInputs field that has one.
+#: Spectral axis of each SolverInputs field that has one; surf_r and
+#: surf_j_m have one only when 4-D (a spectrally resolved surface).
 SPECTRAL_AXIS = {"tau": 1, "scat_w": 2, "F0": 1, "surf_spec": 0,
-                 "thermal_b": 1, "sif_spec": 0}
+                 "thermal_b": 1, "sif_spec": 0, "surf_r": 1, "surf_j_m": 1}
 
 
 def spectral_slice(inputs: SolverInputs, config: SolverConfig, start: int,
@@ -320,11 +341,18 @@ def spectral_slice(inputs: SolverInputs, config: SolverConfig, start: int,
     kw = {}
     for f in SolverInputs._fields:
         v = getattr(inputs, f)
-        if f in SPECTRAL_AXIS:
+        if f in SPECTRAL_AXIS and (f not in ("surf_r", "surf_j_m")
+                                   or v.dim() == 4):
             v = v.narrow(SPECTRAL_AXIS[f], start, stop - start)
         kw[f] = v
     return SolverInputs(**kw), dataclasses.replace(config,
                                                    n_spec=stop - start)
+
+
+def timing_on(model) -> bool:
+    """Whether a run records and prints the stage table:
+    ``Parameters.verbose`` or ``VSM_TIMING``."""
+    return bool(getattr(model.params, "verbose", False)) or timing.enabled()
 
 
 def rt_run_full(model, device=None, spectral_chunk=None):
@@ -332,18 +360,34 @@ def rt_run_full(model, device=None, spectral_chunk=None):
     concatenated over bands. ``spectral_chunk`` solves each band in chunks of
     that many spectral points (bounding device memory; None = whole band).
     Cox-Munk surfaces get the TMS single-scatter glint correction on the
-    host after the Fourier sum (rt_run.jl:519-524)."""
+    host after the Fourier sum (rt_run.jl:519-524).
+
+    A canopy scene's T and bhr_dw are the fields at canopy top, the
+    direct beam there (attenuated by the atmosphere alone) in the direct
+    slot, as in the JAX package; the reference zeroes that slot
+    (canopy_surface.jl:459). LAI -> 0
+    reduces to the bare-soil scene and a conservative surface keeps
+    bhr_uw == bhr_dw, but those two outputs differ from the reference's
+    even where R agrees.
+
+    Its stages (``build_band[i]``, ``rt_solve[i]``) go into
+    ``utils.timing``'s table, synchronised on CUDA while timing is on."""
     dev = resolve_device(device)
+    on = timing_on(model)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else None
     keys = ("R", "T", "hdr", "bhr_uw", "bhr_dw")
     acc = {k: [] for k in keys}
     for i_band, band in enumerate(model.bands):
-        inputs, config = model.build_band(i_band, device=dev)
+        with timing.stage(f"build_band[{i_band}]", sync, on):
+            inputs, config = model.build_band(i_band, device=dev)
         step = spectral_chunk or config.n_spec
         parts = []
-        for a in range(0, config.n_spec, step):
-            o = rt_solve(*spectral_slice(inputs, config, a,
-                                         min(a + step, config.n_spec)), dev)
-            parts.append({k: o[k].cpu().numpy() for k in keys})
+        with timing.stage(f"rt_solve[{i_band}]", sync, on):
+            for a in range(0, config.n_spec, step):
+                o = rt_solve(*spectral_slice(inputs, config, a,
+                                             min(a + step, config.n_spec)),
+                             dev)
+                parts.append({k: o[k].cpu().numpy() for k in keys})
         out = {k: np.concatenate([p[k] for p in parts], axis=-1)
                for k in keys}
         if band.surface.kind == "CoxMunkSurface":
@@ -362,8 +406,11 @@ def rt_run_full(model, device=None, spectral_chunk=None):
 
 def rt_run(model, device=None, spectral_chunk=None):
     """User-facing forward run (rt_run.jl:53): (R, T) numpy arrays of shape
-    (nVZA, n_stokes, nSpec_total), radiance factors I/F0."""
+    (nVZA, n_stokes, nSpec_total), radiance factors I/F0. With
+    ``Parameters.verbose`` or ``VSM_TIMING`` it prints the stage table."""
     out = rt_run_full(model, device, spectral_chunk)
+    if timing_on(model):
+        print(timing.report())
     return out["R"], out["T"]
 
 

@@ -170,6 +170,18 @@ def rrs_setup_from_numpy(shifts, w_shifts, Z_r_pp, Z_r_mp, fscatt, device,
                       for x in (w, Z_r_pp, Z_r_mp, fscatt)))
 
 
+def refuse_spectral_surface(inputs: SolverInputs, entry: str) -> None:
+    """Refuse a spectrally resolved surface (4-D surf_r: a canopy with
+    spectral leaf optics) in an entry point that takes (n_m, N, N) surfaces
+    only. ``rt_run``, ``rt_run_full``, ``rt_run_streams`` and ``rt_run_ss``
+    take both; the others are queued in ROADMAP.md section 1."""
+    if inputs.surf_r.dim() == 4:
+        raise NotImplementedError(
+            f"{entry} takes a spectrally constant surface only; a "
+            "spectrally resolved one (a canopy with spectral leaf optics) "
+            "is not ported for it yet (ROADMAP.md section 1)")
+
+
 def stokes_d_vector(n_stokes: int, nquad: int, dtype=np.float64) -> np.ndarray:
     """The D-matrix diagonal tiled over streams (types.jl D = [1,1,-1,-1])."""
     d = np.ones(n_stokes)

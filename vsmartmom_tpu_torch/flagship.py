@@ -30,6 +30,13 @@
   two-moment aerosols) driven through the TOML scene-file front end with
   the flagship's settings, and its small twin ``geoschem_ref_model`` of
   the stored JAX reference ``data/geoschem_ref_f64.npz``.
+* The vegetated red-edge column ``canopy_model``: the flagship's column
+  over 755 -> 672 nm with a three-sublayer canopy (SYNTHETIC leaf optics:
+  no PROSPECT table is in the repository) over an RPV soil, with a solar
+  spectrum and surface SIF; its small twin ``canopy_ref_model``; the
+  Gauss-Radau flagship ``radau_model``; the exact single-scatter configs
+  of ``exact_ss_config``; the small scenes of the stored JAX reference
+  ``data/surfaces_ref_f64.npz``.
 """
 
 import os
@@ -852,3 +859,209 @@ def geoschem_ref_model(dtype=np.float64, files=None, device=None,
         nstreams=GEOSCHEM_REF_NSTREAMS, polarization="Stokes_IQU",
         species=GEOSCHEM_REF_SPECIES, nquad_radius=GEOSCHEM_REF_NQUAD,
         n_lev=GEOSCHEM_REF_N_LEV)
+
+
+# ---- The land-surface and single-scatter scenes ----
+
+#: The red-edge band of the canopy scene: 0.4 cm^-1 steps from 13245 cm^-1
+#: (755 nm; 4096 points reach 14883 cm^-1, 672 nm).
+CANOPY_NU0, CANOPY_DNU = 13245.0, 0.4
+#: The canopy's leaf optics grid [nm]: 5 nm steps from 650 to 800 nm.
+CANOPY_LEAF_GRID_NM = np.arange(650.0, 800.0 + 1e-9, 5.0)
+#: Leaf area index, sublayers, leaf-angle distribution and clumping.
+CANOPY_LAI, CANOPY_LAYERS, CANOPY_LAD, CANOPY_CLUMPING = 3.0, 3, \
+    "spherical", 1.0
+#: The RPV soil under the canopy: rpvSurfaceScalar(rho0, rho_c, k, theta).
+CANOPY_SOIL = ("rpvSurfaceScalar", [0.1, 0.1, 0.75, -0.1])
+#: The small canopy scene of ``data/surfaces_ref_f64.npz``: 8 points across
+#: the band, 6 layers, nstreams 3, IQU.
+CANOPY_REF_NU = np.linspace(CANOPY_NU0, CANOPY_NU0 + CANOPY_DNU * 4095, 8)
+CANOPY_REF_NZ, CANOPY_REF_NSTREAMS = 6, 3
+
+
+def canopy_leaf_optics(grid_nm=CANOPY_LEAF_GRID_NM):
+    """SYNTHETIC leaf optics (no PROSPECT table is in the repository): a
+    logistic red edge at 715 nm (10 nm scale), reflectance 0.05 -> 0.45
+    and transmittance 0.03 -> 0.45 from the red to the near infrared.
+    Returns (reflectance, transmittance) on ``grid_nm``."""
+    edge = 1.0 / (1.0 + np.exp(-(np.asarray(grid_nm) - 715.0) / 10.0))
+    return 0.05 + 0.40 * edge, 0.03 + 0.42 * edge
+
+
+def canopy_surface(LAI=CANOPY_LAI) -> SurfaceDescriptor:
+    """The canopy over its RPV soil, as a ``SurfaceDescriptor``: LAI in
+    ``CANOPY_LAYERS`` equal sublayers, spherical LAD, no clumping, the
+    leaf optics of ``canopy_leaf_optics`` on a 5 nm grid (``n_coarse`` 7
+    nodes on the band: spectrally resolved surface operators)."""
+    from .surfaces.canopy import CanopySurface
+    rho, tau = canopy_leaf_optics()
+    return SurfaceDescriptor("CanopySurface", [], {
+        "_surface_obj": CanopySurface(
+            soil=SurfaceDescriptor(CANOPY_SOIL[0], list(CANOPY_SOIL[1])),
+            LAI=float(LAI), n_layers=CANOPY_LAYERS, leaf_reflectance=rho,
+            leaf_transmittance=tau,
+            leaf_optics_grid=CANOPY_LEAF_GRID_NM.copy(), grid_unit="nm",
+            clumping_omega=CANOPY_CLUMPING, lad=CANOPY_LAD, n_coarse=7)})
+
+
+def canopy_params(nu, dtype=np.float32, nstreams=8, nz=None,
+                  polarization=STOKES_IQUV, LAI=CANOPY_LAI,
+                  soil_only=False) -> Parameters:
+    """``Parameters`` of the canopy scenes on the grid ``nu``: the
+    flagship's column, geometry and settings over the canopy (or, with
+    ``soil_only``, over its bare RPV soil)."""
+    kw = flagship_params(len(nu), dtype, nstreams, nz)
+    kw["spec_bands"] = [np.asarray(nu, dtype=np.float64)]
+    surf = SurfaceDescriptor(CANOPY_SOIL[0], list(CANOPY_SOIL[1])) \
+        if soil_only else canopy_surface(LAI)
+    return Parameters(surfaces=[surf], polarization=polarization, **kw)
+
+
+def with_sources(model):
+    """The canopy scenes' sources on every band: the synthetic solar
+    spectrum (``solar.default_solar_spectrum``) as ``f0_spec`` and the
+    default SIF shape (``sif.build_sif_source``). Returns the model."""
+    from .sif import build_sif_source
+    from .solar import default_solar_spectrum
+    for band in model.bands:
+        band.f0_spec = default_solar_spectrum(band.nu_grid)
+    return build_sif_source(model)
+
+
+def canopy_model(n_spec=4096, dtype=np.float32, device=None, LAI=CANOPY_LAI,
+                 soil_only=False):
+    """RTModel of the vegetated red-edge column, the land slice's main
+    path: the flagship's 33 layers, IQUV, nstreams 8, sza 30 and nine view
+    angles (N = 52) over ``n_spec`` points at 0.4 cm^-1 from 13245 cm^-1
+    (4096: 755 -> 672 nm); under it a canopy of LAI 3 in 3 sublayers
+    (spherical LAD, clumping 1.0, SYNTHETIC leaf optics,
+    ``canopy_leaf_optics``) over an RPV soil (rho0 0.1, rho_c 0.1, k 0.75,
+    theta -0.1); ``f0_spec`` the synthetic solar spectrum and the default
+    SIF shape (``with_sources``). The canopy's slab is built on ``device``
+    (``model_from_parameters``; CUDA unless given) at every ``build_band``.
+    ``soil_only`` drops the canopy (the LAI -> 0 control's twin)."""
+    nu = CANOPY_NU0 + CANOPY_DNU * np.arange(n_spec)
+    return with_sources(model_from_parameters(
+        canopy_params(nu, dtype, LAI=LAI, soil_only=soil_only),
+        device=device))
+
+
+def canopy_ref_model(dtype=np.float64, device=None, LAI=CANOPY_LAI,
+                     soil_only=False):
+    """RTModel of the small canopy scene of ``data/surfaces_ref_f64.npz``:
+    ``canopy_model``'s construction on ``CANOPY_REF_NU`` (8 points across
+    the band), 6 layers, nstreams 3, IQU; f64 by default."""
+    return with_sources(model_from_parameters(
+        canopy_params(CANOPY_REF_NU, dtype, CANOPY_REF_NSTREAMS,
+                      CANOPY_REF_NZ, STOKES_IQU, LAI, soil_only),
+        device=device))
+
+
+#: The small flagship scenes of ``data/surfaces_ref_f64.npz`` (single
+#: scatter over Cox-Munk, Gauss-Radau streams): 8 points, 6 layers,
+#: nstreams 3.
+SURF_REF_N_SPEC, SURF_REF_NZ, SURF_REF_NSTREAMS = 8, 6, 3
+
+
+def radau_params(n_spec=1024, dtype=np.float32, nstreams=8,
+                 nz=None) -> Parameters:
+    """``Parameters`` of the flagship over Cox-Munk (wind 5) on Gauss-Radau
+    streams (``quadrature="RadauQuad"``: the solar cosine a weighted node),
+    IQU: at nstreams 8 Radau gives 14 nodes and the view angles three more,
+    17 nodes, N = 51 (68 at IQUV, above K1's 64)."""
+    kw = flagship_params(n_spec, dtype, nstreams, nz)
+    return Parameters(
+        surfaces=[SurfaceDescriptor("CoxMunkSurface", [], {"wind_speed": 5.0})],
+        polarization=STOKES_IQU, quadrature="RadauQuad", **kw)
+
+
+def radau_model(n_spec=1024, dtype=np.float32, nstreams=8, nz=None):
+    """RTModel of ``radau_params`` (a host build)."""
+    return model_from_parameters(radau_params(n_spec, dtype, nstreams, nz))
+
+
+#: The exact single-scatter scenes: the flagship's geometry, a Rayleigh
+#: column and a Henyey-Greenstein aerosol (g 0.7, ssa 0.9, tau 0.15
+#: centred at 700 hPa, width 60 hPa).
+EXACT_SS_HG = dict(g=0.7, ssa=0.9, tau_ref=0.15, p0=700.0, sigma_p=60.0)
+
+
+def exact_ss_config(n_spec=4096, surface="lambertian", n_stokes=3, nz=None,
+                    albedo=0.05, nu0=FLAGSHIP_NU0):
+    """(``standalone_ss.ExactSSConfig``, its arrays as plain data) of the
+    flagship's geometry (mu0 = cos 30 deg, the nine view angles and their
+    azimuths) over ``nz`` layers of the flagship's column (None: all 33):
+    Rayleigh (the band's optical depths and depolarization) plus the
+    ``EXACT_SS_HG`` aerosol, over a Lambertian floor of ``albedo`` or a
+    Cox-Munk ocean (wind 5). The plain data (``geometry``, ``rayleigh``,
+    ``hg`` keywords) lets the JAX package build the same config."""
+    from .core.atmosphere import aerosol_profile_shape
+    from .standalone_ss import (CoxMunkSSSurface, ExactSSConfig,
+                                HGAerosolSSContributor, LambertianSSSurface,
+                                RayleighSSContributor, SSGeometry)
+    host = flagship_model(n_spec, np.float64, nstreams=2, nz=nz,
+                          surface="lambertian")
+    band = host.bands[0]
+    kw = flagship_params(n_spec)
+    hg = EXACT_SS_HG
+    shape = aerosol_profile_shape(
+        RTAerosol(tau_ref=hg["tau_ref"], p0=hg["p0"], sigma_p=hg["sigma_p"]),
+        host.profile)
+    data = dict(
+        geometry=dict(mu0=float(np.cos(np.deg2rad(kw["sza"]))),
+                      mu_v=np.cos(np.deg2rad(np.asarray(kw["vza"]))),
+                      dphi=np.deg2rad(np.asarray(kw["vaz"]))),
+        rayleigh=dict(tau=np.ascontiguousarray(band.tau_rayl.T),
+                      depol=float(band.depol_rayleigh)),
+        hg=dict(g=hg["g"], ssa=hg["ssa"],
+                tau=np.repeat((hg["tau_ref"] * shape)[:, None], n_spec, 1)),
+        surface=surface, albedo=albedo, n_stokes=n_stokes)
+    surf = LambertianSSSurface(albedo=albedo) if surface == "lambertian" \
+        else CoxMunkSSSurface(wind_speed=5.0)
+    config = ExactSSConfig(
+        geometry=SSGeometry(**data["geometry"]), surface=surf,
+        contributors=[RayleighSSContributor(**data["rayleigh"]),
+                      HGAerosolSSContributor(**data["hg"])],
+        n_stokes=n_stokes)
+    return config, data
+
+
+def surfaces_ref_outputs(name, dtype=np.float64, device=None):
+    """The port's run of one entry of ``data/surfaces_ref_f64.npz`` on
+    ``device`` (CUDA unless given): {f"{name}_{key}": array}. ``canopy``:
+    ``rt_run_full`` of ``canopy_ref_model``; ``radau``: R and T of the
+    small Gauss-Radau flagship; ``ss_canopy``, ``ss_coxmunk``: ``rt_run_ss``
+    of the small canopy and the small flagship over Cox-Munk; ``exact_all``
+    / ``exact_cm``: ``run_exact_ss_with_jacobians`` of ``exact_ss_config``
+    over Lambertian ("all") and Cox-Munk ("paths_1_2"). The stored file
+    holds the JAX package's CPU f64 run of the same scenes."""
+    from .core.singlescatter import rt_run_ss
+    from .core.solver import rt_run_full
+    from .core.types import resolve_device
+    from .standalone_ss import run_exact_ss_with_jacobians
+    device = resolve_device(device)
+    small = dict(n_spec=SURF_REF_N_SPEC, nz=SURF_REF_NZ)
+    if name == "canopy":
+        out = rt_run_full(canopy_ref_model(dtype, device=device),
+                          device=device)
+    elif name == "radau":
+        out = rt_run_full(radau_model(dtype=dtype,
+                                      nstreams=SURF_REF_NSTREAMS, **small),
+                          device=device)
+        out = {k: out[k] for k in ("R", "T")}
+    elif name == "ss_canopy":
+        out = rt_run_ss(canopy_ref_model(dtype, device=device),
+                        device=device)
+    elif name == "ss_coxmunk":
+        out = rt_run_ss(flagship_model(dtype=dtype,
+                                       nstreams=SURF_REF_NSTREAMS, **small),
+                        device=device)
+    else:
+        surface, paths = {"exact_all": ("lambertian", "all"),
+                          "exact_cm": ("coxmunk", "paths_1_2")}[name]
+        config, _ = exact_ss_config(surface=surface, **small)
+        res, jac = run_exact_ss_with_jacobians(config, paths, device=device)
+        out = {k: res[k] for k in ("path1", "path2", "path3", "path4",
+                                   "total")}
+        out.update(jac)
+    return {f"{name}_{k}": np.asarray(v) for k, v in out.items()}

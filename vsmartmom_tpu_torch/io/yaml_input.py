@@ -8,9 +8,11 @@ src/IO/Parameters.jl:59-345) into the port's ``Parameters`` dataclass.
 The value syntax (Julia constructor strings like
 ``LambertianSurfaceScalar(0.15)``, band strings like ``"[12987.0]"`` /
 ``"nu_start:nu_step:nu_end"``) is accepted verbatim. ``yaml`` is imported
-only where a YAML file is read. A ``canopy:`` section raises
-``NotImplementedError``: canopy surfaces are not ported yet (ROADMAP.md
-section 1, item 6).
+only where a YAML file is read. A ``canopy:`` section wraps each band's
+surface as the soil of a ``surfaces.canopy.CanopySurface`` (clumping as a
+number, a string or a table; ``lai_fractions``; ``include_atm`` with
+``canopy_dp``); ``quadrature_type`` ``RadauQuad()`` selects Gauss-Radau
+streams.
 """
 
 import ast
@@ -218,11 +220,54 @@ def parameters_from_dict(d: dict) -> Parameters:
     surfaces = [_parse_surface(s) for s in rt["surface"]]
 
     # A canopy section wraps each per-band surface as soil inside a
-    # CanopySurface (reference IO/Parameters.jl:175-220); not ported yet.
+    # CanopySurface (reference IO/Parameters.jl:175-220
+    # _parse_canopy_section).
     if "canopy" in d:
-        raise NotImplementedError(
-            "the canopy: section needs surfaces/canopy.py, which is not "
-            "ported yet (ROADMAP.md section 1, item 6)")
+        c = d["canopy"]
+        from ..surfaces.canopy import CanopySurface
+        clump = c.get("clumping", 1.0)
+        if isinstance(clump, str):
+            if clump.lower().replace("-", "_") in ("none", "no",
+                                                   "no_clumping", "random"):
+                clump = 1.0
+            else:
+                raise ValueError(f"Unknown canopy clumping string: {clump}")
+        elif isinstance(clump, dict):
+            kind = clump.get("type", "constant").lower().replace("-", "_")
+            if kind in ("none", "no", "no_clumping", "random"):
+                clump = 1.0
+            elif kind in ("constant", "constant_clumping"):
+                clump = float(clump.get("Omega", clump.get("Omega0",
+                              clump.get("value", 1.0))))
+            else:
+                raise ValueError(f"Unsupported canopy clumping: {kind} "
+                                 "(Chen-Leblanc clumping is not ported; "
+                                 "see surfaces/canopy.py)")
+        lg = c.get("leaf_optics_grid")
+        soil_spec = c.get("soil", "from_surface")
+        wrapped = []
+        for surf in surfaces:
+            soil = surf if soil_spec == "from_surface" \
+                else _parse_surface(soil_spec)
+            canopy = CanopySurface(
+                soil=soil,
+                LAI=float(c.get("LAI", 3.0)),
+                n_layers=int(c.get("n_layers", 1)),
+                leaf_reflectance=c.get("leaf_reflectance", 0.4),
+                leaf_transmittance=c.get("leaf_transmittance", 0.05),
+                leaf_optics_grid=None if lg is None else np.asarray(
+                    lg, dtype=np.float64),
+                grid_unit=str(c.get("grid_unit", "nm")),
+                clumping_omega=float(clump),
+                lad=str(c.get("LAD", c.get("lad", "spherical"))).lower(),
+                lai_fractions=None if c.get("lai_fractions") is None
+                else tuple(float(f) for f in c["lai_fractions"]),
+                include_atm=bool(c.get("include_atm", False)),
+                canopy_dp=None if c.get("canopy_dp") is None
+                else float(c["canopy_dp"]))
+            wrapped.append(SurfaceDescriptor(
+                "CanopySurface", [], {"_surface_obj": canopy}))
+        surfaces = wrapped
 
     pol_name, _, _ = _parse_ctor(rt.get("polarization_type", "Stokes_I()"))
     polarization = polarization_from_name(pol_name)

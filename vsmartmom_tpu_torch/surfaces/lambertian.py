@@ -12,12 +12,13 @@ A Lambertian surface contributes only to the m = 0 Fourier moment with
 For m > 0 the surface operators vanish (transmission stays identity).
 
 The functions below separate the angular pattern (built at unit albedo)
-from the spectral albedo scaling ``surf_spec``, so scalar and
-per-wavelength albedos flow through the same SolverInputs.
+from the spectral albedo scaling ``surf_spec``, so scalar, per-wavelength
+and Legendre-coefficient albedos flow through the same SolverInputs.
 """
 
 import numpy as np
 
+from ..scattering.legendre import compute_legendre_poly
 from ..utils.quadrature import QuadPoints
 
 
@@ -47,3 +48,13 @@ def lambertian_spectral_scale(albedo, n_spec: int) -> np.ndarray:
     if len(arr) != n_spec:
         raise ValueError("spectral albedo length must equal nSpec")
     return arr
+
+
+def lambertian_legendre_scale(coeffs, n_spec: int) -> np.ndarray:
+    """Legendre-polynomial spectral albedo over the band
+    (lambertian_surface.jl:97-143): albedo(x) = sum_k c_k P_k(x),
+    x uniform in [-1, 1] across the band grid."""
+    coeffs = np.asarray(coeffs, dtype=np.float64)
+    x = np.linspace(-1.0, 1.0, n_spec)
+    P = compute_legendre_poly(x, max(len(coeffs), 2))[0][:, :len(coeffs)]
+    return P @ coeffs
