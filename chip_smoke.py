@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Twelve groups of
+Run from the root of a checkout: ``python3 chip_smoke.py``. Fourteen groups of
 paths are driven: the flagship forward ``rt_run`` (band kernel K1), the
 rotational-Raman forward ``rt_run_inelastic`` (K1 for the elastic half, the
 block-bichromatic RRS kernel K3 for the inelastic one), the aerosol
@@ -25,7 +25,9 @@ TOML front end and ``model_from_parameters`` to ``rt_run`` (K1); and the
 land and single-scatter paths: a vegetated red-edge column (a canopy over
 an RPV soil, built on the card) through ``rt_run_full`` (K1) and
 ``rt_run_ss``, the standalone exact single scatter ``run_exact_ss`` and
-the flagship on Gauss-Radau streams (K1).
+the flagship on Gauss-Radau streams (K1); the five other entry points
+over a spectrally resolved canopy surface (K2, K5, K1 + K3); and the
+spectral sharding over ``torch.distributed`` ranks (K1, K1 + K3).
 Phases, each of which fails the run (non-zero exit) on a miss:
 
 1. setup — the card's name and power limit; every CUDA kernel of the port
@@ -90,7 +92,8 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    dense one printed beside it, the store's bytes and the diagonal
    launch's store against its plain version (``diagonal_store``); the
    Jacobian solve's points/s and tangent
-   points/s (best of 2 after a warm-up, tangents prebuilt), the host
+   points/s (the solve inside the counted ``rt_run_lin``, tangents
+   prebuilt by it and K2 loaded by the checks before it), the host
    seconds of the scene and tangent builds, and K2's time against its bound
    at the least work (the primal once, two products per tangent product),
    with the kernel's own count beside it: groups + 2P primal moments a
@@ -114,7 +117,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    block does must run in under a quarter of the fastest dense one); per
    level the kernel route against the plain (LU) route
    <= 1e-4 of max, and level 0 against the band path's rt_solve R and T
-   <= 1e-4; ``ms_pts_per_s`` (best of 3 after a warm-up, synchronised), a
+   <= 1e-4; ``ms_pts_per_s`` (best of 2 after a warm-up, synchronised), a
    device-time split of one more solve (CUDA events around the stash, K5,
    the interactions and the interface solves), and K5's time per launch
    against its plain version and its bound at moment 0 (operations) and at
@@ -170,8 +173,9 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    2e-4 and 1e-4); ``rt_run`` of the scene (K1 at K = 2) against R
    (1e-4); the small thermal scene against the stored JAX CPU f64
    reference (``data/lin_thermal_ref_f64.npz``, the K = 1 phase's gates
-   with its 1.01 control); timing: a warm-up on the slice, then one timed
-   solve at nSpec 1024 (one, not the best of 2), K1''s time per launch,
+   with its 1.01 control); timing: the solve inside the counted
+   ``rt_run_lin`` at nSpec 1024 (K1' loaded by the checks before it),
+   K1''s time per launch,
    its plain version's and its bound at the least work (the K2 count with
    the second source column), its plan and barrier count as K2's;
 9. absorption (``absorption_phase``) on ``flagship.aband_model`` (the
@@ -224,7 +228,8 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    scene in RRS and VS_0to1 against ``data/ms_rrs_ref_f64.npz`` (<=
    1e-4); timing: ``vs_pts_per_s``, ``stellar_rrs_pts_per_s``,
    ``stellar_vs_pts_per_s`` and ``ms_rrs_pts_per_s`` (each solve alone,
-   best of 3 after a warm-up, synchronised) and K3's time a call at the
+   after a warm-up, synchronised: the stellar RRS best of 3, the three
+   launch-bound plain solves best of 2) and K3's time a call at the
    stellar shape against its least-work bound (``rrs_flops``), with its
    plain version's (not in the kernels line, which keeps the RRS+SIF
    shapes);
@@ -244,7 +249,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    chunk (<= 1e-4) and K1 against its plain version at m = 0 and m_scat
    (<= 1e-4); the small GEOS-Chem scene (``flagship.geoschem_ref_model``,
    6 levels, f32) through K1 against ``data/geoschem_ref_f64.npz``
-   (<= 1e-4); timing: ``geoschem_pts_per_s`` (best of 3 after a warm-up)
+   (<= 1e-4); timing: ``geoschem_pts_per_s`` (best of 2 after a warm-up)
    and K1's time a launch at 72 layers against its bound and its plain
    version's (not in the kernels line, which keeps the flagship shapes);
 12. surfaces (``surfaces_phase``) — (a) ``flagship.canopy_model`` (the
@@ -277,12 +282,48 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    synchronised), ``canopy_build_s`` with its surface stage (the stage
    table of ``utils.timing``), the move of the four chunks' 4-D surface
    to the card, and K1's time a launch on the canopy scene against its
-   bound and its plain version's.
+   bound and its plain version's;
+13. 4-D entries (``entries_4d_phase``) — each of the five other entry
+   points on its own chip scene and width with ``flagship.over_canopy``
+   in place of its surface (the canopy of ``canopy_surface`` over its RPV
+   soil, its SYNTHETIC red edge moved to the band's middle, so the
+   (16, nSpec, N, N) surface varies across the band; the phase fails a
+   surface that does not): ``rt_run_lin`` of the aerosol flagship (nSpec
+   1024, P = 7) counted (K2 m_scat + 1 times, nothing else), each of
+   those launches on the 64 points from the brightest surface point
+   against K2's plain version on those points' operands (every moment:
+   primal <= 1e-4, each tangent <= 2e-4 of its parameter's max), its
+   kernel route against the jvp route on those points, moments 0..2 (R
+   <= 1e-4, each dR <= 2e-4 of its max, the aerosol height's
+   ``HEIGHT_GATE``, whose control, the kernel's height dR 1% off, must
+   fail it) and each route's dR against an f64 run of the jvp route (the
+   kernel's distance within ``F64_RATIO`` of the f32 plain route's, or
+   2e-4); ``rt_run_ms`` of the flagship (nSpec 1024,
+   levels 0, 16, 33) counted (K5 m_max + 1 times), the kernel route
+   against the LU route per level (1e-4); ``rt_run_inelastic`` RRS of the
+   RRS+SIF scene (nSpec 256) counted (K1, K3), the kernel route at the
+   full ie ladder against the plain solve (R, T, ieR, ieT 1e-4; the
+   coarse ie ladder's ieR 5e-3); ``rt_run_stellar`` sol_RRS (nSpec
+   1024, K1 + K3) counted, the kernel route against the plain solve
+   (1e-4); ``rt_run_ms_rrs`` of the MS bench scene counted (plain, no
+   kernel), level 0 against the plain RRS solve (1e-4); the Jacobian
+   and Raman routes compared on moments 0..``ROUTE_CHECK_M`` (2) of the
+   canopy's 16. Each prints its launches, pts/s (the build included) and its
+   surface's bytes on the host (f64) and on the card (the solve's dtype);
+14. sharding (``sharding_phase``) — ``flagship.dryrun_multichip(1)``: one
+   NCCL rank on the card; two gloo ranks sharing the card, spawned once
+   (``parallel.run_ranks``, the kernels built before they start) on the
+   flagship at nSpec 4096 through K1 (each rank 2048 points, m_scat + 1
+   launches) and on the RRS+SIF scene at nSpec 1024 through K1 + K3 with
+   each rank's halo (``parallel.shard_raman``, max|shift| points a side),
+   the outputs gathered on the host, each against the unsharded run on
+   the card (<= 1e-4; the distance and bit-equality printed).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel. Without CUDA it exits non-zero and prints no result.
 """
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -526,17 +567,38 @@ class K5Paths:
         return out
 
 
-def best_of_3(fn):
-    """Host seconds of fn() (synchronised): (best of 3 after a warm-up,
-    all four)."""
+def best_of(fn, reps=3):
+    """Host seconds of fn() (synchronised): (best of ``reps`` after a
+    warm-up, all of them)."""
     times = []
-    for _ in range(4):
+    for _ in range(reps + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return min(times[1:]), times
+
+
+@contextlib.contextmanager
+def timed_calls(module, name):
+    """``module.<name>`` wrapped for the block: the host seconds of each
+    call, synchronised before and after, go into the list it yields (the
+    solve inside an entry run timed without a run of its own)."""
+    fn, times = getattr(module, name), []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+    setattr(module, name, timed)
+    try:
+        yield times
+    finally:
+        setattr(module, name, fn)
 
 
 def launch_counted():
@@ -679,8 +741,8 @@ def ms_phase(dev, smi):
                                        *e_band.values())):
             fail(f"MS {name} gates: {e_route} {e_band}")
 
-        solve_s, times = best_of_3(lambda: multisensor.rt_solve_ms(
-            inputs, config, levels, dev))
+        solve_s, times = best_of(lambda: multisensor.rt_solve_ms(
+            inputs, config, levels, dev), reps=2)
         split = DeviceSplit()
         patched = [(solver, "fused_doubling"),
                    (multisensor, "_make_added_layer"),
@@ -1190,8 +1252,9 @@ def raman_phase(dev, smi):
             fail(f"{mode} port vs stored JAX reference: {e}")
     vs_inputs, vs_config, *vs_rrs = inelastic_setup(vs_model, mode="VS_0to1",
                                                     device=dev)
-    vs_s, vs_all = best_of_3(lambda: rt_solve_rrs(
-        vs_inputs, vs_config, *vs_rrs, device=dev, src_fn=_src_fixed0))
+    vs_s, vs_all = best_of(lambda: rt_solve_rrs(
+        vs_inputs, vs_config, *vs_rrs, device=dev, src_fn=_src_fixed0),
+        reps=2)
 
     # (b) Stellar rotational Raman through K1 and K3 (full ie resolution).
     st_model = stellar_sif_model()
@@ -1250,7 +1313,7 @@ def raman_phase(dev, smi):
           + " ".join(f"{k}={v:.2e}" for k, v in e.items()), flush=True)
     if not (e["R"] <= GATE and e["ieR"] <= GATE):
         fail(f"sol_RRS port vs stored JAX reference: {e}")
-    st_s, st_all = best_of_3(lambda: rt_solve_rrs_fused(
+    st_s, st_all = best_of(lambda: rt_solve_rrs_fused(
         st_inputs, st_config, *st, device=dev, ie_fullres=True))
     ops = fused_rrs.rrs_operands(*k3_args, **{
         k: v for k, v in k3_kw.items() if k not in ("ns_sched", "ns_inter")})
@@ -1294,9 +1357,9 @@ def raman_phase(dev, smi):
         rayleigh_fraction(band), dev)
         for w, g in ((w_rvrs, greek_raman_stellar()),
                      (w_vrs, greek_raman_stellar_vs(h2)))]
-    sv_s, sv_all = best_of_3(lambda: [rt_solve_rrs(
+    sv_s, sv_all = best_of(lambda: [rt_solve_rrs(
         sv_inputs, sv_config, *p, device=dev, src_fn=_src_fixed0)
-        for p in passes])
+        for p in passes], reps=2)
 
     # (d) Multisensor Raman: the MS bench scene, plain torch on the card.
     ms_model = rrs_sif_model(n_spec=MS_RRS_N_SPEC)
@@ -1334,8 +1397,8 @@ def raman_phase(dev, smi):
         if not all(v <= GATE for v in e.values()):
             fail(f"MS-RRS {mode} port vs stored JAX reference: {e}")
     torch.cuda.reset_peak_memory_stats(dev)
-    ms_s, ms_all = best_of_3(lambda: rt_solve_ms_rrs(
-        ms_inputs, ms_config, MS_RRS_LEVELS, *ms, device=dev))
+    ms_s, ms_all = best_of(lambda: rt_solve_ms_rrs(
+        ms_inputs, ms_config, MS_RRS_LEVELS, *ms, device=dev), reps=2)
     print(json.dumps({
         "card": smi, "vs_pts_per_s": len(nu) / vs_s, "vs_solve_s": vs_s,
         "vs_solve_all_s": vs_all, "vs_n_spec": len(nu),
@@ -1362,7 +1425,12 @@ def lin_ref_gates(out, ref, names):
     errors, each parameter's dR error on its own scale, the height
     parameters' 1.01 control, whether the gates hold): R <= 1e-4, each dR
     <= 2e-4 of its own max (HEIGHT_GATE for the aerosol height), and the
-    height Jacobians 1% off must fail their gate."""
+    height Jacobians 1% off must fail their gate. The stored dR is the JAX
+    package's, which leaves out the Cox-Munk TMS term's derivative through
+    each tangent's optical depth; the port's carries it, so the gate adds
+    the stored ``dR_tms`` (that term from the JAX tangents) to it."""
+    ref = {**{k: ref[k] for k in ("R", "T", "dT")},
+           "dR": ref["dR"] + ref["dR_tms"]}
     e = {k: rel(out[k], ref[k]) for k in ("R", "T", "dR", "dT")}
     own = [rel(out["dR"][..., q], ref["dR"][..., q])
            for q in range(len(names))]
@@ -1455,7 +1523,8 @@ def thermal_lin_phase(dev, smi):
     for fn in counted.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    R, T, dR, dT = rt_run_lin(model, layout=layout, device=dev)
+    with timed_calls(fused_lin, "rt_solve_multitangent") as solve_times:
+        R, T, dR, dT = rt_run_lin(model, layout=layout, device=dev)
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counted.items()}
@@ -1540,16 +1609,12 @@ def thermal_lin_phase(dev, smi):
         fail(f"thermal Jacobian port vs stored JAX reference: {e_ref}, per "
              f"parameter {own}, control {control}")
 
-    # Timing: a warm-up on the slice, then one solve at full width.
-    fused_lin.rt_solve_multitangent(sl[0], sl_tans, sl[1], dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    o = fused_lin.rt_solve_multitangent(inputs, tans, config, dev)
-    torch.cuda.synchronize()
-    solve_s = time.perf_counter() - t0
-    if not bool(torch.isfinite(o[2]).all()):
-        fail("non-finite dR in the timed thermal Jacobian solve")
-    del o
+    # Timing: the solve inside the counted rt_run_lin above (K1' loaded
+    # by the checks before it).
+    if len(solve_times) != 1:
+        fail(f"thermal rt_run_lin made {len(solve_times)} multitangent "
+             "solves")
+    solve_s = solve_times[0]
     args = fused_lin.multitangent_args(inputs, tans, config, 0, dev)
     k_ms = cuda_time_ms(lambda: fused_lin._launch_kernel(*args), reps=3)
     p_ms = cuda_time_ms(
@@ -1978,12 +2043,12 @@ def geoschem_phase(dev, smi):
             fail(f"GEOS-Chem port vs stored JAX reference: {e_ref}, K1 "
                  f"launches {small_k1}")
 
-    # 5. Timing: the solve alone (best of 3 after a warm-up) and K1 a launch
+    # 5. Timing: the solve alone (best of 2 after a warm-up) and K1 a launch
     # at 72 layers and four components.
     chunks = [spectral_slice(inputs, config, c, c + N_CHUNK)
               for c in range(0, GEOSCHEM_N_SPEC, N_CHUNK)]
     times = []
-    for _ in range(4):
+    for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs = [rt_solve(i, c, dev)["R"] for i, c in chunks]
@@ -2219,15 +2284,15 @@ def surfaces_phase(dev, smi):
     # K1 a launch.
     chunks = [spectral_slice(inputs, config, c, c + N_CHUNK)
               for c in range(0, CANOPY_N_SPEC, N_CHUNK)]
-    canopy_s, canopy_all = best_of_3(
+    canopy_s, canopy_all = best_of(
         lambda: [rt_solve(i, c, dev)["R"] for i, c in chunks])
-    ss_s, ss_all = best_of_3(lambda: rt_solve_ss(inputs, config, dev)["R"])
+    ss_s, ss_all = best_of(lambda: rt_solve_ss(inputs, config, dev)["R"])
     # What the chunks' 4-D surface costs to move (f64 host -> f32 card).
-    move_s, _ = best_of_3(lambda: [
+    move_s, _ = best_of(lambda: [
         x.to(dtype=torch.float32).to(device=dev)
         for i, _ in chunks for x in (i.surf_r, i.surf_j_m)])
     kw, lamb = _on_device(_pack(cfg_all), dev)
-    ex_s, ex_all_t = best_of_3(lambda: _ss_paths(
+    ex_s, ex_all_t = best_of(lambda: _ss_paths(
         **kw, n_stokes=cfg_all.n_stokes, lambertian_surface=lamb))
     k_ms = cuda_time_ms(lambda: fused_band.fused_moment(*args[0], **args[1]))
     p_ms = cuda_time_ms(
@@ -2258,6 +2323,445 @@ def surfaces_phase(dev, smi):
             else "bytes", "bound_share": bound / k_ms, "flops": flops,
             "bytes": k1_bytes, "achieved_tflops": flops / k_ms / 1e9,
             "ndoubl": config.ndoubl}}), flush=True)
+
+
+def surface_bytes(inputs, config):
+    """(host bytes, card bytes) of a band's 4-D surface (surf_r, surf_j_m):
+    as ``build_band`` keeps it (f64 on the host) and as it crosses to the
+    card, cast there to the solve's dtype."""
+    n = inputs.surf_r.numel() + inputs.surf_j_m.numel()
+    return (nbytes(inputs.surf_r, inputs.surf_j_m),
+            n * np.dtype(config.dtype).itemsize)
+
+
+def entries_4d_phase(dev, smi):
+    """The five other entry points over a spectrally resolved (4-D) canopy
+    surface, each at its own chip scene and width (see the module
+    docstring, phase 13). Returns {entry: launches}."""
+    from vsmartmom_tpu_torch import (default_layout, flagship_model,
+                                     rrs_sif_model, rt_run_inelastic,
+                                     rt_run_lin, rt_run_ms, rt_run_ms_rrs,
+                                     rt_run_stellar)
+    from vsmartmom_tpu_torch.core import linearization, multisensor
+    from vsmartmom_tpu_torch.core.inelastic import (inelastic_setup,
+                                                    rt_solve_rrs,
+                                                    rt_solve_rrs_fused)
+    from vsmartmom_tpu_torch.core.linearization import (build_tangent_inputs,
+                                                        rt_solve_jvp)
+    from vsmartmom_tpu_torch.core.solver import spectral_slice
+    from vsmartmom_tpu_torch.flagship import over_canopy, stellar_sif_model
+    from vsmartmom_tpu_torch.inelastic.stellar import sol_rrs_setup
+    from vsmartmom_tpu_torch.ops import fused_lin
+    counted = launch_counted()
+    phase_t0 = time.perf_counter()
+    keys = ("R", "T", "ieR", "ieT")
+    report = {}
+    steps = {}
+    clock = [time.perf_counter()]
+
+    def step(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps[name] = now - clock[0]
+        clock[0] = now
+
+    def run_counted(fn):
+        for c in counted.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counted.items()
+                     if c.launches}, time.perf_counter() - t0
+
+    def record(name, model, inputs, config, launches, secs, errs):
+        host, card = surface_bytes(inputs, config)
+        report[name] = {"n_spec": config.n_spec, "launches": launches,
+                        "pts_per_s": config.n_spec / secs, "entry_s": secs,
+                        "surf_r": list(inputs.surf_r.shape),
+                        "surface_bytes_host": host,
+                        "surface_bytes_card": card, "errors": errs}
+        print(f"4-D {name}: nSpec={config.n_spec} N={config.N} surf_r "
+              f"{tuple(inputs.surf_r.shape)} on {inputs.surf_r.device}, "
+              f"surface bytes host {host} (f64) card {card} "
+              f"({np.dtype(config.dtype).name}); launches {launches}; "
+              f"{config.n_spec / secs:.1f} pts/s ({secs:.2f} s, the build "
+              "included); kernel route vs plain " + " ".join(
+                  f"{k}={e:.2e}" for k, e in errs.items()) + f" ({smi})",
+              flush=True)
+
+    def check_4d(name, inputs):
+        if inputs.surf_r.dim() != 4 or inputs.surf_j_m.dim() != 4:
+            fail(f"4-D {name}: surf_r {tuple(inputs.surf_r.shape)}")
+        spread = float((inputs.surf_r[0, 0] - inputs.surf_r[0, -1]).abs()
+                       .max() / inputs.surf_r[0].abs().max())
+        if not spread > 1e-3:
+            fail(f"4-D {name}: the surface does not vary across the band "
+                 f"({spread})")
+
+    # (a) rt_run_lin: the aerosol flagship over the canopy, K2 at P = 7.
+    # The entry point's own band build and tangents are kept for the
+    # route check (its build_tangent_inputs wrapped for the run), and so
+    # is each K2 launch's output on the checked points (its launch
+    # wrapped under the counted wrapper, whose count is the one read).
+    model = over_canopy(flagship_model(LIN_N_SPEC, aerosol=True), device=dev)
+    layout = default_layout(model)
+    step("lin scene")
+    built, launched = [], []
+
+    def keep_build(*a, **kw):
+        built.append(build_tangent_inputs(*a, **kw))
+        return built[-1]
+
+    def checked_points(inputs):
+        """The LIN_SLICE points from the brightest surface point."""
+        a = min(int(inputs.surf_r[0, :, 0, 0].abs().argmax()),
+                LIN_N_SPEC - LIN_SLICE)
+        return a, a + LIN_SLICE
+    k2 = fused_lin._launch_kernel
+
+    def keep_k2(*args):
+        comp, dcomp = k2(*args)
+        a, b = checked_points(built[0][0])
+        launched.append(([x[a:b].clone() for x in comp],
+                         [x[:, a:b].clone() for x in dcomp]))
+        return comp, dcomp
+    linearization.build_tangent_inputs = keep_build
+    fused_lin._launch_kernel = keep_k2
+    try:
+        (R, T, dR, dT), launches, secs = run_counted(
+            lambda: rt_run_lin(model, layout=layout, device=dev))
+    finally:
+        linearization.build_tangent_inputs = build_tangent_inputs
+        fused_lin._launch_kernel = k2
+    inputs, config, tans = built[0]
+    check_4d("rt_run_lin", inputs)
+    step("lin entry")
+    want = {"fused_moment_multitangent": config.m_scat + 1}
+    if launches != want or layout.n_total != 7 or \
+            dR.shape != (9, 4, LIN_N_SPEC, 7) or not all(
+                np.isfinite(x).all() for x in (R, T, dR, dT)):
+        fail(f"4-D rt_run_lin: launches {launches} (want {want}), layout "
+             f"{layout.names()}, dR {dR.shape} or not finite")
+    # Every K2 launch of the entry (moments 0..m_scat) against K2's plain
+    # version on the checked points' operands.
+    a, b = checked_points(inputs)
+    sl_in, sl_full = spectral_slice(inputs, config, a, b)
+    sl_tans = [spectral_slice(t, config, a, b)[0] for t in tans]
+    refs = [fused_lin.moment_multitangent_reference(
+        *fused_lin.multitangent_args(sl_in, sl_tans, sl_full, m, dev))
+        for m in range(len(launched))]
+    k2_prim, k2_tan, _ = mt_errors(launched, refs)
+    del launched, refs
+    step("lin launches check")
+    # The routes compared on those points, moments 0..ROUTE_CHECK_M (the
+    # plain jvp routes, f32 and f64, are launch-bound: all 16 moments
+    # took 92 s of the phase).
+    sl_cfg = dataclasses.replace(sl_full,
+                                 m_max=min(config.m_max, ROUTE_CHECK_M))
+    kern = fused_lin.rt_solve_multitangent(sl_in, sl_tans, sl_cfg, dev)
+    plain = rt_solve_jvp(sl_in, sl_tans, dataclasses.replace(
+        sl_cfg, fused=False), dev)
+    f64 = rt_solve_jvp(sl_in, sl_tans, dataclasses.replace(
+        sl_cfg, fused=False, dtype=np.float64), dev)
+    names = layout.names()
+    errs = {"R": rel(kern[0], plain[0])}
+    errs.update({n: rel(kern[2][q], plain[2][q])
+                 for q, n in enumerate(names)})
+    # A 1% error in the kernel route's height Jacobians must fail their
+    # gate.
+    control = {n: rel(1.01 * kern[2][q], plain[2][q])
+               for q, n in enumerate(names) if n.endswith(HEIGHT_PARAMS)}
+    # Each route's dR from an f64 run of the plain route, and each
+    # parameter's scale against tau_ref's: a weak parameter's two f32
+    # routes part by f32 rounding on the strong ones' scale.
+    e64 = {n: (rel(kern[2][q].double(), f64[2][q]),
+               rel(plain[2][q].double(), f64[2][q]))
+           for q, n in enumerate(names)}
+    scale = {n: float(f64[2][q].abs().max() / f64[2][0].abs().max())
+             for q, n in enumerate(names)}
+    step("lin route check")
+    record("rt_run_lin", model, inputs, config, launches, secs, errs)
+    print("4-D rt_run_lin dR vs f64 (kernel route, plain f32 route) and "
+          "scale / tau_ref's: " + " ".join(
+              f"{n}=({x:.2e}, {y:.2e}, {scale[n]:.1e})"
+              for n, (x, y) in e64.items()) + "; height dR 1% off "
+          + " ".join(f"{n}={e:.2e}" for n, e in control.items())
+          + f"; K2's {config.m_scat + 1} launches vs plain K2 on those "
+          f"points: primal={k2_prim:.2e} tangents per parameter "
+          + " ".join(f"{e:.2e}" for e in k2_tan), flush=True)
+    report["rt_run_lin"]["k2_launches_vs_plain"] = {
+        "primal": k2_prim, **dict(zip(names, k2_tan))}
+    report["rt_run_lin"]["height_control"] = control
+    gates = {n: HEIGHT_GATE if n.endswith(HEIGHT_PARAMS) else TAN_GATE
+             for n in names}
+    if not (errs["R"] <= GATE and all(errs[n] <= gates[n] for n in names)
+            and all(x <= max(F64_RATIO * y, TAN_GATE)
+                    for x, y in e64.values())
+            and all(e > HEIGHT_GATE for e in control.values())
+            and k2_prim <= GATE and all(e <= TAN_GATE for e in k2_tan)):
+        fail(f"4-D rt_run_lin kernel route vs jvp route: {errs}; vs f64 "
+             f"{e64}; control {control}; K2 launches vs plain K2 "
+             f"{k2_prim}, {k2_tan}")
+    del kern, plain, f64, tans, sl_tans, dR, dT
+
+    # (b) rt_run_ms: the flagship over the canopy, K5; the routes compared
+    # on the first quarter of the band.
+    model = over_canopy(flagship_model(MS_N_SPEC), device=dev)
+    inputs, config = model.build_band(0, device=dev)
+    check_4d("rt_run_ms", inputs)
+    step("ms scene")
+    (uwJ, dwJ), launches, secs = run_counted(
+        lambda: rt_run_ms(model, MS_LEVELS, device=dev))
+    want = {"fused_doubling": config.m_max + 1}
+    if launches != want or not (np.isfinite(uwJ).all()
+                                and np.isfinite(dwJ).all()):
+        fail(f"4-D rt_run_ms: launches {launches} (want {want}) or not "
+             "finite")
+    step("ms entry")
+    q = MS_N_SPEC // 4
+    sl = spectral_slice(inputs, config, 0, q)
+    kern = multisensor.rt_solve_ms(*sl, MS_LEVELS, dev)
+    plain = multisensor.rt_solve_ms(
+        sl[0], dataclasses.replace(sl[1], fused=False), MS_LEVELS, dev)
+    errs = {f"{k}[{L}]": rel(kern[k][i], plain[k][i])
+            for k in ("uwJ", "dwJ") for i, L in enumerate(MS_LEVELS)}
+    errs["entry vs slice"] = rel(uwJ[..., :q], kern["uwJ"].cpu())
+    step("ms route check")
+    record("rt_run_ms", model, inputs, config, launches, secs, errs)
+    if not all(e <= GATE for e in errs.values()):
+        fail(f"4-D rt_run_ms kernel route vs LU route: {errs}")
+    del kern, plain
+
+    # (c) rt_run_inelastic RRS: the RRS+SIF scene over the canopy, K1 + K3.
+    model = over_canopy(rrs_sif_model(RRS_N_SPEC), device=dev)
+    inputs, config, *rrs = inelastic_setup(model, device=dev)
+    check_4d("rrs", inputs)
+    step("rrs scene")
+    out, launches, secs = run_counted(lambda: dict(zip(keys, rt_run_inelastic(
+        model, mode="RRS", device=dev))))
+    n_m = config.m_max + 1
+    if set(launches) != {"fused_moment", "fused_moment_rrs",
+                         "rrs_diagonal"} or \
+            launches["fused_moment"] != n_m or not all(
+                np.isfinite(v).all() for v in out.values()):
+        fail(f"4-D RRS: launches {launches} or not finite")
+    # The routes compared on moments 0..2 (the canopy's surface takes 16;
+    # the plain Raman solve is launch-bound, a moment ~2-4 s here).
+    cut = dataclasses.replace(config, m_max=min(config.m_max, ROUTE_CHECK_M))
+    fused = rt_solve_rrs_fused(inputs, cut, *rrs, device=dev,
+                               ie_fullres=True)
+    coarse = rt_solve_rrs_fused(inputs, cut, *rrs, device=dev)
+    plain = rt_solve_rrs(inputs, dataclasses.replace(cut, fused=False),
+                         *rrs, device=dev)
+    errs = {k: rel(fused[k], plain[k]) for k in keys}
+    errs["ieR coarse"] = rel(coarse["ieR"], plain["ieR"])
+    step("rrs entry and routes")
+    record("rrs", model, inputs, config, launches, secs, errs)
+    if not (all(errs[k] <= GATE for k in keys)
+            and errs["ieR coarse"] <= IE_GATE):
+        fail(f"4-D RRS kernel route vs plain: {errs}")
+    del fused, coarse, plain
+
+    # (d) rt_run_stellar sol_RRS over the canopy, K1 + K3 (full ie).
+    model = over_canopy(stellar_sif_model(), device=dev)
+    inputs, config, *st = sol_rrs_setup(model, device=dev)
+    check_4d("stellar", inputs)
+    step("stellar scene")
+    out, launches, secs = run_counted(lambda: dict(zip(keys, rt_run_stellar(
+        model, device=dev))))
+    if launches.get("fused_moment") != config.m_max + 1 or \
+            not launches.get("fused_moment_rrs") or not all(
+                np.isfinite(v).all() for v in out.values()):
+        fail(f"4-D stellar: launches {launches} or not finite")
+    cut = dataclasses.replace(config, m_max=min(config.m_max, ROUTE_CHECK_M))
+    fused = rt_solve_rrs_fused(inputs, cut, *st, device=dev, ie_fullres=True)
+    plain = rt_solve_rrs(inputs, dataclasses.replace(cut, fused=False), *st,
+                         device=dev)
+    errs = {k: rel(fused[k], plain[k]) for k in keys}
+    step("stellar entry and routes")
+    record("stellar", model, inputs, config, launches, secs, errs)
+    if not all(e <= GATE for e in errs.values()):
+        fail(f"4-D stellar kernel route vs plain: {errs}")
+    del fused, plain
+
+    # (e) rt_run_ms_rrs: the MS bench scene over the canopy, plain torch.
+    model = over_canopy(rrs_sif_model(MS_RRS_N_SPEC), device=dev)
+    inputs, config, *rrs = inelastic_setup(model, device=dev)
+    check_4d("ms_rrs", inputs)
+    step("ms_rrs scene")
+    out, launches, secs = run_counted(lambda: dict(zip(
+        ("uwJ", "dwJ", "ieuwJ", "iedwJ"), rt_run_ms_rrs(
+            model, MS_RRS_LEVELS, mode="RRS", device=dev))))
+    if launches or not all(np.isfinite(v).all() for v in out.values()):
+        fail(f"4-D MS-RRS: launches {launches} or not finite")
+    cut = dataclasses.replace(config, fused=False,
+                              m_max=min(config.m_max, ROUTE_CHECK_M))
+    ms = multisensor.rt_solve_ms_rrs(inputs, cut, (0,), *rrs, dev)
+    plain = rt_solve_rrs(inputs, cut, *rrs, device=dev)
+    errs = {"uwJ[0]-R": rel(ms["uwJ"][0], plain["R"]),
+            "ieuwJ[0]-ieR": rel(ms["ieuwJ"][0], plain["ieR"])}
+    step("ms_rrs entry and routes")
+    record("ms_rrs", model, inputs, config, launches, secs, errs)
+    if not all(e <= GATE for e in errs.values()):
+        fail(f"4-D MS-RRS level 0 vs the plain RRS solve: {errs}")
+    print(json.dumps({"card": smi, "entries_4d": report, "steps_s": steps,
+                      "phase_s": time.perf_counter() - phase_t0}),
+          flush=True)
+    return {k: v["launches"] for k, v in report.items()}
+
+
+#: The 4-D route checks of the Jacobian and the Raman entry points run
+#: moments 0..ROUTE_CHECK_M (the canopy surface's 16 moments through the
+#: launch-bound plain routes would take minutes; the surface step is the
+#: same code at every moment).
+ROUTE_CHECK_M = 2
+#: The sharded runs' widths: the flagship through K1, and the RRS+SIF scene
+#: through K1 + K3, wide enough that each rank's halo (max|shift| = 389
+#: points at 1024) leaves it a part of the band.
+SHARD_N_SPEC, SHARD_RRS_N_SPEC, SHARD_RANKS = 4096, 1024, 2
+
+
+def _shard_rank(rank, world, n_spec, rrs_n_spec):
+    """A gloo rank sharing the card, one spawn for both sharded runs:
+    (``_shard_flagship``, ``_shard_rrs``)."""
+    return _shard_flagship(n_spec), _shard_rrs(rrs_n_spec)
+
+
+def _shard_flagship(n_spec):
+    """This rank's slice of the flagship through ``rt_solve`` (K1), the
+    five outputs gathered on the host. Returns (outputs, K1 launches, its
+    points)."""
+    from vsmartmom_tpu_torch import flagship_model
+    from vsmartmom_tpu_torch.core.solver import rt_solve
+    from vsmartmom_tpu_torch.ops import fused_band
+    from vsmartmom_tpu_torch.parallel.sharding import (
+        gather_outputs, numpy_outputs, shard_inputs, spectral_mesh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    mesh = spectral_mesh()
+    inputs, config = shard_inputs(*flagship_model(n_spec).build_band(
+        0, device=dev), mesh)
+    fused_band.fused_moment.launches = 0
+    out = rt_solve(inputs, config, dev)
+    torch.cuda.synchronize()
+    launches = fused_band.fused_moment.launches
+    out = gather_outputs({k: out[k] for k in ("R", "T", "hdr", "bhr_uw",
+                                               "bhr_dw")}, mesh)
+    return numpy_outputs(out), launches, config.n_spec
+
+
+def _shard_rrs(n_spec):
+    """This rank's slice of the RRS+SIF scene with its halo through K1 +
+    K3, trimmed and gathered on the host. Returns (outputs, launches,
+    (points solved, own start, own stop))."""
+    from vsmartmom_tpu_torch import rrs_sif_model
+    from vsmartmom_tpu_torch.core.inelastic import (inelastic_setup,
+                                                    solve_rrs_route)
+    from vsmartmom_tpu_torch.parallel.sharding import (
+        gather_outputs, numpy_outputs, shard_raman, spectral_mesh, trim)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    mesh = spectral_mesh()
+    model = rrs_sif_model(n_spec)
+    inputs, config, *rrs = inelastic_setup(model, device=dev)
+    inputs, config, rrs, keep = shard_raman(inputs, config, rrs, mesh)
+    counted = launch_counted()
+    for c in counted.values():
+        c.launches = 0
+    out = solve_rrs_route(model, inputs, config, rrs, dev)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counted.items() if c.launches}
+    out = gather_outputs(trim(out, keep), mesh)
+    return numpy_outputs(out), launches, (config.n_spec, keep.start,
+                                          keep.stop)
+
+
+def sharding_phase(dev, smi):
+    """Spectral sharding on the card (see the module docstring, phase 14).
+    Returns {run: launches per rank}."""
+    from vsmartmom_tpu_torch import flagship_model, rrs_sif_model
+    from vsmartmom_tpu_torch.core.inelastic import (inelastic_setup,
+                                                    solve_rrs_route)
+    from vsmartmom_tpu_torch.core.solver import rt_solve
+    from vsmartmom_tpu_torch.flagship import dryrun_multichip
+    from vsmartmom_tpu_torch.ops import fused_band
+    from vsmartmom_tpu_torch.parallel.sharding import run_ranks
+    phase_t0 = time.perf_counter()
+    report = {}
+
+    # (a) The dry run: one NCCL rank on the card.
+    t0 = time.perf_counter()
+    R = dryrun_multichip(1)
+    report["dryrun_s"] = time.perf_counter() - t0
+    if R.shape != (9, 4, 8) or not np.isfinite(R).all():
+        fail(f"dryrun_multichip(1): R {R.shape}")
+
+    # Two gloo ranks sharing the card, spawned once for (b) and (c); the
+    # unsharded runs on the card first.
+    model = flagship_model(SHARD_N_SPEC)
+    inputs, config = model.build_band(0, device=dev)
+    fused_band.fused_moment.launches = 0
+    whole = rt_solve(inputs, config, dev)
+    torch.cuda.synchronize()
+    whole_launches = fused_band.fused_moment.launches
+    rrs_model = rrs_sif_model(SHARD_RRS_N_SPEC)
+    rrs_inputs, rrs_config, *rrs = inelastic_setup(rrs_model, device=dev)
+    rrs_whole = solve_rrs_route(rrs_model, rrs_inputs, rrs_config, rrs, dev)
+    t0 = time.perf_counter()
+    both = run_ranks(_shard_rank, SHARD_RANKS, SHARD_N_SPEC,
+                     SHARD_RRS_N_SPEC, backend="gloo", timeout=600)
+    report["ranks_s"] = time.perf_counter() - t0
+
+    # (b) The flagship through K1.
+    ranks = [r[0] for r in both]
+    dist = {k: max(rel(r[0][k], whole[k].cpu()) for r in ranks)
+            for k in ("R", "T", "hdr", "bhr_uw", "bhr_dw")}
+    bits = all(np.array_equal(r[0][k], whole[k].cpu().numpy())
+               for r in ranks for k in dist)
+    report["flagship"] = {"launches": [r[1] for r in ranks],
+                          "points": [r[2] for r in ranks],
+                          "unsharded_launches": whole_launches,
+                          "distance": dist, "bit_equal": bits}
+    print(f"sharded flagship ({SHARD_RANKS} gloo ranks on one card, nSpec="
+          f"{SHARD_N_SPEC}): K1 launches per rank "
+          f"{[r[1] for r in ranks]} (unsharded {whole_launches}), points "
+          f"{[r[2] for r in ranks]}; gathered vs unsharded " + " ".join(
+              f"{k}={e:.2e}" for k, e in dist.items())
+          + f", bit-equal {bits} (both runs' ranks {report['ranks_s']:.1f} "
+          "s)", flush=True)
+    if not (all(e <= GATE for e in dist.values()) and all(
+            r[1] == config.m_scat + 1 for r in ranks)):
+        fail(f"sharded flagship: {report['flagship']}")
+    del whole
+
+    # (c) The RRS+SIF scene, K1 + K3, with the halo.
+    ranks, whole, config = [r[1] for r in both], rrs_whole, rrs_config
+    keys = ("R", "T", "ieR", "ieT")
+    dist = {k: max(rel(r[0][k], whole[k].cpu()) for r in ranks)
+            for k in keys}
+    bits = all(np.array_equal(r[0][k], whole[k].cpu().numpy())
+               for r in ranks for k in keys)
+    halo = max(abs(int(x)) for x in rrs[0])
+    report["rrs"] = {"launches": [r[1] for r in ranks],
+                     "slices": [r[2] for r in ranks], "halo": halo,
+                     "distance": dist, "bit_equal": bits}
+    print(f"sharded RRS+SIF ({SHARD_RANKS} gloo ranks on one card, nSpec="
+          f"{SHARD_RRS_N_SPEC}, {len(rrs[0])} shifts, halo {halo} points): "
+          f"per rank (points solved, own start, stop) "
+          f"{[r[2] for r in ranks]}, launches {[r[1] for r in ranks]}; "
+          "gathered vs unsharded " + " ".join(
+              f"{k}={e:.2e}" for k, e in dist.items())
+          + f", bit-equal {bits}", flush=True)
+    if not (all(e <= GATE for e in dist.values()) and all(
+            r[1].get("fused_moment") == config.m_max + 1
+            and r[1].get("fused_moment_rrs") for r in ranks)):
+        fail(f"sharded RRS: {report['rrs']}")
+    print(json.dumps({"card": smi, "sharding": report,
+                      "phase_s": time.perf_counter() - phase_t0}),
+          flush=True)
+    return report
 
 
 def moment_bytes(args, out):
@@ -2577,7 +3081,8 @@ def main():
     for fn in counted.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    R, T, dR, dT = rt_run_lin(lin_model, layout=layout, device=dev)
+    with timed_calls(fused_lin, "rt_solve_multitangent") as lin_times:
+        R, T, dR, dT = rt_run_lin(lin_model, layout=layout, device=dev)
     torch.cuda.synchronize()
     lin_e2e_s = time.perf_counter() - t0
     lin_launches = {k: fn.launches for k, fn in counted.items()}
@@ -2765,17 +3270,11 @@ def main():
                                                   k3_pl.n_vec_entries]},
                        "f64_kernel_plain": k3_f64}}),
         flush=True)
-    times = []
-    for _ in range(3):                           # 1 warm-up + best of 2
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        o = fused_lin.rt_solve_multitangent(lin_inputs, lin_tans, lin_config,
-                                            dev)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if not bool(torch.isfinite(o[2]).all()):
-            fail("non-finite dR in the timed Jacobian solve")
-    lin_solve_s = min(times[1:])
+    # The solve inside the counted rt_run_lin above (tangents prebuilt by
+    # the entry, K2 loaded by the checks before it), timed in that run.
+    if len(lin_times) != 1:
+        fail(f"rt_run_lin made {len(lin_times)} multitangent solves")
+    lin_solve_s = lin_times[0]
     args = fused_lin.multitangent_args(lin_inputs, lin_tans, lin_config, 0,
                                        dev)
     k2_ms = cuda_time_ms(lambda: fused_lin._launch_kernel(*args), reps=3)
@@ -2793,7 +3292,7 @@ def main():
     print(json.dumps({
         "card": smi, "lin_pts_per_s": LIN_N_SPEC / lin_solve_s,
         "lin_tangent_pts_per_s": LIN_N_SPEC * n_par / lin_solve_s,
-        "lin_solve_s": lin_solve_s, "lin_solve_all_s": times,
+        "lin_solve_s": lin_solve_s,
         "rt_run_lin_e2e_s": lin_e2e_s, "scene_build_s": lin_scene_s,
         "tangent_build_s": lin_tangent_s, "n_spec": LIN_N_SPEC,
         "n_params": n_par, "launches": lin_launches,
@@ -2806,14 +3305,24 @@ def main():
                       "achieved_tflops_kernel": k2_plan["work"]
                       * primal_flops / k2_ms / 1e9,
                       "plan": k2_plan}}), flush=True)
-    k5_entry = ms_phase(dev, smi)
-    k4_entry = layer_chain_phase(dev, smi, inputs, config)
-    probe_entries = probes_phase(smi)
-    k1p_entry = thermal_lin_phase(dev, smi)
-    absorption_phase(dev, smi)
-    raman_phase(dev, smi)
-    geoschem_phase(dev, smi)
-    surfaces_phase(dev, smi)
+    phases_s = {"build and phases 2-4": time.perf_counter() - script_t0}
+
+    def phase(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phases_s[fn.__name__] = time.perf_counter() - t0
+        return out
+    k5_entry = phase(ms_phase, dev, smi)
+    k4_entry = phase(layer_chain_phase, dev, smi, inputs, config)
+    probe_entries = phase(probes_phase, smi)
+    k1p_entry = phase(thermal_lin_phase, dev, smi)
+    phase(absorption_phase, dev, smi)
+    phase(raman_phase, dev, smi)
+    phase(geoschem_phase, dev, smi)
+    phase(surfaces_phase, dev, smi)
+    phase(entries_4d_phase, dev, smi)
+    phase(sharding_phase, dev, smi)
+    print(json.dumps({"card": smi, "phases_s": phases_s}), flush=True)
     print(f"chip_smoke.py: {time.perf_counter() - script_t0:.1f} s, the "
           "kernels' build included", flush=True)
     print(json.dumps({"kernels": [{

@@ -9,11 +9,15 @@ Tolerances, relative to max|ref|:
   both builds: 1e-12;
 * the port's f64 plain ``rt_run`` and ``rt_run_lin`` of the small A-band
   scene against the stored ``vsmartmom_tpu_torch/data/aband_ref_f64.npz``
-  (the JAX package's ``rt_run_lin``: R, T, dR, dT): 1e-9, and the stored
-  file against a fresh JAX run: 1e-12 (so it cannot go stale);
-  ``python tests/test_torch_absorption.py`` rewrites it;
-* the port's VMR dR against its own central difference in f64: 2e-3 (the
-  JAX package's TestGasJacobian gate).
+  (the JAX package's ``rt_run_lin``: R, T, dR, dT, and dR_tms, the Cox-Munk
+  TMS term's derivative through the JAX tangents' tau, which the port adds
+  to every dR over the ocean and the JAX package leaves out; the port's dR
+  is held against dR + dR_tms): 1e-9, and the stored file against a fresh
+  JAX run: 1e-12 (so it cannot go stale); ``python
+  tests/test_torch_absorption.py`` rewrites it;
+* the port's VMR dR against its own central difference in f64, over a
+  Lambertian floor and over the ocean: 2e-3 (the JAX package's
+  TestGasJacobian gate).
 
 JAX outputs are converted with ``np.asarray`` before the torch side runs.
 """
@@ -38,6 +42,7 @@ from vsmartmom_tpu_torch.flagship import (aband_absorption,  # noqa: E402
 DATA = Path(__file__).resolve().parents[1] / "vsmartmom_tpu_torch" / "data"
 REF_PATH = DATA / "aband_ref_f64.npz"
 REF_KEYS = ("R", "T", "dR", "dT")
+STORED_KEYS = REF_KEYS + ("dR_tms",)
 
 
 def _jax_absorption(par_path, **extra):
@@ -64,8 +69,9 @@ def jax_aband_run(par_path):
     """JAX rt_run_lin (its plain jvp route on the CPU) of the small A-band
     scene, the f32 model's configuration solved in f64, with the band build
     and VMR tangent, as numpy. Its R and T are rt_run's: the layout holds
-    the wind, so both add the TMS term to the same solve."""
-    from test_torch_lin import solve_in_f64
+    the wind, so both add the TMS term to the same solve. ``dR_tms`` is
+    that term's tau derivative along the JAX tangents."""
+    from test_torch_lin import jax_tms_tau_term, solve_in_f64
     from vsmartmom_tpu.core.linearization import (build_tangent_inputs,
                                                   default_layout, rt_run_lin)
     model = solve_in_f64(jax_aband_model(par_path))
@@ -74,8 +80,9 @@ def jax_aband_run(par_path):
            "tau_O2": np.asarray(band.tau_abs_by_mol["O2"])}
     layout = default_layout(model)
     out["names"] = layout.names()
-    _, _, tangents = build_tangent_inputs(model, 0, layout)
+    inputs, config, tangents = build_tangent_inputs(model, 0, layout)
     out["d_tau_vmr"] = np.asarray(tangents[layout.gas_index(0)].tau)
+    out["dR_tms"] = jax_tms_tau_term(model, inputs, config, tangents)
     out.update(zip(REF_KEYS, (np.asarray(x) for x in rt_run_lin(
         model, layout=layout))))
     return out
@@ -185,9 +192,12 @@ def port_aband_run(par_path, dtype=np.float64):
 def test_rt_runs_match_the_stored_reference(par):
     """The port's f64 plain rt_run_lin of the small A-band scene against
     ``aband_ref_f64.npz``: R, T, dR, dT 1e-9, each parameter's dR on its
-    own scale too; rt_run's R and T too (the layout holds the wind, so both
-    entry points add the TMS term to the same solve)."""
-    stored = np.load(REF_PATH)
+    own scale too, against the stored dR + dR_tms; rt_run's R and T too
+    (the layout holds the wind, so both entry points add the TMS term to
+    the same solve)."""
+    stored = dict(np.load(REF_PATH))
+    assert np.abs(stored["dR_tms"]).max() > 0
+    stored["dR"] = stored["dR"] + stored["dR_tms"]
     out = port_aband_run(par)
     for k in REF_KEYS:
         assert out[k].shape == stored[k].shape and np.isfinite(out[k]).all()
@@ -201,7 +211,7 @@ def test_rt_runs_match_the_stored_reference(par):
 
 def test_stored_aband_reference_is_current(jax_aband):
     stored = np.load(REF_PATH)
-    for k in REF_KEYS:
+    for k in STORED_KEYS:
         assert stored[k].shape == jax_aband[k].shape
         assert _rel(stored[k], jax_aband[k]) <= 1e-12, k
 
@@ -209,9 +219,8 @@ def test_stored_aband_reference_is_current(jax_aband):
 def test_vmr_jacobian_matches_finite_difference(par):
     """The port's VMR dR (f64, plain jvp route) against its own central
     difference of rt_run in the VMR scale (vmr -> vmr (1 +- 1e-3)), on the
-    Lambertian twin of the small A-band scene (the Cox-Munk TMS term's
-    dependence on tau is in neither package's gas tangent): 2e-3 of
-    max|FD|, as the JAX package's TestGasJacobian."""
+    Lambertian twin of the small A-band scene: 2e-3 of max|FD|, as the JAX
+    package's TestGasJacobian."""
     from test_torch_lin import solve_in_f64
     from vsmartmom_tpu_torch import (default_layout, model_from_parameters,
                                      rt_run, rt_run_lin)
@@ -233,12 +242,13 @@ def test_vmr_jacobian_matches_finite_difference(par):
         <= 2e-3 * np.abs(fd).max()
 
 
-def test_vmr_jacobian_over_the_ocean_leaves_out_the_tms_term(par):
-    """Over the Cox-Munk ocean the VMR dR (as the JAX package's) carries no
-    derivative of the TMS glint term, whose attenuation mu0 exp(-tau /
-    mu0) depends on the gas: against the central difference of rt_run it
-    misses 50-60% of max|FD| on the small A-band scene, and that term,
-    -TMS sum_z tau_O2 / mu0, closes the gap to 2e-3 (ROADMAP.md §3)."""
+def test_vmr_jacobian_over_the_ocean_matches_finite_difference(par):
+    """Over the Cox-Munk ocean the VMR dR carries the derivative of the TMS
+    glint term, whose attenuation mu0 exp(-tau / mu0) depends on the gas:
+    against the central difference of rt_run it sits within 2e-3 of
+    max|FD| on the small A-band scene. Without that term, -TMS sum_z tau_O2
+    / mu0 (the JAX package's tangent leaves it out), it misses 50-60% of
+    max|FD|."""
     from test_torch_lin import solve_in_f64
     from vsmartmom_tpu_torch import (default_layout, model_from_parameters,
                                      rt_run, rt_run_lin)
@@ -263,10 +273,9 @@ def test_vmr_jacobian_over_the_ocean_leaves_out_the_tms_term(par):
                          model._band_m_max(band))
     d_tms = -tms * band.tau_abs_by_mol["O2"].sum(axis=1) / model.quad.mu0
     scale = np.abs(fd).max()
-    gap = np.abs(dR[..., layout.gas_index(0)] - fd).max() / scale
+    assert np.abs(dR[..., layout.gas_index(0)] - fd).max() <= 2e-3 * scale
+    gap = np.abs(dR[..., layout.gas_index(0)] - d_tms - fd).max() / scale
     assert 0.5 < gap < 0.6
-    assert np.abs(dR[..., layout.gas_index(0)] + d_tms - fd).max() \
-        <= 2e-3 * scale
 
 
 def test_vmr_scale_is_linear_in_tau_abs(par):
@@ -349,11 +358,12 @@ def test_registry_and_model_fallback(o2_par, tmp_path, monkeypatch):
 def make_aband_ref():
     """R, T, dR, dT (rt_run_lin; R and T are also rt_run's) of the small
     A-band scene from the JAX package on the CPU, the f32 model's
-    configuration solved in f64."""
+    configuration solved in f64, and dR_tms, the TMS term's tau derivative
+    along its tangents."""
     import tempfile
     with tempfile.TemporaryDirectory() as d:
         out = jax_aband_run(write_aband_par(Path(d) / "o2.par"))
-    return {k: out[k] for k in REF_KEYS}
+    return {k: out[k] for k in STORED_KEYS}
 
 
 if __name__ == "__main__":

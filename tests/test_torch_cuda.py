@@ -1355,3 +1355,129 @@ def test_radau_iqu_runs_k1_and_matches_plain(cuda):
     ref = stored()
     for k, v in surfaces_ref_outputs("radau", np.float32, cuda).items():
         assert _rel(torch.as_tensor(v), torch.as_tensor(ref[k])) <= GATE, k
+
+
+def _canopy_scene(entry, cuda):
+    """A small f32 scene of ``entry`` over the canopy of
+    ``flagship.over_canopy`` (a 4-D surface varying across the band), on
+    the card."""
+    from vsmartmom_tpu_torch import flagship as F
+    if entry == "lin":
+        model = F.flagship_model(16, nstreams=4, nz=6, aerosol=True)
+    elif entry == "ms":
+        model = F.flagship_model(64, nstreams=4, nz=6)
+    elif entry == "rrs":
+        model = F.rrs_sif_model(256, nstreams=4)
+    else:
+        model = F.stellar_sif_model(1024)
+    return F.over_canopy(model, device=cuda)
+
+
+@pytest.mark.parametrize("entry", ["lin", "ms", "rrs", "stellar"])
+def test_4d_surface_kernel_routes_match_plain(cuda, entry):
+    """Each kernel route over a spectrally resolved surface against its
+    plain route on the card: K2's surface tail (R <= 1e-4, each
+    parameter's dR <= 2e-4 of its max, against the jvp route), K5's
+    multisensor run (every level, against the LU route), K1 + K3's surface
+    step in RRS and stellar RRS at the full ie ladder (R and ieR <= 1e-4,
+    against the plain RRS solve); each kernel launched."""
+    from vsmartmom_tpu_torch import default_layout
+    from vsmartmom_tpu_torch.core import multisensor
+    from vsmartmom_tpu_torch.core.inelastic import (inelastic_setup,
+                                                    rt_solve_rrs,
+                                                    rt_solve_rrs_fused)
+    from vsmartmom_tpu_torch.core.linearization import (build_tangent_inputs,
+                                                        rt_solve_jvp)
+    from vsmartmom_tpu_torch.inelastic.stellar import sol_rrs_setup
+    from vsmartmom_tpu_torch.ops import fused_lin, fused_rrs, fused_rt
+    model = _canopy_scene(entry, cuda)
+    if entry == "lin":
+        layout = default_layout(model)
+        inputs, config, tans = build_tangent_inputs(model, 0, layout,
+                                                    device=cuda)
+        counter = fused_lin.fused_moment_multitangent
+        before = counter.launches
+        kern = fused_lin.rt_solve_multitangent(inputs, tans, config, cuda)
+        plain = rt_solve_jvp(inputs, tans, dataclasses.replace(
+            config, fused=False), cuda)
+        f64 = rt_solve_jvp(inputs, tans, dataclasses.replace(
+            config, fused=False, dtype=np.float64), cuda)
+        # The aerosol height's dR is weak over the bright canopy: its two
+        # f32 routes part by ~1e-3 of its own scale, so it takes the
+        # stored-reference gate of these parameters (chip_smoke.py's
+        # HEIGHT_GATE), and every dR of the kernel route stays within
+        # twice the f32 plain route's distance from an f64 run.
+        names = layout.names()
+        pairs = [(kern[0], plain[0], GATE)] + [
+            (kern[2][q], plain[2][q],
+             5e-3 if n.endswith(("_p0", "_sigma_p")) else 2e-4)
+            for q, n in enumerate(names)]
+        for q in range(len(names)):
+            k64 = _rel(kern[2][q].double(), f64[2][q])
+            p64 = _rel(plain[2][q].double(), f64[2][q])
+            assert k64 <= max(2.0 * p64, 2e-4), (names[q], k64, p64)
+            # A 1% error in a height Jacobian must fail its gate.
+            if names[q].endswith(("_p0", "_sigma_p")):
+                assert _rel(1.01 * kern[2][q], plain[2][q]) > 5e-3, names[q]
+    elif entry == "ms":
+        inputs, config = model.build_band(0, device=cuda)
+        counter = fused_rt.fused_doubling
+        before = counter.launches
+        levels = (0, 3, config.nz)
+        kern = multisensor.rt_solve_ms(inputs, config, levels, cuda)
+        plain = multisensor.rt_solve_ms(inputs, dataclasses.replace(
+            config, fused=False), levels, cuda)
+        pairs = [(kern[k][i], plain[k][i], GATE) for k in ("uwJ", "dwJ")
+                 for i in range(len(levels))]
+    else:
+        inputs, config, *rrs = (inelastic_setup(model, device=cuda)
+                                if entry == "rrs"
+                                else sol_rrs_setup(model, device=cuda))
+        counter = fused_rrs.fused_moment_rrs
+        before = counter.launches
+        kern = rt_solve_rrs_fused(inputs, config, *rrs, device=cuda,
+                                  ie_fullres=True)
+        plain = rt_solve_rrs(inputs, dataclasses.replace(config, fused=False),
+                             *rrs, device=cuda)
+        pairs = [(kern[k], plain[k], GATE) for k in ("R", "T", "ieR", "ieT")]
+    torch.cuda.synchronize()
+    assert config.fused and inputs.surf_r.dim() == 4
+    assert counter.launches > before
+    for i, (a, b, gate) in enumerate(pairs):
+        assert torch.isfinite(a).all() and _rel(a, b) <= gate, i
+
+
+def test_empty_layout_raises_before_any_launch(cuda):
+    """A Jacobian run with no parameter (the RPV scene, f32 on the card)
+    raises ValueError and launches nothing."""
+    from vsmartmom_tpu_torch import (Parameters, SurfaceDescriptor,
+                                     model_from_parameters, rt_run_lin)
+    from vsmartmom_tpu_torch.flagship import flagship_params
+    from vsmartmom_tpu_torch.scattering.stokes import STOKES_IQU
+    model = model_from_parameters(Parameters(
+        surfaces=[SurfaceDescriptor("rpvSurfaceScalar",
+                                    [0.1, 0.1, 0.75, -0.1])],
+        polarization=STOKES_IQU, **flagship_params(8, np.float32, 2, 3)))
+    before = [fn.launches for fn in _counted()]
+    with pytest.raises(ValueError, match="holds no parameter"):
+        rt_run_lin(model, device=cuda)
+    assert [fn.launches for fn in _counted()] == before
+
+
+def test_thick_layer_k1_matches_the_plain_path(cuda):
+    """A flagship layer made optically thick by absorption (its elemental
+    dtau 3, where the unsplit elemental overflows f32; its scattering
+    unchanged): K1 and the repaired plain path finite, their R and T
+    within 1e-4 of max."""
+    from vsmartmom_tpu_torch.core.solver import rt_solve
+    inputs, config = _model(32, nstreams=8).build_band(0, device=cuda)
+    z = config.nz // 2
+    tau = inputs.tau.clone()
+    tau[z] = 3.0 * 2 ** config.ndoubl
+    thick = inputs._replace(tau=tau)
+    kern = rt_solve(thick, config, cuda)
+    plain = rt_solve(thick, dataclasses.replace(
+        config, fused=False, m_scat=-1, ns_sched=(), ns_inter=6), cuda)
+    for k in ("R", "T"):
+        assert torch.isfinite(kern[k]).all() and torch.isfinite(plain[k]).all()
+        assert _rel(kern[k], plain[k]) <= GATE, k

@@ -32,9 +32,26 @@ def _imported_roots(path):
 def test_no_jax_or_reference_imports():
     files = _port_files()
     assert len(files) > 15
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"vsmartmom_tpu_torch/parallel/__init__.py",
+            "vsmartmom_tpu_torch/parallel/sharding.py"} <= names
     bad = [(f.relative_to(ROOT).as_posix(), mod) for f in files
            for mod in _imported_roots(f) if mod in FORBIDDEN]
     assert not bad, bad
+
+
+def test_parallel_modules_import_no_jax():
+    """The sharding modules and the dry run's module, imported in a fresh
+    interpreter, load neither JAX nor the JAX package."""
+    code = ("import sys\n"
+            "import vsmartmom_tpu_torch.parallel\n"
+            "import vsmartmom_tpu_torch.parallel.sharding\n"
+            "from vsmartmom_tpu_torch.flagship import dryrun_multichip\n"
+            "print([k for k in ('jax', 'jaxlib', 'vsmartmom_tpu') "
+            "if k in sys.modules])\n")
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    assert run.stdout.strip().splitlines()[-1] == "[]"
 
 
 #: A "file:line" citation of a TPU kernel (chip_smoke.py's ``replaces``):

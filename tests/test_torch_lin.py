@@ -21,12 +21,19 @@ Riccati-Bessel recursion amplifies the rounding) and for R, T and each
 parameter's dR/dT of the f64 plain route; 2e-5 for the plain K2 against the
 JAX Pallas kernel in interpret mode at f32.
 
+Over Cox-Munk the port's dR carries the TMS term's derivative through
+each tangent's optical depth, which the JAX package's tangents leave out:
+every comparison of a port dR with a JAX one adds that term to the JAX
+side, computed from the JAX tangents' tau and the JAX package's
+``tms_correction`` (``jax_tms_tau_term``).
+
 Also holds the stored cross-framework references
 ``vsmartmom_tpu_torch/data/lin_ref_f64.npz`` (R, T, dR, dT of the Cox-Munk
-scene) and ``data/lin_thermal_ref_f64.npz`` (the thermal scene), which the
-chip smoke test compares the port's kernel path against: tests recompute
-them so they cannot go stale. ``python tests/test_torch_lin.py`` rewrites
-the first, ``python tests/test_torch_thermal.py`` the second.
+scene, and dR_tms, that term from the JAX side) and
+``data/lin_thermal_ref_f64.npz`` (the thermal scene), which the chip smoke
+test compares the port's kernel path against (dR + dR_tms): tests
+recompute them so they cannot go stale. ``python tests/test_torch_lin.py``
+rewrites the first, ``python tests/test_torch_thermal.py`` the second.
 """
 
 import dataclasses
@@ -46,6 +53,9 @@ from vsmartmom_tpu_torch.flagship import (LIN_REF_AEROSOL, LIN_REF_MIE,
                                           lin_thermal_b, lin_thermal_model)
 
 KEYS = ("R", "T", "dR", "dT")
+#: The keys of a stored Jacobian reference: the JAX outputs and the TMS
+#: term's tau derivative from the JAX side.
+STORED_KEYS = KEYS + ("dR_tms",)
 SURFACES = ("coxmunk", "lambertian")
 #: The JAX runs: each surface, and the Cox-Munk scene with its thermal
 #: source.
@@ -95,10 +105,29 @@ def jax_model(surface="coxmunk"):
         **lin_ref_params()))
 
 
+def jax_tms_tau_term(model, inputs, config, tangents):
+    """(nVZA, ns, nSpec, P): the derivative of the JAX package's Cox-Munk
+    TMS term along each of its tangents' tau, -TMS sum_z dtau_q / mu0
+    (the term mu0 exp(-tau_total / mu0) attenuates), which the port's
+    rt_run_lin adds to every dR over Cox-Munk and the JAX package's
+    leaves out."""
+    from vsmartmom_tpu.surfaces.coxmunk import CoxMunkSurface, tms_correction
+    band = model.bands[0]
+    surf = CoxMunkSurface(**{k: v for k, v in band.surface.kwargs.items()
+                             if not k.startswith("_")})
+    tms = np.asarray(tms_correction(
+        surf, config.n_stokes, model.params.vza, model.params.vaz,
+        model.quad.mu0, np.asarray(inputs.tau).sum(axis=0), config.m_max))
+    d_tau = np.stack([np.asarray(t.tau).sum(axis=0) for t in tangents], -1)
+    return -tms[..., None] * d_tau[None, None] / model.quad.mu0
+
+
 def jax_rt_run_lin(surface, thermal=False):
     """JAX rt_run_lin (its plain jvp route on the CPU) of the scene, with
     the band build and tangents it ran on, as numpy; ``thermal`` adds the
-    seeded thermal source of ``flagship.lin_thermal_model``."""
+    seeded thermal source of ``flagship.lin_thermal_model``. Over Cox-Munk
+    ``dR_tms`` is the TMS term's tau derivative (``jax_tms_tau_term``), else
+    zero."""
     from vsmartmom_tpu.core.linearization import (build_tangent_inputs,
                                                   default_layout, rt_run_lin)
     model = solve_in_f64(jax_model(surface))
@@ -109,6 +138,8 @@ def jax_rt_run_lin(surface, thermal=False):
     inputs, config, tangents = build_tangent_inputs(model, 0, layout)
     out = dict(zip(KEYS, (np.asarray(x) for x in rt_run_lin(model,
                                                              layout=layout))))
+    out["dR_tms"] = jax_tms_tau_term(model, inputs, config, tangents) \
+        if surface == "coxmunk" else np.zeros_like(out["dR"])
     out["inputs"] = {f: np.asarray(getattr(inputs, f))
                      for f in inputs._fields}
     out["config"] = config
@@ -196,7 +227,9 @@ def test_fd_mie_tangents_match_jax(port_build):
 def test_rt_run_lin_matches_jax(jax_lin, surface):
     """The entry point on the plain jvp route in f64 against JAX's
     rt_run_lin: R, T and each parameter's dR, dT within 1e-9 (the thermal
-    scene: a K = 2 solve, 20% of its R from the thermal source)."""
+    scene: a K = 2 solve, 20% of its R from the thermal source), the JAX
+    dR with the TMS term's tau derivative added (dR_tms; nonzero over
+    Cox-Munk)."""
     from vsmartmom_tpu_torch import rt_run_lin
     model = solve_in_f64(lin_thermal_model() if surface == "thermal"
                          else lin_ref_model(surface=surface))
@@ -206,9 +239,11 @@ def test_rt_run_lin_matches_jax(jax_lin, surface):
     assert out["dR"].shape == ref["dR"].shape == (2, 3, 2, 8)
     for k in ("R", "T"):
         assert _rel(out[k], ref[k]) <= 1e-9, k
+    assert (np.abs(ref["dR_tms"]).max() > 0) == (surface != "lambertian")
+    want = {"dR": ref["dR"] + ref["dR_tms"], "dT": ref["dT"]}
     for k in ("dR", "dT"):
         for q in range(8):
-            assert _rel(out[k][..., q], ref[k][..., q]) <= 1e-9, (k, q)
+            assert _rel(out[k][..., q], want[k][..., q]) <= 1e-9, (k, q)
 
 
 def test_multitangent_route_matches_jvp_route(port_build):
@@ -323,8 +358,8 @@ def test_rt_run_lin_on_the_cpu():
     """The entry point end to end on the port's own build: the f32 model on
     the CPU takes the plain jvp route and lands on the stored JAX
     reference (its configuration in f64): R 1e-4, each parameter's dR
-    2e-4 of its own max, the aerosol height's HEIGHT_GATE, which a 1%
-    error in it exceeds; the fused thermal scene (the plain K2 at K = 2 on
+    2e-4 of its own max against the stored dR + dR_tms, the aerosol
+    height's HEIGHT_GATE, which a 1% error in it exceeds; the fused thermal scene (the plain K2 at K = 2 on
     the CPU) runs and matches the jvp route: R and each parameter's dR
     2e-5 of their max, dT 2e-5 of the stack's."""
     from vsmartmom_tpu_torch import default_layout, rt_run_lin
@@ -334,12 +369,13 @@ def test_rt_run_lin_on_the_cpu():
         assert out[k].shape == stored[k].shape and np.isfinite(out[k]).all()
     assert _rel(out["R"], stored["R"]) <= 1e-4
     names = default_layout(lin_ref_model()).names()
+    ref_dR = stored["dR"] + stored["dR_tms"]
     for q, name in enumerate(names):
-        err = _rel(out["dR"][..., q], stored["dR"][..., q])
+        err = _rel(out["dR"][..., q], ref_dR[..., q])
         if name.endswith(HEIGHT_PARAMS):
             assert err <= HEIGHT_GATE, name
             assert _rel(1.01 * out["dR"][..., q],
-                        stored["dR"][..., q]) > HEIGHT_GATE, name
+                        ref_dR[..., q]) > HEIGHT_GATE, name
         else:
             assert err <= 2e-4, name
     model = lin_thermal_model()
@@ -354,9 +390,10 @@ def test_rt_run_lin_on_the_cpu():
 
 
 def make_lin_ref():
-    """R, T, dR, dT of the Cox-Munk scene from the JAX package on the CPU."""
+    """R, T, dR, dT of the Cox-Munk scene from the JAX package on the CPU,
+    and dR_tms, the TMS term's tau derivative from its tangents."""
     out = jax_rt_run_lin("coxmunk")
-    return {k: out[k] for k in KEYS}
+    return {k: out[k] for k in STORED_KEYS}
 
 
 @pytest.mark.parametrize("scene,path", [("coxmunk", REF_PATH),
@@ -364,7 +401,7 @@ def make_lin_ref():
                          ids=["lin", "thermal"])
 def test_stored_lin_reference_is_current(jax_lin, scene, path):
     stored = np.load(path)
-    for k in KEYS:
+    for k in STORED_KEYS:
         assert stored[k].shape == jax_lin[scene][k].shape
         assert _rel(stored[k], jax_lin[scene][k]) <= 1e-12, k
 

@@ -262,7 +262,7 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from test_torch_lin import KEYS, THERMAL_REF_PATH, jax_rt_run_lin
+    from test_torch_lin import STORED_KEYS, THERMAL_REF_PATH, jax_rt_run_lin
     out = jax_rt_run_lin("coxmunk", thermal=True)
-    np.savez(THERMAL_REF_PATH, **{k: out[k] for k in KEYS})
+    np.savez(THERMAL_REF_PATH, **{k: out[k] for k in STORED_KEYS})
     print(f"wrote {THERMAL_REF_PATH}")

@@ -46,8 +46,7 @@ from ..ops.fused_rrs import (KERNEL_MAX_N, fused_moment_rrs,
 from .kernels import (AddedLayer, CompositeLayer, _exp, _expm1,
                       identity_composite, interaction)
 from .solver import _elemental_and_sources, _surface_layer, band_moment_args
-from .types import (SolverInputs, kernel_takes_width,
-                    refuse_spectral_surface, resolve_device,
+from .types import (SolverInputs, kernel_takes_width, resolve_device,
                     rrs_setup_from_numpy, stokes_d_vector)
 
 
@@ -355,11 +354,14 @@ def doubling_rs(r_mp, t_pp, j0_p, j0_m, expk, ie_fields, ndoubl: int,
 
 
 def _cast_inputs(inputs, config, dev, *rrs):
+    """The inputs and Raman arrays on ``dev`` in the solve's dtype, cast
+    before the move (a spectrally resolved surface arrives as a host f64
+    tensor and crosses whole)."""
     dtype = config.torch_dtype
-    inp = type(inputs)(*(torch.as_tensor(x).to(device=dev, dtype=dtype)
-                         for x in inputs))
-    return (inp, *(torch.as_tensor(x).to(device=dev, dtype=dtype)
-                   for x in rrs))
+    return tuple(type(x)(*(torch.as_tensor(v).to(dtype=dtype).to(device=dev)
+                           for v in x)) if isinstance(x, SolverInputs)
+                 else torch.as_tensor(x).to(dtype=dtype).to(device=dev)
+                 for x in (inputs, *rrs))
 
 
 def _vza_rows(config, dev):
@@ -618,7 +620,6 @@ def inelastic_setup(model, i_band: int = 0, mode: str = "RRS", device=None):
     band = model.bands[i_band]
     refuse_thermal(band)
     inputs, config = model.build_band(i_band, device=dev, rrs=True)
-    refuse_spectral_surface(inputs, "the inelastic solves")
     if src_fn is _roll0:
         shifts, w_shifts, _ = rrs_redistribution(band.nu_grid)
         if len(shifts) == 0:

@@ -9,7 +9,8 @@ Newton-Schulz solve existed only because LU was slow on the TPU.
 
 The D-matrix polarization symmetry (Sanghavi 2014 Eqs. 29-32) is applied as
 elementwise +-1 row/column scalings; ``1 - exp(-x)`` is ``-expm1(-x)`` and
-the elemental transmission uses the cancellation-free expm1 form.
+the elemental transmission uses the cancellation-free expm1 form, split as
+the kernels split it (``_e_expm1``) so that no layer overflows.
 """
 
 from typing import NamedTuple
@@ -62,6 +63,24 @@ def _expm1(x):
     return torch.expm1(x.to(torch.float64)).to(x.dtype)
 
 
+#: |x| below which ``_e_expm1`` takes E expm1(x) directly, above which the
+#: difference of the two exponentials (``csrc/fused_band.cu``,
+#: ``fused_lin.cu`` and ``fused_rrs.cu`` split at the same 0.3).
+EXPM1_SPLIT = 0.3
+
+
+def _e_expm1(x, E, diff):
+    """E expm1(x), where E e^x is a second exponential and ``diff`` is that
+    exponential less E (a difference of two exponentials): E expm1(x)
+    below |x| = EXPM1_SPLIT, ``diff`` above it, where expm1(x) would
+    overflow in an optically thick layer while E underflows. The branch not
+    taken sees a clamped argument (the double ``where``), so forward-mode
+    AD and vmap never meet inf * 0."""
+    small = x.abs() < EXPM1_SPLIT
+    xs = torch.where(small, x, torch.zeros_like(x))
+    return torch.where(small, torch.expm1(xs) * E, diff)
+
+
 def elemental(omega_Z_pp, omega_Z_mp, dtau, tau_sum, qp_mu_N, wt_mu_N,
               mu0, i_mu0_start, n_stokes, F0, fourier_w):
     """Exact finite-dtau single-scatter operators for one thin slab (Fell
@@ -78,7 +97,9 @@ def elemental(omega_Z_pp, omega_Z_mp, dtau, tau_sum, qp_mu_N, wt_mu_N,
     wct = fourier_w * wt_mu_N[None, :]
 
     Em1 = _expm1(-dtau[:, None] / qp_mu_N[None, :])        # (s, N)
-    E = 1.0 + Em1
+    # E itself, not 1 + Em1: in a thick layer E is small and 1 + Em1 would
+    # keep only its absolute accuracy.
+    E = _exp(-dtau[:, None] / qp_mu_N[None, :])
     d = dtau[:, None, None]
 
     # r-+ = wZ-+ (mu_j/(mu_i+mu_j)) w_j (1 - E_i E_j); 1 - E_i E_j summed
@@ -88,12 +109,16 @@ def elemental(omega_Z_pp, omega_Z_mp, dtau, tau_sum, qp_mu_N, wt_mu_N,
                  + Em1[:, :, None] * Em1[:, None, :])
     r_mp = omega_Z_mp * r_geom[None] * one_m_EE
 
-    # t++ off-diagonal = (mu_j/delta) E_j expm1(d delta / (mu_i mu_j)) w_j:
-    # the expm1 argument is proportional to delta, so no cancellation.
+    # t++ off-diagonal = (mu_j/delta) E_j expm1(x) w_j with x = d delta /
+    # (mu_i mu_j) = d (1/mu_j - 1/mu_i): the expm1 argument is proportional
+    # to delta, so no cancellation; above |x| = EXPM1_SPLIT the identity
+    # E_j expm1(x) = E_i - E_j (the kernels' split: no overflow in thick
+    # layers).
     same_mu = torch.abs(mu_i - mu_j) <= 1e-9 * torch.maximum(mu_i, mu_j)
     delta = torch.where(same_mu, torch.ones_like(mu_i - mu_j), mu_i - mu_j)
-    ratio = torch.expm1(d * (delta / (mu_i * mu_j))[None]) / delta[None]
-    t_off = omega_Z_pp * (mu_j * wct)[None] * E[:, None, :] * ratio
+    x = d * (delta / (mu_i * mu_j))[None]
+    t_off = omega_Z_pp * (mu_j * wct)[None] * _e_expm1(
+        x, E[:, None, :], E[:, :, None] - E[:, None, :]) / delta[None]
     t_same = E[:, None, :] * omega_Z_pp * (d / mu_i) * wct[None]
     eye = torch.eye(omega_Z_pp.shape[-1], dtype=dtype,
                     device=omega_Z_pp.device)
@@ -108,15 +133,16 @@ def elemental(omega_Z_pp, omega_Z_mp, dtau, tau_sum, qp_mu_N, wt_mu_N,
     dt = dtau[:, None]
     mu_v = qp_mu_N[None, :]
     Em1_0 = _expm1(-dtau / mu0)
-    E_0 = (1.0 + Em1_0)[:, None]
+    E_0 = _exp(-dtau / mu0)[:, None]
     idx = torch.arange(qp_mu_N.shape[0], device=qp_mu_N.device)
     in_block = ((idx >= i_mu0_start) & (idx < i_mu0_start + n_stokes)) | \
         (torch.abs(qp_mu_N - mu0) <= 1e-9 * mu0)
     jp_in = fourier_w * Zp_I0 * (dt / mu_v) * E
     delta_s = torch.where(in_block, torch.ones_like(qp_mu_N),
                           qp_mu_N - mu0)[None, :]
-    jp_out = fourier_w * Zp_I0 * (mu0 / delta_s) * E_0 * \
-        torch.expm1(dt * delta_s / (mu_v * mu0))
+    # E_0 expm1(dt (1/mu0 - 1/mu_v)) = E_v - E_0 above the split.
+    jp_out = fourier_w * Zp_I0 * (mu0 / delta_s) * _e_expm1(
+        dt * delta_s / (mu_v * mu0), E_0, E - E_0)
     j0_p = torch.where(in_block[None, :], jp_in, jp_out)
     one_m_EE0 = -(Em1 + Em1_0[:, None] + Em1 * Em1_0[:, None])
     j0_m = fourier_w * Zm_I0 * (mu0 / (mu_v + mu0)) * one_m_EE0

@@ -39,8 +39,7 @@ import numpy as np
 import torch
 
 from .solver import rt_solve
-from .types import (SolverInputs, kernel_takes_width, refuse_spectral_surface,
-                    resolve_device)
+from .types import SolverInputs, kernel_takes_width, resolve_device
 
 AEROSOL_PARAMS = ("tau_ref", "n_r", "n_i", "r_mode", "sigma_g", "p0",
                   "sigma_p")
@@ -93,7 +92,35 @@ def default_layout(model, i_band: int = 0) -> ParameterLayout:
 
 
 def _zero_like(inputs: SolverInputs) -> SolverInputs:
-    return SolverInputs(*(torch.zeros_like(x) for x in inputs))
+    """A zero tangent of every field that takes no memory: a zero scalar
+    expanded to the field's shape (stride 0), which ``is_zero_field``
+    recognises, so a field no parameter moves is held fixed rather than
+    stacked P times (a 4-D canopy surface is ~0.35 GB a copy in f64 at the
+    canopy column's full width)."""
+    return SolverInputs(*(
+        torch.zeros((), dtype=x.dtype, device=x.device).expand(x.shape)
+        for x in inputs))
+
+
+def is_zero_field(x) -> bool:
+    """Whether a tangent field is a structural zero of ``_zero_like``."""
+    return isinstance(x, torch.Tensor) and x.dim() > 0 and \
+        x.numel() > 0 and all(st == 0 for st in x.stride()) and \
+        not bool(x[(0,) * x.dim()])
+
+
+def live_fields(tangents) -> tuple:
+    """The SolverInputs fields that some tangent moves (not every one a
+    structural zero), in field order."""
+    return tuple(f for f in SolverInputs._fields
+                 if not all(is_zero_field(getattr(t, f)) for t in tangents))
+
+
+def refuse_empty(tangents, entry: str) -> None:
+    """A Jacobian solve needs at least one tangent."""
+    if len(tangents) == 0:
+        raise ValueError(f"{entry} was given no tangent: the Jacobian "
+                         "layout holds no parameter")
 
 
 def _like(x, ref):
@@ -101,11 +128,12 @@ def _like(x, ref):
 
 
 def _component_tangent_inputs(model, i_band, inputs: SolverInputs,
-                              comp_index, d_comp, tables):
+                              comp_index, d_comp, tables, zero):
     """SolverInputs tangent from a ScatteringComponent tangent (d_greek,
     d_tau_profile, d_ssa) of aerosol ``comp_index``, holding everything
-    else of the band's ``inputs`` fixed; the Z moments are linear in the
-    Greek coefficients and come from the build's Legendre ``tables``."""
+    else of the band's ``inputs`` fixed (``zero``, the shared zero tangent
+    of ``_zero_like``); the Z moments are linear in the Greek coefficients
+    and come from the build's Legendre ``tables``."""
     from ..scattering.zmatrix import compute_Z_moments
     comp = model.bands[i_band].aerosols[comp_index]
     c = comp_index + 1                 # component axis: 0 = Rayleigh
@@ -118,7 +146,7 @@ def _component_tangent_inputs(model, i_band, inputs: SolverInputs,
                             inputs.scat_w)
     d_tau = _like(np.broadcast_to(d_tau_prof[:, None], (nz, n_spec)),
                   inputs.tau)
-    d_inputs = _zero_like(inputs)._replace(scat_w=d_scat, tau=d_tau)
+    d_inputs = zero._replace(scat_w=d_scat, tau=d_tau)
     d_greek = d_comp.get("greek")
     if d_greek is not None:
         pol = model.params.polarization
@@ -212,12 +240,14 @@ def build_tangent_inputs(model, i_band, layout: ParameterLayout, fd_rel=1e-3,
                          device=None):
     """(inputs, config, tangents): the band's SolverInputs and SolverConfig
     from one ``build_band`` on ``device``, and one SolverInputs-shaped
-    tangent per layout parameter (float64 tensors on ``device``)."""
+    tangent per layout parameter (float64 tensors on ``device``). Every
+    field a parameter does not move is one shared zero of no memory
+    (``_zero_like``); a spectrally resolved surface (4-D surf_r, surf_j_m)
+    stays where ``build_band`` left it."""
     from ..scattering.zmatrix import legendre_tables
     dev = resolve_device(device)
     band = model.bands[i_band]
     inputs, config = model.build_band(i_band, device=dev)
-    refuse_spectral_surface(inputs, "rt_run_lin")
     zero = _zero_like(inputs)
     tangents = []
 
@@ -230,7 +260,7 @@ def build_tangent_inputs(model, i_band, layout: ParameterLayout, fd_rel=1e-3,
         per_aer = _aerosol_tangents(model, i_band, i, fd_rel)
         for pname in AEROSOL_PARAMS:
             tangents.append(_component_tangent_inputs(
-                model, i_band, inputs, i, per_aer[pname], tables))
+                model, i_band, inputs, i, per_aer[pname], tables, zero))
 
     for gas in layout.gas_names:
         # parameter = multiplicative scale on the VMR profile: d tau = tau_mol
@@ -260,25 +290,51 @@ def build_tangent_inputs(model, i_band, layout: ParameterLayout, fd_rel=1e-3,
     return inputs, config, tangents
 
 
+def jvp_over(fn, primals: dict, tangents: dict, P: int):
+    """vmap over P of ``torch.func.jvp`` of ``fn(**primals)``: ``tangents``
+    maps the names of the arguments that move to their stacked (P, ...)
+    tangents; every other argument is held fixed (closed over), so a field
+    no parameter moves is never stacked. With no argument moving, zeros."""
+    live = tuple(tangents)
+    if not live:
+        return tuple(torch.zeros((P,) + y.shape, dtype=y.dtype,
+                                 device=y.device) for y in fn(**primals))
+
+    def part(*xs):
+        return fn(**{**primals, **dict(zip(live, xs))})
+    prim = tuple(primals[k] for k in live)
+    return torch.func.vmap(lambda *d: torch.func.jvp(part, prim, d)[1])(
+        *(tangents[k] for k in live))
+
+
 def rt_solve_jvp(inputs, tangents, config, device=None):
     """(R, T, dR, dT) tensors by forward-mode AD through ``rt_solve`` (the
     Jacobian baseline), vmapped over all P tangents at once; dR/dT
-    (P, nVZA, ns, s)."""
+    (P, nVZA, ns, s). Fields that no tangent moves are held fixed."""
+    refuse_empty(tangents, "rt_solve_jvp")
     dev = resolve_device(device)
     dtype = config.torch_dtype
     inp = SolverInputs(*(x.to(dtype) for x in inputs))
 
-    def fn(x):
-        out = rt_solve(x, config, dev)
+    def fn(**x):
+        out = rt_solve(SolverInputs(**x), config, dev)
         return out["R"], out["T"]
-
-    def one(*d):
-        return torch.func.jvp(fn, (inp,), (SolverInputs(*d),))[1]
-    R, T = fn(inp)
-    stack = [torch.stack([getattr(t, f).to(dtype) for t in tangents])
-             for f in SolverInputs._fields]
-    dR, dT = torch.func.vmap(one)(*stack)
+    R, T = fn(**inp._asdict())
+    d = {f: torch.stack([getattr(t, f).to(device=getattr(inp, f).device,
+                                          dtype=dtype) for t in tangents])
+         for f in live_fields(tangents)}
+    dR, dT = jvp_over(fn, inp._asdict(), d, len(tangents))
     return R, T, dR, dT
+
+
+def tms_tau_term(base, tangents, mu0):
+    """(..., nSpec, P): the derivative of the Cox-Munk TMS term ``base``
+    (..., nSpec), which the column attenuates by mu0 exp(-tau_total /
+    mu0), along each of the P tangents' tau summed over the layers:
+    -base sum_z dtau_q / mu0."""
+    d_tau = np.stack([t.tau.sum(dim=0).double().cpu().numpy()
+                      for t in tangents], axis=-1)            # (nSpec, P)
+    return -np.asarray(base)[..., None] * d_tau / mu0
 
 
 def rt_run_lin(model, i_band: int = 0, layout: ParameterLayout = None,
@@ -290,14 +346,25 @@ def rt_run_lin(model, i_band: int = 0, layout: ParameterLayout = None,
     (nVZA, nStokes, nSpec, Nparams). The wind-speed Jacobian includes the
     TMS glint-correction derivative.
 
+    Over Cox-Munk every parameter's dR carries the TMS term's dependence on
+    the column's optical depth (``tms_tau_term`` through its tangent's tau;
+    the JAX package's tangents leave it out), the wind's also the term's
+    analytic wind derivative.
+
     The band path (``config.fused``) runs K2 at the band's K = 1 or 2; a
     scene wider than K2 takes (N > ``ops.fused_lin.KERNEL_MAX_N``) runs
     ``rt_solve_jvp`` instead, with one warning, when ``model.params.fused``
-    was left at None (an explicit True still launches, and K2 refuses)."""
+    was left at None (an explicit True still launches, and K2 refuses).
+    A layout with no parameter (e.g. a scene over RPV, Ross-Li or a canopy
+    without aerosol or line-list gas) is refused before any build."""
     from ..ops import fused_lin
     dev = resolve_device(device)
     if layout is None:
         layout = default_layout(model, i_band)
+    if layout.n_total == 0:
+        raise ValueError(f"rt_run_lin: the Jacobian layout {layout} holds no "
+                         "parameter (no aerosol, no line-list gas, no "
+                         "surface parameter)")
     inputs, config, tangents = build_tangent_inputs(
         model, i_band, layout, fd_rel, dev)
     if config.fused and model.params.fused is None and not \
@@ -315,8 +382,9 @@ def rt_run_lin(model, i_band: int = 0, layout: ParameterLayout = None,
 
     band = model.bands[i_band]
     if band.surface.kind == "CoxMunkSurface":
-        # TMS correction and its analytic wind derivative (the correction
-        # is linear in the Mueller grid).
+        # TMS correction, its derivative through each tangent's optical
+        # depth and its analytic wind derivative (the correction is linear
+        # in the Mueller grid).
         from ..surfaces.coxmunk import CoxMunkSurface, tms_correction
         surf = CoxMunkSurface(**{k: v for k, v in band.surface.kwargs.items()
                                  if not k.startswith("_")})
@@ -325,6 +393,7 @@ def rt_run_lin(model, i_band: int = 0, layout: ParameterLayout = None,
             surf, config.n_stokes, model.params.vza, model.params.vaz,
             model.quad.mu0, tau_total, config.m_max, wind_tangent=True)
         R = R + base
+        dR = dR + tms_tau_term(base, tangents, model.quad.mu0)
         if "wind_speed" in layout.surface_params:
             dR[..., layout.surface_index()] += d_tms
     return R, T, dR, dT

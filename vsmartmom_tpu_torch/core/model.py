@@ -21,8 +21,8 @@ lists; look-up tables, CIA and MT_CKD stay on the host;
 (``surfaces/canopy.py``, float64), whose operators come back to the host.
 A canopy with spectral leaf optics gives spectrally resolved surface
 operators, (n_m, nSpec, N, N) and (n_m, nSpec, N, n_stokes); ``build_band``
-keeps those two on the CPU, and the solver moves one spectral chunk of
-them to its device at a time.
+keeps those two on the CPU; ``rt_solve`` moves one spectral chunk of them
+to its device at a time, the other solves the whole of them at once.
 
 The model build's stages (``rayleigh``, ``absorption``, ``mie``, and
 ``surface`` in ``build_band``) are timed into ``utils.timing``'s table.
@@ -47,8 +47,9 @@ from ..utils.quadrature import (QuadPoints, nearest_index, rt_set_streams,
 from .atmosphere import (AtmosphericProfile, aerosol_profile_shape,
                          compute_atmos_profile_fields, compute_ndoubl,
                          rayleigh_layer_tau, reduce_profile)
-from .types import (SolverConfig, auto_kernel, kernel_takes_width,
-                    resolve_device, solver_inputs_from_numpy, stokes_d_vector)
+from .types import (SPECTRAL_SURFACE, SolverConfig, auto_kernel,
+                    kernel_takes_width, resolve_device,
+                    solver_inputs_from_numpy, stokes_d_vector)
 
 
 @dataclass
@@ -533,10 +534,6 @@ class RTModel:
         return inputs._replace(**{
             k: torch.as_tensor(np.ascontiguousarray(fields[k]),
                                dtype=torch.float64) for k in host}), config
-
-
-#: The SolverInputs fields a spectrally resolved surface makes 4-D.
-SPECTRAL_SURFACE = ("surf_r", "surf_j_m")
 
 
 def z_moment_stack(pol, mu, greeks, n_m: int):

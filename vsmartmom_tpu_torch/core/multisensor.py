@@ -39,8 +39,8 @@ from .inelastic import (IEAdded, IEComposite, _B, _Bv, _L, _Lv,
 from .kernels import (AddedLayer, CompositeLayer, identity_composite,
                       interaction)
 from .solver import _make_added_layer, _surface_layer
-from .types import (SolverConfig, SolverInputs, refuse_spectral_surface,
-                    resolve_device, stokes_d_vector)
+from .types import (SolverConfig, SolverInputs, resolve_device,
+                    stokes_d_vector)
 
 
 def interaction_prepend(add: AddedLayer, comp: CompositeLayer
@@ -97,7 +97,9 @@ def rt_solve_ms(inputs: SolverInputs, config: SolverConfig, sensor_levels,
     n_spec, N, nz = config.n_spec, config.N, config.nz
     ns = config.n_stokes
     levels = tuple(int(v) for v in sensor_levels)
-    inp = SolverInputs(*(torch.as_tensor(x).to(device=dev, dtype=dtype)
+    # Cast before the move: a spectrally resolved surface arrives as a
+    # host f64 tensor and crosses whole, in the solver's dtype.
+    inp = SolverInputs(*(torch.as_tensor(x).to(dtype=dtype).to(device=dev)
                          for x in inputs))
     mu0 = inp.qp_mu_N[config.i_mu0_start]
     tau_boa = torch.cumsum(inp.tau, dim=0)[-1]
@@ -144,7 +146,6 @@ def rt_run_ms(model, sensor_levels, i_band: int = 0, device=None):
     model on CUDA takes the kernel route (K5 for each moment's layers)."""
     dev = resolve_device(device)
     inputs, config = model.build_band(i_band, device=dev)
-    refuse_spectral_surface(inputs, "rt_run_ms")
     levels = tuple(int(v) for v in sensor_levels)
     for v in levels:
         if not 0 <= v <= config.nz:

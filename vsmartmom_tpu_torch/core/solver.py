@@ -32,7 +32,8 @@ from ..ops.fused_rt import fused_doubling, unstar
 from ..utils import timing
 from .kernels import (AddedLayer, CompositeLayer, _exp, _expm1, doubling,
                       elemental, identity_composite, interaction)
-from .types import SolverConfig, SolverInputs, resolve_device, stokes_d_vector
+from .types import (SPECTRAL_SURFACE, SolverConfig, SolverInputs,
+                    resolve_device, stokes_d_vector)
 
 
 def _elemental_and_sources(tau_z, scat_w_z, tau_sum_z, thermal_b_z, *,
@@ -335,18 +336,34 @@ SPECTRAL_AXIS = {"tau": 1, "scat_w": 2, "F0": 1, "surf_spec": 0,
                  "thermal_b": 1, "sif_spec": 0, "surf_r": 1, "surf_j_m": 1}
 
 
+def spectral_fields(inputs: SolverInputs = None) -> dict:
+    """{field: spectral axis} of the SolverInputs fields that carry one:
+    every field of ``SPECTRAL_AXIS``, but surf_r and surf_j_m only when
+    ``inputs`` has them 4-D (without ``inputs``, a surface that is not
+    spectrally resolved)."""
+    return {f: ax for f, ax in SPECTRAL_AXIS.items()
+            if f not in SPECTRAL_SURFACE
+            or (inputs is not None and getattr(inputs, f).dim() == 4)}
+
+
+def spectral_take(inputs: SolverInputs, config: SolverConfig, idx):
+    """(inputs, config) of the spectral points ``idx`` (a 1-D index
+    tensor, in any order) of a band."""
+    idx = torch.as_tensor(idx)
+    cut = {f: getattr(inputs, f).index_select(
+        ax, idx.to(getattr(inputs, f).device))
+        for f, ax in spectral_fields(inputs).items()}
+    return inputs._replace(**cut), dataclasses.replace(config,
+                                                       n_spec=len(idx))
+
+
 def spectral_slice(inputs: SolverInputs, config: SolverConfig, start: int,
                    stop: int):
     """(inputs, config) of the spectral points [start, stop) of a band."""
-    kw = {}
-    for f in SolverInputs._fields:
-        v = getattr(inputs, f)
-        if f in SPECTRAL_AXIS and (f not in ("surf_r", "surf_j_m")
-                                   or v.dim() == 4):
-            v = v.narrow(SPECTRAL_AXIS[f], start, stop - start)
-        kw[f] = v
-    return SolverInputs(**kw), dataclasses.replace(config,
-                                                   n_spec=stop - start)
+    cut = {f: getattr(inputs, f).narrow(ax, start, stop - start)
+           for f, ax in spectral_fields(inputs).items()}
+    return inputs._replace(**cut), dataclasses.replace(config,
+                                                       n_spec=stop - start)
 
 
 def timing_on(model) -> bool:

@@ -126,6 +126,10 @@ class SolverInputs(NamedTuple):
     sif_spec: torch.Tensor
 
 
+#: The SolverInputs fields a spectrally resolved surface makes 4-D.
+SPECTRAL_SURFACE = ("surf_r", "surf_j_m")
+
+
 def solver_inputs_from_numpy(fields: dict, device, dtype=torch.float64):
     """``SolverInputs`` from a dict of arrays (e.g. the fields of the JAX
     package's ``build_band`` inputs), copied to ``device`` as ``dtype``.
@@ -170,16 +174,9 @@ def rrs_setup_from_numpy(shifts, w_shifts, Z_r_pp, Z_r_mp, fscatt, device,
                       for x in (w, Z_r_pp, Z_r_mp, fscatt)))
 
 
-def refuse_spectral_surface(inputs: SolverInputs, entry: str) -> None:
-    """Refuse a spectrally resolved surface (4-D surf_r: a canopy with
-    spectral leaf optics) in an entry point that takes (n_m, N, N) surfaces
-    only. ``rt_run``, ``rt_run_full``, ``rt_run_streams`` and ``rt_run_ss``
-    take both; the others are queued in ROADMAP.md section 1."""
-    if inputs.surf_r.dim() == 4:
-        raise NotImplementedError(
-            f"{entry} takes a spectrally constant surface only; a "
-            "spectrally resolved one (a canopy with spectral leaf optics) "
-            "is not ported for it yet (ROADMAP.md section 1)")
+def mu0_value(inputs: SolverInputs, config: SolverConfig):
+    """Solar cosine as stored on the stream vector (exact node value)."""
+    return inputs.qp_mu_N[config.i_mu0_start]
 
 
 def stokes_d_vector(n_stokes: int, nquad: int, dtype=np.float64) -> np.ndarray:

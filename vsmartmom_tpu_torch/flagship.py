@@ -879,29 +879,58 @@ CANOPY_REF_NU = np.linspace(CANOPY_NU0, CANOPY_NU0 + CANOPY_DNU * 4095, 8)
 CANOPY_REF_NZ, CANOPY_REF_NSTREAMS = 6, 3
 
 
-def canopy_leaf_optics(grid_nm=CANOPY_LEAF_GRID_NM):
+def canopy_leaf_optics(grid_nm=CANOPY_LEAF_GRID_NM, edge_nm=715.0,
+                       scale_nm=10.0):
     """SYNTHETIC leaf optics (no PROSPECT table is in the repository): a
-    logistic red edge at 715 nm (10 nm scale), reflectance 0.05 -> 0.45
-    and transmittance 0.03 -> 0.45 from the red to the near infrared.
-    Returns (reflectance, transmittance) on ``grid_nm``."""
-    edge = 1.0 / (1.0 + np.exp(-(np.asarray(grid_nm) - 715.0) / 10.0))
+    logistic red edge at ``edge_nm`` (``scale_nm`` scale; 715 and 10 nm),
+    reflectance 0.05 -> 0.45 and transmittance 0.03 -> 0.45 from the red
+    to the near infrared. Returns (reflectance, transmittance) on
+    ``grid_nm``."""
+    edge = 1.0 / (1.0 + np.exp(-(np.asarray(grid_nm) - edge_nm) / scale_nm))
     return 0.05 + 0.40 * edge, 0.03 + 0.42 * edge
 
 
-def canopy_surface(LAI=CANOPY_LAI) -> SurfaceDescriptor:
+def canopy_surface(LAI=CANOPY_LAI, band_nu=None) -> SurfaceDescriptor:
     """The canopy over its RPV soil, as a ``SurfaceDescriptor``: LAI in
     ``CANOPY_LAYERS`` equal sublayers, spherical LAD, no clumping, the
     leaf optics of ``canopy_leaf_optics`` on a 5 nm grid (``n_coarse`` 7
-    nodes on the band: spectrally resolved surface operators)."""
+    nodes on the band: spectrally resolved surface operators). With
+    ``band_nu`` (a band's wavenumbers) the synthetic red edge moves to the
+    band's middle wavelength, its scale an eighth of the band's width, on
+    a grid of 31 points across the band: the surface then varies across
+    any band, not only across the red edge."""
     from .surfaces.canopy import CanopySurface
+    grid = CANOPY_LEAF_GRID_NM.copy()
     rho, tau = canopy_leaf_optics()
+    if band_nu is not None:
+        lam = 1e7 / np.asarray(band_nu, dtype=np.float64)
+        lo, hi = float(lam.min()), float(lam.max())
+        grid = np.linspace(lo, hi, 31)
+        rho, tau = canopy_leaf_optics(grid, 0.5 * (lo + hi),
+                                      max(hi - lo, 1e-3) / 8.0)
     return SurfaceDescriptor("CanopySurface", [], {
         "_surface_obj": CanopySurface(
             soil=SurfaceDescriptor(CANOPY_SOIL[0], list(CANOPY_SOIL[1])),
             LAI=float(LAI), n_layers=CANOPY_LAYERS, leaf_reflectance=rho,
-            leaf_transmittance=tau,
-            leaf_optics_grid=CANOPY_LEAF_GRID_NM.copy(), grid_unit="nm",
+            leaf_transmittance=tau, leaf_optics_grid=grid, grid_unit="nm",
             clumping_omega=CANOPY_CLUMPING, lad=CANOPY_LAD, n_coarse=7)})
+
+
+def over_canopy(model, device=None):
+    """``model``'s scene with the canopy of ``canopy_surface`` in place of
+    each band's surface, its red edge moved into that band
+    (``band_nu``): a spectrally resolved (4-D) surface on any of the
+    entry points' scenes. Each band's f0_spec, sif_spec and thermal_b are
+    carried over; the canopy's slab is built on ``device`` (CUDA unless
+    given) at every ``build_band``."""
+    import dataclasses
+    params = dataclasses.replace(model.params, surfaces=[
+        canopy_surface(band_nu=b.nu_grid) for b in model.bands])
+    out = model_from_parameters(params, device=device)
+    for band, src in zip(out.bands, model.bands):
+        for f in ("f0_spec", "sif_spec", "thermal_b"):
+            setattr(band, f, getattr(src, f))
+    return out
 
 
 def canopy_params(nu, dtype=np.float32, nstreams=8, nz=None,
@@ -1065,3 +1094,50 @@ def surfaces_ref_outputs(name, dtype=np.float64, device=None):
                                    "total")}
         out.update(jac)
     return {f"{name}_{k}": np.asarray(v) for k, v in out.items()}
+
+
+# ---- The multichip dry run ----
+
+def _dryrun_rank(rank, world, device_type):
+    """One rank of ``dryrun_multichip``: its slice of the flagship at nSpec
+    8 x world and nstreams 4 through ``rt_solve`` on ``device_type``, R
+    gathered over the spectral mesh. Returns (R's shape, all finite, the
+    gathered R as numpy, this rank's spectral points)."""
+    import torch
+    from .core.solver import rt_solve
+    from .parallel.sharding import (gather_outputs, shard_inputs,
+                                    spectral_mesh)
+    dev = torch.device(device_type if device_type == "cpu" else
+                       f"cuda:{torch.cuda.current_device()}")
+    mesh = spectral_mesh()
+    model = flagship_model(n_spec=8 * world, nstreams=4)
+    inputs, config = shard_inputs(*model.build_band(0, device=dev), mesh)
+    R = gather_outputs({"R": rt_solve(inputs, config, dev)["R"]}, mesh)["R"]
+    return (tuple(R.shape), bool(torch.isfinite(R).all()), R.cpu().numpy(),
+            config.n_spec)
+
+
+def dryrun_multichip(n_devices: int, device=None):
+    """Shard the spectral axis of the flagship (nSpec 8 n, nstreams 4) over
+    n ranks of ``torch.distributed``, run ``rt_solve`` on each rank's
+    slice and gather R (the counterpart of
+    ``__graft_entry__.dryrun_multichip``): NCCL with one GPU a rank on
+    CUDA (the default), gloo on the CPU when ``device="cpu"``. Checks R's
+    shape and that it is finite, prints one "OK" line and returns the
+    gathered R as numpy."""
+    from .core.types import resolve_device
+    from .parallel.sharding import run_ranks
+    dev = resolve_device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    outs = run_ranks(_dryrun_rank, n_devices, dev.type, backend=backend,
+                     threads=1 if dev.type == "cpu" else None)
+    n_spec = 8 * n_devices
+    want = (len(flagship_params()["vza"]), 4, n_spec)
+    for shape, finite, _, local in outs:
+        assert shape == want, (shape, want)
+        assert finite
+        assert local == n_spec // n_devices
+    R = outs[0][2]
+    print(f"dryrun_multichip OK: {n_devices}-rank spectral mesh ({backend}), "
+          f"nSpec={n_spec}, R {R.shape} gathered on every rank")
+    return R

@@ -235,13 +235,11 @@ def sol_rrs_setup(model, i_band: int = 0, T: float = 273.0,
     ``device`` as float64."""
     from ..core.inelastic import (raman_z_stack, rayleigh_fraction,
                                   refuse_thermal)
-    from ..core.types import (refuse_spectral_surface, resolve_device,
-                              rrs_setup_from_numpy)
+    from ..core.types import resolve_device, rrs_setup_from_numpy
     dev = resolve_device(device)
     band = model.bands[i_band]
     refuse_thermal(band)
     inputs, config = model.build_band(i_band, device=dev, rrs=True)
-    refuse_spectral_surface(inputs, "rt_run_stellar")
     shifts, w, _ = sol_rrs_redistribution(band.nu_grid, T, vmr_h2)
     if len(shifts) == 0:
         raise ValueError("grid too narrow/coarse for any H2 rotational-"
@@ -273,8 +271,7 @@ def rt_run_stellar(model, i_band: int = 0, mode: str = "sol_RRS",
     from ..core.inelastic import (_src_fixed0, raman_z_stack,
                                   rayleigh_fraction, refuse_thermal,
                                   rt_solve_rrs, solve_rrs_route)
-    from ..core.types import (refuse_spectral_surface, resolve_device,
-                              rrs_setup_from_numpy)
+    from ..core.types import resolve_device, rrs_setup_from_numpy
 
     if mode not in ("sol_RRS", "sol_VS_0to1", "sol_VS_1to0"):
         raise ValueError(f"unknown stellar mode {mode!r}")
@@ -291,7 +288,6 @@ def rt_run_stellar(model, i_band: int = 0, mode: str = "sol_RRS",
     band = model.bands[i_band]
     refuse_thermal(band)
     inputs, config = model.build_band(i_band, device=dev, rrs=True)
-    refuse_spectral_surface(inputs, "rt_run_stellar")
     fscatt = rayleigh_fraction(band)          # H2 fraction of scattering
     h2 = get_raman_solar_constants(float(band.nu_grid[0]), T, vmr_h2)
     w_rvrs, w_vrs, _, _ = sol_vs_redistribution(band.nu_grid, mode, T,

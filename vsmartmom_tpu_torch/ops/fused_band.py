@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.kernels import _expm1
+from ..core.kernels import _e_expm1, _expm1
 from .fused_rt import doubling_math, interaction_math, norm_sched
 
 #: Largest stream count N and source count K the CUDA kernel takes.
@@ -126,12 +126,6 @@ def band_operands(Z_pp_m, Z_mp_m, tau, scat_w, Em1, Em1_0, att, ek_sol,
                         c(jm_star), c(ek))
 
 
-#: |dtau (1/mu_j - 1/mu_i)| below which the elemental transmission takes
-#: E_j expm1(x) directly, above which E_i - E_j (``csrc/fused_band.cu``,
-#: ``fused_lin.cu`` and ``fused_rrs.cu`` split at the same 0.3).
-EXPM1_SPLIT = 0.3
-
-
 def assemble_elemental(Z_pp, Z_mp, geom, w, Em1, dtau):
     """Elemental (r-+, t++), (s, N, N), from phase matrices (C, N, N), the
     geometry tables, weights w (C, s), Em1 (s, N) and dtau (s,)."""
@@ -145,12 +139,9 @@ def assemble_elemental(Z_pp, Z_mp, geom, w, Em1, dtau):
     r_mp = wZ_mp * RG * one_m_EE
     dt = dtau[:, None, None]
     eye = torch.eye(Em1.shape[-1], dtype=Em1.dtype, device=Em1.device)
-    # E_j expm1(x), x = dt A = dt/mu_j - dt/mu_i: expm1 below |x| =
-    # EXPM1_SPLIT, the identity E_j expm1(x) = Em1_i - Em1_j above it (the
-    # JAX kernel's split; no overflow in optically thick layers).
-    x = dt * A
-    num = torch.where(x.abs() < EXPM1_SPLIT, torch.expm1(x) * E_j,
-                      Em1[:, :, None] - Em1[:, None, :])
+    # E_j expm1(x), x = dt A = dt/mu_j - dt/mu_i, split as the kernels
+    # split it (``core.kernels._e_expm1``: Em1_i - Em1_j in thick layers).
+    num = _e_expm1(dt * A, E_j, Em1[:, :, None] - Em1[:, None, :])
     t_pp = wZ_pp * (num * TO + (dt * TS) * E_j) + E_i * eye
     return r_mp, t_pp
 

@@ -50,6 +50,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.kernels import CompositeLayer, interaction
+from ..core.linearization import jvp_over, live_fields, refuse_empty
 from ..core.solver import _surface_layer, beer_moment, moment_args
 from ..core.types import SolverConfig, SolverInputs, resolve_device
 from .fused_band import BandOperands, band_operands, moment_body_reference
@@ -295,7 +296,10 @@ def _stack(tangents, field, dtype, dev, index=None):
 
 
 def _cast(inputs: SolverInputs, dtype, dev) -> SolverInputs:
-    return SolverInputs(*(torch.as_tensor(x).to(device=dev, dtype=dtype)
+    """The inputs on ``dev`` in ``dtype``, cast before the move (a 4-D
+    surface arrives as a host f64 tensor and crosses in the solve's
+    dtype)."""
+    return SolverInputs(*(torch.as_tensor(x).to(dtype=dtype).to(device=dev)
                           for x in inputs))
 
 
@@ -331,9 +335,11 @@ def rt_solve_multitangent(inputs: SolverInputs, tangents, config: SolverConfig,
     is one launch for all P tangents; the moments above it take
     ``rt_solve``'s Beer-law shortcut and its jvp. Returns (R, T, dR, dT)
     tensors: R/T (nVZA, ns, s), dR/dT (P, nVZA, ns, s)."""
+    refuse_empty(tangents, "rt_solve_multitangent")
     dev = resolve_device(device)
     dtype = config.torch_dtype
     inp = _cast(inputs, dtype, dev)
+    live = live_fields(tangents)
     P, n_spec, ns = len(tangents), config.n_spec, config.n_stokes
     n_m = config.m_max + 1
     n_full = n_m if config.m_scat < 0 else min(config.m_scat + 1, n_m)
@@ -343,15 +349,16 @@ def rt_solve_multitangent(inputs: SolverInputs, tangents, config: SolverConfig,
         device=dev)
 
     def stack(field, m=None):
-        return _stack(tangents, field, dtype, dev, m)
+        return _stack(tangents, field, dtype, dev, m) if field in live \
+            else None
 
     def weigh(J, m):
         return J[:, vza_rows].permute(1, 2, 0) * inp.vza_w[m][:, :, None]
 
-    def tail(R_mp, R_pm, T_pp, T_mm, J0_p, J0_m, surf_r_m, surf_j_m,
-             surf_spec, F0, tau, sif, m):
-        surf = _surface_layer(surf_r_m, surf_j_m, inp.surf_direct_m[m],
-                              surf_spec, F0, tau.sum(dim=0), mu0, sif,
+    def tail(R_mp, R_pm, T_pp, T_mm, J0_p, J0_m, surf_r, surf_j_m,
+             surf_spec, F0, tau, sif_spec, m):
+        surf = _surface_layer(surf_r, surf_j_m, inp.surf_direct_m[m],
+                              surf_spec, F0, tau.sum(dim=0), mu0, sif_spec,
                               m == 0, config)
         out = interaction(CompositeLayer(R_mp, R_pm, T_pp, T_mm, J0_p,
                                          J0_m), surf)
@@ -363,29 +370,29 @@ def rt_solve_multitangent(inputs: SolverInputs, tangents, config: SolverConfig,
                                    inp.qp_mu_N, config)
         return weigh(Jtoa, m), weigh(j0p, m)
 
-    d_tau, d_F0 = stack("tau"), stack("F0")
-    d_spec, d_sif = stack("surf_spec"), stack("sif_spec")
+    whole = {f: stack(f) for f in ("surf_spec", "F0", "tau", "sif_spec")}
     R = torch.zeros((len(config.vza_idx), ns, n_spec), dtype=dtype,
                     device=dev)
     T = torch.zeros_like(R)
     dR = torch.zeros((P,) + R.shape, dtype=dtype, device=dev)
     dT = torch.zeros_like(dR)
     for m in range(n_m):
-        d_surf_j = stack("surf_j_m", m)
+        primals = {"surf_j_m": inp.surf_j_m[m], "surf_spec": inp.surf_spec,
+                   "F0": inp.F0, "tau": inp.tau}
+        d_in = {"surf_j_m": stack("surf_j_m", m), **whole}
         if m < n_full:
             fn = functools.partial(tail, m=m)
             comp, dcomp = fused_moment_multitangent(*multitangent_args(
                 inp, tangents, config, m, dev))
-            primals = (*comp, inp.surf_r[m], inp.surf_j_m[m], inp.surf_spec,
-                       inp.F0, inp.tau, inp.sif_spec)
-            d_in = (*dcomp, stack("surf_r", m), d_surf_j, d_spec, d_F0,
-                    d_tau, d_sif)
+            primals.update(zip(CompositeLayer._fields, comp),
+                           surf_r=inp.surf_r[m], sif_spec=inp.sif_spec)
+            d_in.update(zip(CompositeLayer._fields, dcomp),
+                        surf_r=stack("surf_r", m))
         else:
             fn = functools.partial(beer, m=m)
-            primals = (inp.surf_j_m[m], inp.surf_spec, inp.F0, inp.tau)
-            d_in = (d_surf_j, d_spec, d_F0, d_tau)
-        Rm, Tm = fn(*primals)
-        dRm, dTm = torch.func.vmap(lambda *d: torch.func.jvp(
-            fn, primals, d)[1])(*d_in)
+            d_in.pop("sif_spec")
+        Rm, Tm = fn(**primals)
+        dRm, dTm = jvp_over(fn, primals, {k: v for k, v in d_in.items()
+                                          if v is not None}, P)
         R, T, dR, dT = R + Rm, T + Tm, dR + dRm, dT + dTm
     return R, T, dR, dT

@@ -21,7 +21,6 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
-from scipy import stats
 
 from .greek import GreekCoefs
 from .legendre import compute_legendre_poly, compute_mie_pi_tau
@@ -40,10 +39,14 @@ class SizeDistribution:
                 "log-normal sigma_log must be > 0 (a geometric sigma of "
                 "exactly 1 is a zero-width distribution)")
 
+    # scipy.stats is imported where it is used: it takes seconds to load,
+    # which every process that imports the port (a spawned rank) would pay.
     def pdf(self, r):
+        from scipy import stats
         return stats.lognorm.pdf(r, s=self.sigma_log, scale=np.exp(self.mu_log))
 
     def quantile(self, q):
+        from scipy import stats
         return stats.lognorm.ppf(q, s=self.sigma_log, scale=np.exp(self.mu_log))
 
 

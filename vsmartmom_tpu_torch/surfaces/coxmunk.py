@@ -352,6 +352,23 @@ def _azimuthal_kernels(ns: int, m: int, phi):
     return np.where(same[None], cosm, sinm)
 
 
+def coxmunk_mueller_grid(surf: CoxMunkSurface, ns: int, mu,
+                         n_water: Optional[complex] = None,
+                         wind_tangent: bool = False):
+    """Mueller matrices over the (mu_out, mu_in, phi_quad) grid plus the
+    azimuth quadrature: the m-independent part of the Fourier projection,
+    computed once and reused for every moment. Returns (M, phi, w); with
+    ``wind_tangent`` (M, dM, phi, w), dM the grid's analytic wind-speed
+    tangent."""
+    phi, w = gauleg(N_QUAD_PHI, 0.0, np.pi)
+    mu = np.asarray(mu, dtype=np.float64)
+    args = (mu[:, None, None], mu[None, :, None], phi[None, None, :])
+    if wind_tangent:
+        return (*cox_munk_mueller_wind_tangent(surf, ns, *args,
+                                               n_water=n_water), phi, w)
+    return cox_munk_mueller(surf, ns, *args, n_water=n_water), phi, w
+
+
 def coxmunk_reflectance_fourier(M_grid, phi, w, ns: int, m: int):
     """Fourier moment m of the BRDF supermatrix from the precomputed grid.
     Returns the raw (N, N) reflectance matrix (no mu*w quadrature factor,
@@ -372,18 +389,11 @@ def coxmunk_surface_operator_arrays(surf: CoxMunkSurface, quad, ns: int,
     factor; see model._surface_arrays) and, when requested, their ANALYTIC
     wind-speed tangents — the Fourier projection is linear in the Mueller
     grid, so the tangent rides the same einsum."""
-    phi, w = gauleg(N_QUAD_PHI, 0.0, np.pi)
-    mu = np.asarray(quad.qp_mu, dtype=np.float64)
-    args = (mu[:, None, None], mu[None, :, None], phi[None, None, :])
-    if wind_tangent:
-        M_grid, dM_grid = cox_munk_mueller_wind_tangent(
-            surf, ns, *args, n_water=n_water)
-    else:
-        M_grid = cox_munk_mueller(surf, ns, *args, n_water=n_water)
+    *grids, phi, w = coxmunk_mueller_grid(surf, ns, quad.qp_mu, n_water,
+                                          wind_tangent)
     N = quad.Nquad * ns
     sl = slice(quad.i_mu0_start, quad.i_mu0_start + ns)
     qw = quad.qp_mu_N * quad.wt_mu_N
-    grids = (M_grid, dM_grid) if wind_tangent else (M_grid,)
     outs = []
     for G in grids:
         surf_r = np.zeros((n_m, N, N))
