@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Fourteen groups of
+Run from the root of a checkout: ``python3 chip_smoke.py``. Fifteen groups of
 paths are driven: the flagship forward ``rt_run`` (band kernel K1), the
 rotational-Raman forward ``rt_run_inelastic`` (K1 for the elastic half, the
 block-bichromatic RRS kernel K3 for the inelastic one), the aerosol
@@ -26,8 +26,9 @@ land and single-scatter paths: a vegetated red-edge column (a canopy over
 an RPV soil, built on the card) through ``rt_run_full`` (K1) and
 ``rt_run_ss``, the standalone exact single scatter ``run_exact_ss`` and
 the flagship on Gauss-Radau streams (K1); the five other entry points
-over a spectrally resolved canopy surface (K2, K5, K1 + K3); and the
-spectral sharding over ``torch.distributed`` ranks (K1, K1 + K3).
+over a spectrally resolved canopy surface (K2, K5, K1 + K3); the
+spectral sharding over ``torch.distributed`` ranks (K1, K1 + K3); and the
+wide-stream scenes (N 65-128) through K1's and K2's cluster kernels.
 Phases, each of which fails the run (non-zero exit) on a miss:
 
 1. setup — the card's name and power limit; every CUDA kernel of the port
@@ -75,7 +76,8 @@ Phases, each of which fails the run (non-zero exit) on a miss:
      parameters + wind): K2 launched m_scat + 1 = 16 times (one per moment
      for all 8 tangents), K1 and K3 not at all; R, T, dR, dT finite, dR
      (9, 4, 1024, 8); on a 64-point slice the K2 route against the plain
-     jvp route, R <= 1e-4 and each parameter's dR <= 2e-4 of its max;
+     jvp route at moments 0..``ROUTE_CHECK_M`` (2), R <= 1e-4 and each
+     parameter's dR <= 2e-4 of its max;
      ``rt_run`` of the same scene (16 K1 launches) equal to rt_run_lin's R
      within 1e-4; the small aerosol scene against the stored JAX CPU f64
      reference (``data/lin_ref_f64.npz``), R <= 1e-4 and each parameter's
@@ -166,7 +168,8 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    against the f64 plain version printed, as for K2); the K = 2
    shared memory inside the 232,448 B opt-in; ``rt_run_lin`` at nSpec 1024
    counted (K2 launched m_scat + 1 times at K = 2, no other kernel), R, T,
-   dR, dT finite, dR (9, 4, 1024, 8); on the slice the kernel route
+   dR, dT finite, dR (9, 4, 1024, 8); on the slice, at moments
+   0..``ROUTE_CHECK_M`` (2), the kernel route
    against the jvp route (R <= 1e-4, each dR <= 2e-4 of its max) and the
    additivity of the sources (dR and R of solar + thermal against the sum
    of the solar-only and the thermal-only runs, ``include_solar=False``,
@@ -291,7 +294,8 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    surface that does not): ``rt_run_lin`` of the aerosol flagship (nSpec
    1024, P = 7) counted (K2 m_scat + 1 times, nothing else), each of
    those launches on the 64 points from the brightest surface point
-   against K2's plain version on those points' operands (every moment:
+   against K2's plain version on those points' operands (moments
+   0..``ROUTE_CHECK_M``:
    primal <= 1e-4, each tangent <= 2e-4 of its parameter's max), its
    kernel route against the jvp route on those points, moments 0..2 (R
    <= 1e-4, each dR <= 2e-4 of its max, the aerosol height's
@@ -317,7 +321,33 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    launches) and on the RRS+SIF scene at nSpec 1024 through K1 + K3 with
    each rank's halo (``parallel.shard_raman``, max|shift| points a side),
    the outputs gathered on the host, each against the unsharded run on
-   the card (<= 1e-4; the distance and bit-equality printed).
+   the card (<= 1e-4; the distance and bit-equality printed);
+15. wide (``wide_phase``) — launch checks on the flagship's column and
+   ocean cut to 3 layers and 64 points (``flagship.wide_check_model``):
+   K1 at N = 52, 64, 65, 68, 84, 104, 128 (K = 1) and 84, 128 (K = 2),
+   every moment up to m_scat, each within 1e-4 of its plain version and
+   within ``F64_RATIO`` of the f32 plain version's distance from f64, its
+   plan (single block or cluster, band rows, threads, shared bytes,
+   resident blocks or clusters) the host's; K2 at N = 52, 53, 84, 128 and
+   K1' at 84, P = 8, moments 0 and 1 (primal 1e-4, each parameter's
+   tangents 2e-4 of its max, the primal's f64 witness); each launch at N
+   = 84 and 128 timed against its plain version and its bound (K2's at
+   the least work, 1 + 2P primal moments, beside its own 3P), with its
+   cluster size (printed); then three scenes, each counted with no width
+   warning allowed: the IQUV Radau flagship (``radau_model``, N = 68,
+   nSpec 1024, ``rt_run_full``: K1's single block), the flagship at nstreams
+   16 (N = 84, nSpec 4096 in 4 chunks: K1's clusters, 4 (m_scat + 1)
+   launches) and its aerosol Jacobian (N = 84, P = 8, nSpec 128: K2's
+   wide plan, m_scat + 1 launches), each kernel route against the plain
+   route on a slice (64 points; the Jacobian's 8) at moments
+   0..``ROUTE_CHECK_M`` (1e-4; dR 2e-4 of each parameter's max, the
+   aerosol height's ``HEIGHT_GATE`` with its 1.01 control), with its
+   pts/s; the Jacobian's K2 launches at m = m_scat / 2 and m_scat
+   against plain K2 on those 8 points (1e-4; tangents 2e-4, the aerosol
+   height's by the f64 witness, ``tangent_f64_errors``). The
+   kernels line times K1 on moment 0 of the wide flagship's first chunk
+   and K2 on moment 0 of the Jacobian's own operands, each against its
+   plain version on the same inputs, with its bound at that shape.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel. Without CUDA it exits non-zero and prints no result.
@@ -443,6 +473,19 @@ def rrs_flops(ops, n_points, n_pairs, ns_sched, ns_inter, count="least"):
     return 2.0 * (n_mat * mat + n_vec * vec) * nz
 
 
+def timed_once(fn):
+    """(fn(), its device time in ms): one call between two CUDA events,
+    for a launch too long to repeat whose code has run before."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
 def mt_errors(outs, refs):
     """K2 against its plain version over several moments: (the primal's
     max|d| / max|ref| over outputs, [per parameter: max|d| over every
@@ -459,6 +502,29 @@ def mt_errors(outs, refs):
     e_abs = max(float((a - b).abs().max()) for o, r in zip(outs, refs)
                 for a, b in zip((*o[0], *o[1]), (*r[0], *r[1])))
     return e_prim, e_tan, e_abs
+
+
+def tangent_f64_errors(args, outs, refs):
+    """K2's tangents over several launches (``multitangent_args`` each)
+    against the plain version run in f64 on the same operands: per
+    parameter, (the kernel's max|d| / that parameter's f64 max over every
+    tangent output and launch, the f32 plain version's)."""
+    from vsmartmom_tpu_torch.ops import fused_lin
+    r64 = [fused_lin.moment_multitangent_reference(
+        ops._replace(**{f: getattr(ops, f).double() for f in ops._fields}),
+        dops._replace(**{f: getattr(dops, f).double()
+                         for f in dops._fields}), sched, inter)[1]
+        for ops, dops, sched, inter in args]
+
+    def dist(xs, q):
+        return max(float((a[q].double() - b[q]).abs().max())
+                   for x, r in zip(xs, r64) for a, b in zip(x[1], r))
+    errs = []
+    for q in range(r64[0][0].shape[0]):
+        scale = max(float(t[q].abs().max()) for r in r64 for t in r)
+        scale = scale if scale > 0 else 1.0
+        errs.append((dist(outs, q) / scale, dist(refs, q) / scale))
+    return errs
 
 
 def f64_errors(ops, sched, inter, kernel, plain):
@@ -607,9 +673,11 @@ def launch_counted():
     from vsmartmom_tpu_torch.ops import band_stages, fused_band, fused_lin, \
         fused_rrs, fused_rt, probe_dots, probe_layout
     return {"fused_moment": fused_band.fused_moment,
+            "fused_moment_cluster": fused_band._launch_cluster,
             "fused_moment_rrs": fused_rrs.fused_moment_rrs,
             "rrs_diagonal": fused_rrs._launch_diagonal,
             "fused_moment_multitangent": fused_lin.fused_moment_multitangent,
+            "fused_moment_multitangent_wide": fused_lin._launch_wide,
             "fused_doubling": fused_rt.fused_doubling,
             "fused_layer_step": fused_rt.fused_layer_step,
             "dot_chain": probe_dots.dot_chain,
@@ -1461,8 +1529,8 @@ def thermal_lin_phase(dev, smi):
     smem_fn = cuda_build.load("fused_lin").vsm_fused_moment_mt_smem_bytes
     smem_fn.restype = ctypes.c_size_t
     smem_fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    smem = {k: smem_fn(fused_lin.KERNEL_MAX_N, k) for k in (1, 2)}
-    print(f"K2 shared memory at N={fused_lin.KERNEL_MAX_N}: K=1 {smem[1]} B,"
+    smem = {k: smem_fn(fused_lin.NARROW_MAX_N, k) for k in (1, 2)}
+    print(f"K2 shared memory at N={fused_lin.NARROW_MAX_N}: K=1 {smem[1]} B,"
           f" K=2 {smem[2]} B (opt-in limit {SMEM_OPT_IN} B)", flush=True)
     if smem[2] > SMEM_OPT_IN:
         fail(f"K2 at K = 2 needs {smem[2]} B of shared memory")
@@ -1538,12 +1606,16 @@ def thermal_lin_phase(dev, smi):
     if dR.shape != (9, 4, THERMAL_N_SPEC, n_par) or not all(
             np.isfinite(x).all() for x in (R, T, dR, dT)):
         fail(f"thermal rt_run_lin not finite or dR of shape {dR.shape}")
-    kern = fused_lin.rt_solve_multitangent(sl[0], sl_tans, sl[1], dev)
+    # The routes and the additivity on moments 0..ROUTE_CHECK_M (the jvp
+    # route is launch-bound; K1' was held to its plain version above).
+    cut = dataclasses.replace(sl[1], m_max=min(config.m_max, ROUTE_CHECK_M))
+    kern = fused_lin.rt_solve_multitangent(sl[0], sl_tans, cut, dev)
     plain = rt_solve_jvp(sl[0], sl_tans,
-                         dataclasses.replace(sl[1], fused=False), dev)
+                         dataclasses.replace(cut, fused=False), dev)
     e_route = [rel(kern[0], plain[0])] + [rel(kern[2][q], plain[2][q])
                                           for q in range(n_par)]
-    print(f"thermal kernel route vs jvp route (nSpec={THERMAL_SLICE}): "
+    print(f"thermal kernel route vs jvp route (nSpec={THERMAL_SLICE}, "
+          f"m=0..{cut.m_max}): "
           f"R={e_route[0]:.2e} dR per parameter "
           + " ".join(f"{e:.2e}" for e in e_route[1:])
           + f"; dT={rel(kern[3], plain[3]):.2e}", flush=True)
@@ -1577,8 +1649,9 @@ def thermal_lin_phase(dev, smi):
     parts = []
     for b in (sol, therm):
         b_inputs, b_config = spectral_slice(*b, 0, THERMAL_SLICE)
-        parts.append(fused_lin.rt_solve_multitangent(b_inputs, sl_tans,
-                                                     b_config, dev))
+        parts.append(fused_lin.rt_solve_multitangent(
+            b_inputs, sl_tans, dataclasses.replace(b_config,
+                                                   m_max=cut.m_max), dev))
     e_add = [rel(parts[0][0] + parts[1][0], kern[0])] + [
         rel(parts[0][2][q] + parts[1][2][q], kern[2][q])
         for q in range(n_par)]
@@ -2444,15 +2517,18 @@ def entries_4d_phase(dev, smi):
                 np.isfinite(x).all() for x in (R, T, dR, dT)):
         fail(f"4-D rt_run_lin: launches {launches} (want {want}), layout "
              f"{layout.names()}, dR {dR.shape} or not finite")
-    # Every K2 launch of the entry (moments 0..m_scat) against K2's plain
-    # version on the checked points' operands.
+    # The entry's K2 launches of moments 0..ROUTE_CHECK_M against K2's
+    # plain version on the checked points' operands (sixteen plain
+    # multitangent jvps took 32.8 s; the surface is the same code at
+    # every moment).
     a, b = checked_points(inputs)
     sl_in, sl_full = spectral_slice(inputs, config, a, b)
     sl_tans = [spectral_slice(t, config, a, b)[0] for t in tans]
     refs = [fused_lin.moment_multitangent_reference(
         *fused_lin.multitangent_args(sl_in, sl_tans, sl_full, m, dev))
-        for m in range(len(launched))]
-    k2_prim, k2_tan, _ = mt_errors(launched, refs)
+        for m in range(min(len(launched), ROUTE_CHECK_M + 1))]
+    k2_prim, k2_tan, _ = mt_errors(launched[:len(refs)], refs)
+    n_checked = len(refs)
     del launched, refs
     step("lin launches check")
     # The routes compared on those points, moments 0..ROUTE_CHECK_M (the
@@ -2488,7 +2564,7 @@ def entries_4d_phase(dev, smi):
               f"{n}=({x:.2e}, {y:.2e}, {scale[n]:.1e})"
               for n, (x, y) in e64.items()) + "; height dR 1% off "
           + " ".join(f"{n}={e:.2e}" for n, e in control.items())
-          + f"; K2's {config.m_scat + 1} launches vs plain K2 on those "
+          + f"; K2's launches of m=0..{n_checked - 1} vs plain K2 on those "
           f"points: primal={k2_prim:.2e} tangents per parameter "
           + " ".join(f"{e:.2e}" for e in k2_tan), flush=True)
     report["rt_run_lin"]["k2_launches_vs_plain"] = {
@@ -2762,6 +2838,430 @@ def sharding_phase(dev, smi):
                       "phase_s": time.perf_counter() - phase_t0}),
           flush=True)
     return report
+
+
+#: The wide scenes (65 <= N <= 128): the IQUV Radau flagship (N = 68,
+#: ``rt_run_full``), the flagship at nstreams 16 (N = 84, ``rt_run`` in
+#: chunks of N_CHUNK) and its aerosol Jacobian (N = 84, P = 8), each
+#: kernel route against the plain route on WIDE_SLICE points, moments
+#: 0..ROUTE_CHECK_M. The Jacobian keeps every moment to m_scat = 31 (the
+#: Cox-Munk ocean at nstreams 16): 32 K2 launches, so it runs 128 points
+#: (1024 clusters of 4 blocks a launch, ~31 waves on 132 SMs), the work
+#: of 16 launches at 256.
+WIDE_RADAU_N_SPEC, WIDE_N_SPEC, WIDE_LIN_N_SPEC = 1024, 4096, 128
+WIDE_SLICE = 64
+#: The launch checks' (N, K), each on 64 points of 3 layers
+#: (``flagship.wide_check_model``): K1 across its single block and its
+#: clusters; K2 across its narrow and wide plans, K1' (K = 2) at 84.
+WIDE_K1_CHECKS = ((52, 1), (64, 1), (65, 1), (68, 1), (84, 1), (104, 1),
+                  (128, 1), (84, 2), (128, 2))
+WIDE_K2_CHECKS = ((52, 1), (53, 1), (84, 1), (128, 1), (84, 2))
+#: The widths whose launches are timed.
+WIDE_TIMED = (84, 128)
+
+
+def wide_phase(dev, smi):
+    """Wide-stream scenes through K1's and K2's cluster kernels (see the
+    module docstring, phase 15). Returns the kernels-line entries of the
+    two cluster kernels (K1's and K2's wide instances)."""
+    import warnings
+
+    from vsmartmom_tpu_torch import (default_layout, flagship_model, rt_run,
+                                     rt_run_full, rt_run_lin)
+    from vsmartmom_tpu_torch.core import linearization, solver
+    from vsmartmom_tpu_torch.core.linearization import (build_tangent_inputs,
+                                                        rt_solve_jvp)
+    from vsmartmom_tpu_torch.core.solver import (band_moment_args, rt_solve,
+                                                 spectral_slice)
+    from vsmartmom_tpu_torch.flagship import radau_model, wide_check_model
+    from vsmartmom_tpu_torch.ops import fused_band, fused_lin
+    from vsmartmom_tpu_torch.scattering.stokes import STOKES_IQUV
+    counted = launch_counted()
+    phase_t0 = time.perf_counter()
+    steps = {}
+    clock = [time.perf_counter()]
+
+    def step(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps[name] = now - clock[0]
+        clock[0] = now
+
+    def run_counted(fn):
+        """fn() with every launch counter set to 0 just before and read
+        just after, and any width warning caught: (out, launches, s)."""
+        for c in counted.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        wide = [str(w.message) for w in caught
+                if "takes N <=" in str(w.message)]
+        if wide:
+            fail(f"a wide scene took a plain route: {wide}")
+        return out, {k: c.launches for k, c in counted.items()
+                     if c.launches}, secs
+
+    def bound(flops, n_bytes):
+        t_ops = flops / FP32_PEAK_FLOPS * 1e3
+        t_mem = n_bytes / HBM_BYTES_PER_S * 1e3
+        return max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes"
+
+    # (a) K1's launch checks: each moment up to m_scat against its plain
+    # version, and the f64 witness.
+    timed = {}
+    k1_abs = 0.0
+    for N, K in WIDE_K1_CHECKS:
+        inputs, config = wide_check_model(N, thermal=K == 2).build_band(
+            0, device=dev)
+        if not (config.fused and config.N == N and config.n_sources == K):
+            fail(f"wide K1 check N={N} K={K}: fused={config.fused} "
+                 f"N={config.N} K={config.n_sources}")
+        plan = fused_band.band_cluster_info(N, K)
+        host = fused_band.band_cluster_plan(N, K)
+        if any(plan[k] != host[k] for k in ("cluster", "band", "threads",
+                                            "smem")) or plan["resident"] < 1:
+            fail(f"wide K1 plan N={N} K={K}: C {plan}, host {host}")
+        errs, e64 = [], []
+        for m in range(config.m_scat + 1):
+            args, kw = band_moment_args(inputs, config, m, dev)
+            out = fused_band.fused_moment(*args, **kw)
+            torch.cuda.synchronize()
+            ref = fused_band.moment_reference(*args, **kw)
+            errs.append(max(rel(a, b) for a, b in zip(out, ref)))
+            if plan["cluster"] > 1:
+                k1_abs = max([k1_abs] + [float((a - b).abs().max())
+                                         for a, b in zip(out, ref)])
+            e64.append(band_f64_errors(args, kw, out, ref))
+            if m == 0 and K == 1 and N in WIDE_TIMED:
+                timed[("K1", N)] = (args, kw, config, out, plan)
+        print(f"wide K1 N={N} K={K} (64 points, {config.nz} layers, "
+              f"ndoubl {config.ndoubl}): plan {json.dumps(plan)}; vs plain "
+              f"m=0..{config.m_scat} " + " ".join(f"{e:.2e}" for e in errs)
+              + "; vs f64 plain: kernel "
+              f"{max(e[0] for e in e64):.2e}, f32 plain "
+              f"{max(e[1] for e in e64):.2e}", flush=True)
+        if not all(np.isfinite(e) and e <= GATE for e in errs) or not all(
+                k <= F64_RATIO * p for k, p in e64):
+            fail(f"wide K1 N={N} K={K}: vs plain {errs}, vs f64 {e64}")
+    step("K1 launch checks")
+
+    # (b) K2's launch checks at P = 8: moments 0 and 1 against its plain
+    # version (forward-mode AD of the plain body), and the primal's f64
+    # witness. K1' (K = 2) reuses the K = 1 scene's tangents: the layout
+    # has no temperature parameter.
+    k2_abs, tangents_of = 0.0, {}
+    for N, K in WIDE_K2_CHECKS:
+        model = wide_check_model(N, aerosol=True, thermal=K == 2)
+        if K == 1:
+            inputs, config, tans = build_tangent_inputs(
+                model, 0, default_layout(model), device=dev)
+            tangents_of[N] = tans
+        else:
+            inputs, config = model.build_band(0, device=dev)
+            tans = tangents_of[N]
+        P = len(tans)
+        if not (config.fused and config.N == N and config.n_sources == K
+                and P == 8):
+            fail(f"wide K2 check N={N} K={K}: fused={config.fused} "
+                 f"N={config.N} K={config.n_sources} P={P}")
+        plan = fused_lin.mt_plan(N, K, P)
+        info = fused_lin.mt_launch_info(N, K, P)
+        if any(info[k] != plan[k] for k in ("cluster", "groups", "threads",
+                                            "smem", "tiles")) \
+                or info["max_clusters"] < 1:
+            fail(f"wide K2 plan N={N} K={K}: C {info}, host {plan}")
+        outs, refs, e64 = [], [], []
+        for m in (0, 1):
+            args = fused_lin.multitangent_args(inputs, tans, config, m, dev)
+            outs.append(fused_lin.fused_moment_multitangent(*args))
+            torch.cuda.synchronize()
+            refs.append(fused_lin.moment_multitangent_reference(*args))
+            e64.append(primal_f64_errors(args, outs[-1][0], refs[-1][0]))
+            if m == 0 and K == 1 and N in WIDE_TIMED:
+                timed[("K2", N)] = (args, config, outs[-1], info)
+        prim, tan, abs_err = mt_errors(outs, refs)
+        if plan["wide"]:
+            k2_abs = max(k2_abs, abs_err)
+        del outs, refs
+        print(f"wide K2 N={N} K={K} P={P} (64 points, {config.nz} layers, "
+              f"ndoubl {config.ndoubl}): plan {json.dumps(info)} wide="
+              f"{plan['wide']}; vs plain m=0,1: primal={prim:.2e} tangents "
+              "per parameter " + " ".join(f"{e:.2e}" for e in tan)
+              + f"; primal vs f64 plain: kernel "
+              f"{max(e[0] for e in e64):.2e}, f32 plain "
+              f"{max(e[1] for e in e64):.2e}", flush=True)
+        if not (np.isfinite(prim) and prim <= GATE and all(
+                np.isfinite(e) and e <= TAN_GATE for e in tan) and all(
+                k <= F64_RATIO * p for k, p in e64)):
+            fail(f"wide K2 N={N} K={K}: primal {prim}, tangents {tan}, "
+                 f"vs f64 {e64}")
+    del tangents_of
+    step("K2 launch checks")
+
+    # (c) Per launch at N = 84 and 128 on the check shapes (64 points, 3
+    # layers; printed, not the kernels line's, which times the scenes'
+    # own launches below): ms, the plain version's, the bound and the
+    # cluster size.
+    launch = {}
+    for N in WIDE_TIMED:
+        args, kw, config, out, plan = timed[("K1", N)]
+        k_ms = cuda_time_ms(lambda: fused_band.fused_moment(*args, **kw))
+        p_ms = cuda_time_ms(lambda: fused_band.moment_reference(*args, **kw),
+                            reps=3)
+        flops = moment_flops(config, 64)
+        b_ms, b_by = bound(flops, moment_bytes((args, kw), out))
+        launch[("K1", N)] = {"kernel_ms": k_ms, "plain_ms": p_ms,
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "bound_share": b_ms / k_ms, "flops": flops,
+                             "cluster": plan["cluster"],
+                             "band": plan["band"],
+                             "resident": plan["resident"]}
+        args, config, out, info = timed[("K2", N)]
+        P = args[1].Z_pp.shape[0]
+        k_ms = cuda_time_ms(lambda: fused_lin._launch_kernel(*args), reps=2)
+        p_ms = cuda_time_ms(
+            lambda: fused_lin.moment_multitangent_reference(*args), reps=1)
+        primal = moment_flops(config, 64)
+        flops = (1 + 2 * P) * primal
+        b_ms, b_by = bound(flops, nbytes(*args[0], *args[1], *out[0],
+                                         *out[1]))
+        launch[("K2", N)] = {"kernel_ms": k_ms, "plain_ms": p_ms,
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "bound_share": b_ms / k_ms, "flops": flops,
+                             "flops_kernel": 3 * P * primal,
+                             "cluster": info["cluster"],
+                             "resident_clusters": info["max_clusters"]}
+    for (k, N), v in launch.items():
+        print(f"wide {k} N={N} a launch (64 points, 3 layers): "
+              f"{v['kernel_ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
+              f"bound {v['bound_ms']:.3f} ms ({v['bound_by']}), "
+              f"{100 * v['bound_share']:.1f}% of it, cluster "
+              f"{v['cluster']} ({smi})", flush=True)
+    del timed
+    step("launch timing")
+
+    # (d) The IQUV Radau flagship (N = 68: K1's single block).
+    report = {}
+    model = radau_model(WIDE_RADAU_N_SPEC, polarization=STOKES_IQUV)
+    inputs, config = model.build_band(0, device=dev)
+    if not (config.fused and config.N == 68):
+        fail(f"IQUV Radau scene: fused={config.fused} N={config.N}")
+    with timed_calls(solver, "rt_solve") as solve_times:
+        out, launches, secs = run_counted(
+            lambda: rt_run_full(model, device=dev))
+    want = {"fused_moment": config.m_scat + 1}
+    if launches != want or not all(np.isfinite(out[k]).all()
+                                   for k in ("R", "T", "hdr")):
+        fail(f"IQUV Radau rt_run_full: launches {launches} (want {want}) "
+             "or not finite")
+    sl = spectral_slice(inputs, config, 0, WIDE_SLICE)
+    cut = dataclasses.replace(sl[1], m_max=min(config.m_max, ROUTE_CHECK_M))
+    kern = rt_solve(sl[0], cut, dev)
+    plain = rt_solve(sl[0], dataclasses.replace(
+        cut, fused=False, m_scat=-1, ns_sched=(), ns_inter=6), dev)
+    errs = {k: rel(kern[k], plain[k]) for k in ("R", "T")}
+    solve_s = sum(solve_times)
+    report["radau_iquv"] = {"N": config.N, "n_spec": WIDE_RADAU_N_SPEC,
+                            "launches": launches,
+                            "pts_per_s": WIDE_RADAU_N_SPEC / solve_s,
+                            "solve_s": solve_s, "entry_s": secs,
+                            "errors": errs}
+    step("IQUV Radau scene")
+
+    # (e) The wide flagship (N = 84: K1's clusters of 2).
+    model = flagship_model(n_spec=WIDE_N_SPEC, nstreams=16)
+    inputs, config = model.build_band(0, device=dev)
+    if not (config.fused and config.N == 84):
+        fail(f"wide flagship: fused={config.fused} N={config.N}")
+    with timed_calls(solver, "rt_solve") as solve_times:
+        (R, T), launches, secs = run_counted(
+            lambda: rt_run(model, device=dev, spectral_chunk=N_CHUNK))
+    n_launch = (WIDE_N_SPEC // N_CHUNK) * (config.m_scat + 1)
+    want = {"fused_moment": n_launch, "fused_moment_cluster": n_launch}
+    if launches != want or R.shape != (9, 4, WIDE_N_SPEC) or not (
+            np.isfinite(R).all() and np.isfinite(T).all()):
+        fail(f"wide flagship rt_run: launches {launches} (want {want}), "
+             f"R {R.shape} or not finite")
+    k1_launches = launches["fused_moment_cluster"]
+    # K1 on moment 0 of the first chunk, the shape the run launched: the
+    # kernels line's times and bound.
+    args, kw = band_moment_args(
+        *spectral_slice(inputs, config, 0, N_CHUNK), 0, dev)
+    out = fused_band.fused_moment(*args, **kw)
+    ref = fused_band.moment_reference(*args, **kw)
+    k1_abs = max([k1_abs] + [float((a - b).abs().max())
+                             for a, b in zip(out, ref)])
+    k_ms = cuda_time_ms(lambda: fused_band.fused_moment(*args, **kw))
+    p_ms = cuda_time_ms(lambda: fused_band.moment_reference(*args, **kw),
+                        reps=2)
+    flops = moment_flops(config, N_CHUNK)
+    b_ms, b_by = bound(flops, moment_bytes((args, kw), out))
+    k1_main = {"n_spec": N_CHUNK, "kernel_ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "bound_share": b_ms / k_ms, "flops": flops,
+               "vs_plain": max(rel(a, b) for a, b in zip(out, ref))}
+    del args, kw, out, ref
+    sl = spectral_slice(inputs, config, 0, WIDE_SLICE)
+    cut = dataclasses.replace(sl[1], m_max=min(config.m_max, ROUTE_CHECK_M))
+    kern = rt_solve(sl[0], cut, dev)
+    plain = rt_solve(sl[0], dataclasses.replace(
+        cut, fused=False, m_scat=-1, ns_sched=(), ns_inter=6), dev)
+    errs = {k: rel(kern[k], plain[k]) for k in ("R", "T")}
+    solve_s = sum(solve_times)
+    report["flagship_84"] = {"N": config.N, "n_spec": WIDE_N_SPEC,
+                             "launches": launches,
+                             "pts_per_s": WIDE_N_SPEC / solve_s,
+                             "entry_s": secs, "errors": errs,
+                             "solve_s": solve_s}
+    step("wide flagship")
+
+    # (f) The wide aerosol Jacobian (N = 84, P = 8: K2's wide plan). The
+    # entry's own build and tangents are kept for the route check.
+    model = flagship_model(n_spec=WIDE_LIN_N_SPEC, nstreams=16,
+                           aerosol=True)
+    layout = default_layout(model)
+    built = []
+
+    def keep_build(*a, **kw):
+        built.append(build_tangent_inputs(*a, **kw))
+        return built[-1]
+    linearization.build_tangent_inputs = keep_build
+    try:
+        with timed_calls(fused_lin, "rt_solve_multitangent") as solve_times:
+            (R, T, dR, dT), launches, secs = run_counted(
+                lambda: rt_run_lin(model, layout=layout, device=dev))
+    finally:
+        linearization.build_tangent_inputs = build_tangent_inputs
+    inputs, config, tans = built[0]
+    P = len(tans)
+    want = {"fused_moment_multitangent": config.m_scat + 1,
+            "fused_moment_multitangent_wide": config.m_scat + 1}
+    if launches != want or config.N != 84 or P != 8 or \
+            dR.shape != (9, 4, WIDE_LIN_N_SPEC, P) or not all(
+                np.isfinite(x).all() for x in (R, T, dR, dT)):
+        fail(f"wide rt_run_lin: launches {launches} (want {want}), N "
+             f"{config.N}, P {P}, dR {dR.shape} or not finite")
+    k2_launches = launches["fused_moment_multitangent_wide"]
+    sl_in, sl_cfg = spectral_slice(inputs, config, 0, 8)
+    sl_tans = [spectral_slice(t, config, 0, 8)[0] for t in tans]
+    cut = dataclasses.replace(sl_cfg, m_max=min(config.m_max, ROUTE_CHECK_M))
+    kern = fused_lin.rt_solve_multitangent(sl_in, sl_tans, cut, dev)
+    plain = rt_solve_jvp(sl_in, sl_tans, dataclasses.replace(cut, fused=False),
+                         dev)
+    names = layout.names()
+    errs = {"R": rel(kern[0], plain[0])}
+    errs.update({n: rel(kern[2][q], plain[2][q])
+                 for q, n in enumerate(names)})
+    control = {n: rel(1.01 * kern[2][q], plain[2][q])
+               for q, n in enumerate(names) if n.endswith(HEIGHT_PARAMS)}
+    gates = {n: HEIGHT_GATE if n.endswith(HEIGHT_PARAMS) else TAN_GATE
+             for n in names}
+    if len(solve_times) != 1:
+        fail(f"wide rt_run_lin made {len(solve_times)} multitangent solves")
+    # The run's high moments (Cox-Munk keeps every moment to m_scat) on
+    # those 8 points, K2 against its plain version: the primal within
+    # GATE, each parameter's tangents within TAN_GATE, but the aerosol
+    # height's, whose f32 tangents at these moments are too weak to
+    # hold 2e-4 between two f32 routes (ROADMAP §3), by the f64 witness:
+    # the kernel within F64_RATIO of the f32 plain version's distance
+    # from an f64 run.
+    high = sorted({config.m_scat // 2, config.m_scat})
+    high_args, outs, refs = [], [], []
+    for m in high:
+        high_args.append(fused_lin.multitangent_args(sl_in, sl_tans, sl_cfg,
+                                                     m, dev))
+        outs.append(fused_lin.fused_moment_multitangent(*high_args[-1]))
+        refs.append(fused_lin.moment_multitangent_reference(*high_args[-1]))
+    high_prim, high_tan, abs_err = mt_errors(outs, refs)
+    high_f64 = tangent_f64_errors(high_args, outs, refs)
+    k2_abs = max(k2_abs, abs_err)
+    print(f"wide aerosol Jacobian, K2 vs plain at m={high} (8 points): "
+          f"primal={high_prim:.2e} tangents per parameter "
+          + " ".join(f"{n}={e:.2e}" for n, e in zip(layout.names(), high_tan))
+          + "; tangents vs f64 plain (kernel, f32 plain) " + " ".join(
+              f"{n}=({k:.2e}, {p:.2e})"
+              for n, (k, p) in zip(layout.names(), high_f64)), flush=True)
+    high_ok = [np.isfinite(e) and (
+        k <= F64_RATIO * p if n.endswith(HEIGHT_PARAMS) else e <= TAN_GATE)
+        for n, e, (k, p) in zip(layout.names(), high_tan, high_f64)]
+    if not (np.isfinite(high_prim) and high_prim <= GATE and all(high_ok)):
+        fail(f"wide K2 at m={high}: primal {high_prim}, tangents "
+             f"{high_tan}, vs f64 {high_f64}")
+    del high_args
+    # K2 on moment 0 of the run's own operands (128 points, P = 8): the
+    # kernels line's times and bound. One call each (seconds a call; both
+    # codes ran above).
+    args = fused_lin.multitangent_args(inputs, tans, config, 0, dev)
+    out, k_ms = timed_once(lambda: fused_lin._launch_kernel(*args))
+    ref, p_ms = timed_once(
+        lambda: fused_lin.moment_multitangent_reference(*args))
+    prim, tan, abs_err = mt_errors([out], [ref])
+    k2_abs = max(k2_abs, abs_err)
+    primal = moment_flops(config, WIDE_LIN_N_SPEC)
+    flops = (1 + 2 * P) * primal
+    b_ms, b_by = bound(flops, nbytes(*args[0], *args[1], *out[0], *out[1]))
+    k2_main = {"n_spec": WIDE_LIN_N_SPEC, "kernel_ms": k_ms,
+               "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_share": b_ms / k_ms, "flops": flops,
+               "flops_kernel": 3 * P * primal, "vs_plain": [prim, tan]}
+    if not (prim <= GATE and all(e <= TAN_GATE for n, e in zip(
+            layout.names(), tan) if not n.endswith(HEIGHT_PARAMS))):
+        fail(f"wide K2 at the Jacobian's moment 0: primal {prim}, "
+             f"tangents {tan}")
+    del args, out, ref, outs, refs
+    report["aerosol_jacobian_84"] = {
+        "N": config.N, "n_spec": WIDE_LIN_N_SPEC, "n_params": P,
+        "launches": launches, "pts_per_s": WIDE_LIN_N_SPEC / solve_times[0],
+        "solve_s": solve_times[0], "entry_s": secs, "errors": errs,
+        "height_control": control,
+        "ms_a_launch": 1e3 * solve_times[0] / (config.m_scat + 1),
+        "ndoubl": config.ndoubl, "m_scat": config.m_scat}
+    del kern, plain, tans, sl_tans, dR, dT
+    step("wide aerosol Jacobian")
+    for name, r in report.items():
+        print(f"wide scene {name}: N={r['N']} nSpec={r['n_spec']} launches "
+              f"{r['launches']}; {r['pts_per_s']:.1f} pts/s; kernel route "
+              "vs plain route (m=0..2) " + " ".join(
+                  f"{k}={e:.2e}" for k, e in r["errors"].items())
+              + f" ({smi})", flush=True)
+    print("wide aerosol Jacobian: height dR 1% off " + " ".join(
+        f"{n}={e:.2e}" for n, e in control.items()), flush=True)
+    ok = all(e <= GATE for r in ("radau_iquv", "flagship_84")
+             for e in report[r]["errors"].values())
+    ok = ok and errs["R"] <= GATE and all(errs[n] <= gates[n] for n in names)
+    if not (ok and all(e > HEIGHT_GATE for e in control.values())):
+        fail(f"wide scenes, kernel route vs plain route: {report}")
+    for name, v in (("K1 on the wide flagship", k1_main),
+                    ("K2 on the wide aerosol Jacobian", k2_main)):
+        print(f"{name} (N=84, moment 0, {v['n_spec']} points): "
+              f"{v['kernel_ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
+              f"bound {v['bound_ms']:.3f} ms ({v['bound_by']}), "
+              f"{100 * v['bound_share']:.1f}% of it ({smi})", flush=True)
+    print(json.dumps({"card": smi, "wide": {
+        "launch": {f"{k} N={N}": v for (k, N), v in launch.items()},
+        "main_path": {"K1": k1_main, "K2": k2_main},
+        "scenes": report}, "steps_s": steps,
+        "phase_s": time.perf_counter() - phase_t0}), flush=True)
+    k1, k2 = k1_main, k2_main
+    return [{"name": "fused_moment[cluster]", "route": "cuda",
+             "source": "vsmartmom_tpu_torch/csrc/cluster_band.cuh",
+             "replaces": "vsmartmom_tpu/ops/fused_band.py:469",
+             "launches": k1_launches, "max_abs_err": k1_abs,
+             "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
+             "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+             "library_ms": None},
+            {"name": "fused_moment_multitangent[wide]", "route": "cuda",
+             "source": "vsmartmom_tpu_torch/csrc/cluster_band.cuh",
+             "replaces": "vsmartmom_tpu/ops/fused_lin.py:214",
+             "launches": k2_launches, "max_abs_err": k2_abs,
+             "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],
+             "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+             "library_ms": None}]
 
 
 def moment_bytes(args, out):
@@ -3096,13 +3596,18 @@ def main():
     if dR.shape != (9, 4, LIN_N_SPEC, n_par) or not all(
             np.isfinite(x).all() for x in (R, T, dR, dT)):
         fail(f"rt_run_lin outputs not finite or dR of shape {dR.shape}")
-    kern = fused_lin.rt_solve_multitangent(*lin_slice[:1], slice_tans,
-                                           lin_slice[1], dev)
+    # The routes on moments 0..ROUTE_CHECK_M (the jvp route is
+    # launch-bound; K2 was held to its plain version above).
+    cut = dataclasses.replace(lin_slice[1], m_max=min(lin_config.m_max,
+                                                      ROUTE_CHECK_M))
+    kern = fused_lin.rt_solve_multitangent(lin_slice[0], slice_tans, cut,
+                                           dev)
     plain = rt_solve_jvp(lin_slice[0], slice_tans,
-                         dataclasses.replace(lin_slice[1], fused=False), dev)
+                         dataclasses.replace(cut, fused=False), dev)
     e_route = [rel(kern[0], plain[0])] + [rel(kern[2][q], plain[2][q])
                                           for q in range(n_par)]
-    print(f"Jacobian kernel route vs plain jvp route (nSpec={LIN_SLICE}): "
+    print(f"Jacobian kernel route vs plain jvp route (nSpec={LIN_SLICE}, "
+          f"m=0..{cut.m_max}): "
           f"R={e_route[0]:.2e} dR per parameter "
           + " ".join(f"{e:.2e}" for e in e_route[1:])
           + f"; dT={rel(kern[3], plain[3]):.2e}", flush=True)
@@ -3322,6 +3827,7 @@ def main():
     phase(surfaces_phase, dev, smi)
     phase(entries_4d_phase, dev, smi)
     phase(sharding_phase, dev, smi)
+    wide_entries = phase(wide_phase, dev, smi)
     print(json.dumps({"card": smi, "phases_s": phases_s}), flush=True)
     print(f"chip_smoke.py: {time.perf_counter() - script_t0:.1f} s, the "
           "kernels' build included", flush=True)
@@ -3355,7 +3861,7 @@ def main():
         "bound_ms": k2_bound,
         "bound_by": "operations" if k2_ops >= k2_mem else "bytes",
         "library_ms": None}, k1p_entry, k5_entry, k4_entry,
-        *probe_entries]}),
+        *probe_entries, *wide_entries]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -142,7 +142,8 @@ def test_band_kernel_launch_shape_is_the_c_side_s(cuda, N):
         assert min(blocks) >= 1, blocks
         if N == 52:
             assert blocks == (2, 2), blocks
-    assert lib.vsm_fused_moment_blocks_per_sm(65, 1) < 0
+    # N = 84 takes a cluster (the single block's launch refuses it).
+    assert lib.vsm_fused_moment_blocks_per_sm(84, 1) < 0
     assert k5.vsm_fused_doubling_blocks_per_sm(52, 3) < 0
 
 
@@ -440,10 +441,11 @@ def test_mt_kernel_matches_plain_version(cuda, scene, N):
 
 def test_mt_kernel_shared_memory_fits_at_k2(cuda):
     """The C side's shared memory of a block is the host plan's at every
-    width and source count the kernel takes, and the K = 2 layout at the
+    width and source count the kernel takes (the wide plan's from the
+    launch plan above N = 52), and the K = 2 layout at the narrow plan's
     widest N stays inside the 232,448 B a block may opt in to."""
     from vsmartmom_tpu_torch.ops import cuda_build
-    from vsmartmom_tpu_torch.ops.fused_lin import mt_plan
+    from vsmartmom_tpu_torch.ops.fused_lin import mt_launch_info, mt_plan
     fn = cuda_build.load("fused_lin").vsm_fused_moment_mt_smem_bytes
     fn.restype = ctypes.c_size_t
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -451,6 +453,10 @@ def test_mt_kernel_shared_memory_fits_at_k2(cuda):
         for K in (1, 2):
             assert fn(N, K) == mt_plan(N, K, 8)["smem"] <= 232448, (N, K)
     assert fn(52, 2) == 222768
+    for N in range(53, 129):
+        for K in (1, 2):
+            assert mt_launch_info(N, K, 8)["smem"] == \
+                mt_plan(N, K, 8)["smem"], (N, K)
 
 
 @pytest.mark.parametrize("P", [1, 3, 8, 11])
@@ -535,7 +541,7 @@ def test_mt_launch_refuses_a_foreign_plan(cuda, monkeypatch, case):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("shape", "shape"), ("K3", "K <= 2"), ("wide", "N <= 52")])
+    ("shape", "shape"), ("K3", "K <= 2"), ("wide", "N <= 128")])
 def test_mt_wrapper_refuses_before_building(cuda, monkeypatch, case, match):
     from vsmartmom_tpu_torch.ops import cuda_build, fused_lin
     inputs, config, tangents = _lin_setup(cuda, "small")
@@ -546,7 +552,7 @@ def test_mt_wrapper_refuses_before_building(cuda, monkeypatch, case, match):
     elif case == "K3":
         ops = ops._replace(j0_p=torch.cat([ops.j0_p] * 3, dim=-1))
     else:
-        ops = ops._replace(Em1=torch.zeros(ops.Em1.shape[:2] + (56,),
+        ops = ops._replace(Em1=torch.zeros(ops.Em1.shape[:2] + (132,),
                                            device=cuda))
 
     def no_build(name):
@@ -601,11 +607,12 @@ def test_fused_thermal_rt_run_lin_matches_jvp_path(cuda):
             2e-4 * np.abs(dR0[..., q]).max(), q
 
 
-def test_wide_scene_takes_the_jvp_route_on_the_card(cuda):
-    """A scene wider than K2 takes (N = 60: K1 takes it, so build_band
-    picks the band path) with the strategy left automatic: rt_run_lin
-    warns, launches no kernel, and equals the jvp route (the same
-    operations on the same card: 1e-6)."""
+def test_wide_scene_takes_the_jvp_route_on_the_card(cuda, monkeypatch):
+    """A scene wider than K2 takes (K2's limit set to 52 below the scene's
+    N = 60; K1 takes it, so build_band picks the band path) with the
+    strategy left automatic: rt_run_lin warns, launches no kernel, and
+    equals the jvp route (the same operations on the same card: 1e-6).
+    K1 and K2 take the same widths, so only a lowered limit shows it."""
     from vsmartmom_tpu_torch import (Parameters, SurfaceDescriptor,
                                      model_from_parameters)
     from vsmartmom_tpu_torch.core.linearization import (build_tangent_inputs,
@@ -621,6 +628,7 @@ def test_wide_scene_takes_the_jvp_route_on_the_card(cuda):
         vaz=[30.0, 150.0], obs_alt=0.0, T=np.array([250.0, 280.0]),
         p=np.array([300.0, 700.0, 1013.0]), depol=0.0,
         float_type=np.float32))
+    monkeypatch.setattr(fused_lin, "KERNEL_MAX_N", 52)
     before = (fused_lin.fused_moment_multitangent.launches,
               fused_band.fused_moment.launches)
     with pytest.warns(UserWarning, match="N = 60"):
@@ -1481,3 +1489,100 @@ def test_thick_layer_k1_matches_the_plain_path(cuda):
     for k in ("R", "T"):
         assert torch.isfinite(kern[k]).all() and torch.isfinite(plain[k]).all()
         assert _rel(kern[k], plain[k]) <= GATE, k
+
+
+# ---- wide scenes (53 <= N <= 128): the cluster kernels ----
+
+
+@pytest.mark.parametrize("N", [64, 65, 68, 76, 84, 104, 128])
+@pytest.mark.parametrize("K", [1, 2])
+def test_band_cluster_plan_is_the_c_launch(cuda, N, K):
+    """K1's host plan (``band_cluster_plan``) is the C side's, and the card
+    holds at least one block or cluster of it."""
+    from vsmartmom_tpu_torch.ops import fused_band
+    plan = fused_band.band_cluster_plan(N, K)
+    info = fused_band.band_cluster_info(N, K)
+    for key in ("cluster", "band", "threads", "smem"):
+        assert info[key] == plan[key], key
+    assert info["resident"] >= 1
+
+
+@pytest.mark.parametrize("N,K", [(65, 1), (84, 1), (84, 2), (104, 1),
+                                 (128, 1), (128, 2)])
+def test_wide_band_kernel_matches_plain_version(cuda, N, K):
+    """K1 past the single block (and at N = 65 in it) against its plain
+    version at every moment up to m_scat of the flagship's column cut to 3
+    layers and 64 points (``flagship.wide_check_model``), within 1e-4 and
+    within 2x of the f32 plain version's distance from f64; the cluster
+    launches counted."""
+    from vsmartmom_tpu_torch.core.solver import band_moment_args
+    from vsmartmom_tpu_torch.flagship import wide_check_model
+    from vsmartmom_tpu_torch.ops import fused_band
+    inputs, config = wide_check_model(N, thermal=K == 2).build_band(
+        0, device=cuda)
+    assert config.fused and config.N == N and config.n_sources == K
+    clustered = fused_band.band_cluster_plan(N, K)["cluster"] > 1
+    for m in range(config.m_scat + 1):
+        args, kw = band_moment_args(inputs, config, m, cuda)
+        before = fused_band._launch_cluster.launches
+        out = fused_band.fused_moment(*args, **kw)
+        torch.cuda.synchronize()
+        assert fused_band._launch_cluster.launches == before + clustered
+        ref = fused_band.moment_reference(*args, **kw)
+        for a, b in zip(out, ref):
+            assert torch.isfinite(a).all() and _rel(a, b) <= GATE
+        kernel, plain = _band_f64_errors(args, kw, out, ref)
+        assert kernel <= 2.0 * plain, (m, kernel, plain)
+
+
+@pytest.mark.parametrize("N,K", [(53, 1), (84, 1), (84, 2), (128, 1)])
+def test_wide_mt_kernel_matches_plain_version(cuda, N, K):
+    """K2 (K1' at K = 2) on its wide plan against its plain version at
+    moments 0 and 1, all 8 tangents of the aerosol flagship's column cut
+    to 3 layers and 64 points: primal <= 1e-4, each parameter's tangents
+    <= 2e-4 of its max; the host plan the C side's."""
+    from vsmartmom_tpu_torch.core.linearization import (build_tangent_inputs,
+                                                        default_layout)
+    from vsmartmom_tpu_torch.flagship import wide_check_model
+    from vsmartmom_tpu_torch.ops import fused_lin
+    model = wide_check_model(N, aerosol=True, thermal=K == 2)
+    inputs, config, tangents = build_tangent_inputs(
+        model, 0, default_layout(model), device=cuda)
+    assert config.fused and config.N == N and len(tangents) == 8
+    plan = fused_lin.mt_plan(N, K, 8)
+    info = fused_lin.mt_launch_info(N, K, 8)
+    assert plan["wide"] and all(info[k] == plan[k] for k in (
+        "cluster", "groups", "threads", "smem", "tiles"))
+    outs, refs = [], []
+    for m in (0, 1):
+        args = fused_lin.multitangent_args(inputs, tangents, config, m, cuda)
+        before = fused_lin._launch_wide.launches
+        outs.append(fused_lin.fused_moment_multitangent(*args))
+        torch.cuda.synchronize()
+        assert fused_lin._launch_wide.launches == before + 1
+        refs.append(fused_lin.moment_multitangent_reference(*args))
+    e_prim, e_tan = _mt_errors(outs, refs)
+    assert e_prim <= GATE and max(e_tan) <= 2e-4, (e_prim, e_tan)
+
+
+def test_wide_scenes_take_the_kernel_routes(cuda):
+    """At N = 84 an f32 model on the card takes K1 (rt_run) and K2
+    (rt_run_lin) without a width warning, each launched once a moment up
+    to m_scat on its cluster plan."""
+    import warnings
+    from vsmartmom_tpu_torch import rt_run, rt_run_lin
+    from vsmartmom_tpu_torch.flagship import wide_check_model
+    from vsmartmom_tpu_torch.ops import fused_band, fused_lin
+    model = wide_check_model(84, n_spec=16, aerosol=True)
+    _, config = model.build_band(0, device=cuda)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        before = fused_band._launch_cluster.launches
+        R, T = rt_run(model, device=cuda)
+        assert fused_band._launch_cluster.launches - before == \
+            config.m_scat + 1
+        before = fused_lin._launch_wide.launches
+        out = rt_run_lin(model, device=cuda)
+        assert fused_lin._launch_wide.launches - before == config.m_scat + 1
+    assert np.isfinite(R).all() and all(np.isfinite(x).all() for x in out)
+    assert np.abs(out[0] - R).max() <= GATE * np.abs(R).max()

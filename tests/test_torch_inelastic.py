@@ -304,13 +304,13 @@ def test_fscatt_counts_aerosols():
 
 
 def test_wide_scene_takes_the_plain_rrs_route(monkeypatch):
-    """K3 takes K1's widths (N <= 64) with the strategy left automatic (the
-    automatic choice made as on the card, ``types.auto_kernel``): a scene
-    of N = 39 runs the kernel route with no warning, equal to an explicit
+    """K3 takes N <= 64 with the strategy left automatic (the automatic
+    choice made as on the card, ``types.auto_kernel``): a scene of N = 39
+    runs the kernel route with no warning, equal to an explicit
     fused=True run (on the CPU the route runs the plain K1 and K3); a
-    scene of N = 66 warns, naming K1, its limit and N, and runs the plain
-    rt_solve_rrs, equal to an explicit fused=False run. K3's own guard
-    warns above 64 as K1's does."""
+    scene of N = 66, which K1 takes (N <= 128), warns, naming K3, its
+    limit and N, and runs the plain rt_solve_rrs, equal to an explicit
+    fused=False run. K3's own guard warns above 64."""
     import warnings
     from vsmartmom_tpu_torch.core import model as model_mod
     from vsmartmom_tpu_torch.core.inelastic import rt_run_inelastic
@@ -333,7 +333,7 @@ def test_wide_scene_takes_the_plain_rrs_route(monkeypatch):
     for a, b in zip(out, rt_run_inelastic(wide(10, fused=True),
                                           device="cpu")):
         assert np.array_equal(a, b)
-    with pytest.warns(UserWarning, match=r"K1 .* N <= 64; this scene has "
+    with pytest.warns(UserWarning, match=r"K3 .* N <= 64; this scene has "
                                          r"N = 66"):
         out = rt_run_inelastic(wide(19), device="cpu")
     for a, b in zip(out, rt_run_inelastic(wide(19, fused=False),

@@ -271,17 +271,17 @@ def mt_cpu_operands():
 
 
 @pytest.mark.parametrize("case,match", [
-    ("K3", "K <= 2"), ("wide", "N <= 52"), ("shape", "shape"),
+    ("K3", "K <= 2"), ("wide", "N <= 128"), ("shape", "shape"),
     ("f64", "float32"), ("cpu", "CUDA")])
 def test_mt_kernel_wrapper_refuses(mt_cpu_operands, case, match):
-    """K2 takes K <= 2, N <= 52, f32 tensors of matching shapes on one CUDA
-    device; its launcher refuses anything else before it builds."""
+    """K2 takes K <= 2, N <= 128, f32 tensors of matching shapes on one
+    CUDA device; its launcher refuses anything else before it builds."""
     from vsmartmom_tpu_torch.ops.fused_lin import _launch_kernel
     ops, dops, sched, ns_inter = mt_cpu_operands
     if case == "K3":
         ops = ops._replace(j0_p=torch.cat([ops.j0_p] * 3, dim=-1))
     elif case == "wide":
-        ops = ops._replace(Em1=torch.zeros(ops.Em1.shape[:2] + (56,)))
+        ops = ops._replace(Em1=torch.zeros(ops.Em1.shape[:2] + (132,)))
     elif case == "shape":
         dops = dops._replace(ek=dops.ek[:1].contiguous())
     elif case == "f64":

@@ -407,16 +407,20 @@ def test_stored_lin_reference_is_current(jax_lin, scene, path):
 
 
 def test_wide_scene_takes_the_jvp_route(monkeypatch):
-    """A scene wider than K2 takes (52 < N <= 64: K1 takes it, so the band
-    path is picked) with the strategy left automatic: rt_run_lin warns,
-    naming K2, its limit and N, and runs the jvp route, equal to an
-    explicit fused=False run. The automatic choice is made as on the card
-    (``types.auto_kernel``); on the CPU the kernel route would run the
-    plain K2, which differs from the jvp route in rounding."""
+    """A scene wider than K2 takes, which K1 takes (so the band path is
+    picked), with the strategy left automatic: rt_run_lin warns, naming
+    K2, its limit and N, and runs the jvp route, equal to an explicit
+    fused=False run. K1 and K2 take the same widths (N <= 128), so the
+    choice shows only with K2's limit set below the scene's N = 60. The
+    automatic choice is made as on the card (``types.auto_kernel``); on
+    the CPU the kernel route would run the plain K2, which differs from
+    the jvp route in rounding."""
     from vsmartmom_tpu_torch import rt_run_lin
     from vsmartmom_tpu_torch.core import model as model_mod
+    from vsmartmom_tpu_torch.ops import fused_lin
     model = _wide_model()
     monkeypatch.setattr(model_mod, "auto_kernel", lambda dev, ft: True)
+    monkeypatch.setattr(fused_lin, "KERNEL_MAX_N", 52)
     with pytest.warns(UserWarning, match=r"K2 .* N <= 52; this scene has "
                                          r"N = 60"):
         out = rt_run_lin(model, device="cpu")

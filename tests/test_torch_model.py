@@ -136,8 +136,8 @@ def test_model_accessors_match_jax():
 
 
 def _wide_model(fused=None):
-    """A Rayleigh column over a 0.1-albedo floor, IQUV at nstreams 14
-    (N = 68 with the sun's and view nodes: wider than K1 takes), 2 layers,
+    """A Rayleigh column over a 0.1-albedo floor, IQUV at nstreams 30
+    (N = 132 with the sun's and view nodes: wider than K1 takes), 2 layers,
     2 points, f32."""
     from vsmartmom_tpu_torch import (Parameters, SurfaceDescriptor,
                                      model_from_parameters)
@@ -145,14 +145,14 @@ def _wide_model(fused=None):
     return model_from_parameters(Parameters(
         spec_bands=[np.array([13000.0, 13000.5])],
         surfaces=[SurfaceDescriptor("LambertianSurfaceScalar", [0.1])],
-        nstreams=14, polarization=STOKES_IQUV, sza=40.0, vza=[10.0, 45.0],
+        nstreams=30, polarization=STOKES_IQUV, sza=40.0, vza=[10.0, 45.0],
         vaz=[30.0, 150.0], obs_alt=0.0, T=np.array([250.0, 280.0]),
         p=np.array([300.0, 700.0, 1013.0]), depol=0.0,
         float_type=np.float32, fused=fused))
 
 
 def test_wide_scene_takes_the_plain_route(monkeypatch):
-    """A scene wider than K1 takes (N > 64) with the strategy left
+    """A scene wider than K1 takes (N > 128) with the strategy left
     automatic: build_band warns, naming K1, its limit and N, and picks the
     plain path, so rt_run equals an explicit fused=False run. The
     automatic choice is made as on the card (``types.auto_kernel``); on the
@@ -162,10 +162,10 @@ def test_wide_scene_takes_the_plain_route(monkeypatch):
     from vsmartmom_tpu_torch.core import model as model_mod
     monkeypatch.setattr(model_mod, "auto_kernel", lambda dev, ft: True)
     model = _wide_model()
-    with pytest.warns(UserWarning, match=r"K1 .* N <= 64; this scene has "
-                                         r"N = 68"):
+    with pytest.warns(UserWarning, match=r"K1 .* N <= 128; this scene has "
+                                         r"N = 132"):
         _, config = model.build_band(0, device="cpu")
-    assert not config.fused and config.N == 68
+    assert not config.fused and config.N == 132
     with pytest.warns(UserWarning, match="K1"):
         out = rt_run(model, device="cpu")
     for a, b in zip(out, rt_run(_wide_model(fused=False), device="cpu")):

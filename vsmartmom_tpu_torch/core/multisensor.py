@@ -29,9 +29,12 @@ couples the two by the bichromatic product rule (``ie_interlayer_flux``).
 It runs plain torch on the device, as the JAX package runs XLA.
 """
 
+from dataclasses import replace as dc_replace
+
 import numpy as np
 import torch
 
+from ..ops import fused_rt
 from .inelastic import (IEAdded, IEComposite, _B, _Bv, _L, _Lv,
                         _added_layer_rs, _mv, _roll0, _roll_all, _rs_column,
                         _solve_eye, _surface_rs, _weigh, ie_interaction,
@@ -39,8 +42,8 @@ from .inelastic import (IEAdded, IEComposite, _B, _Bv, _L, _Lv,
 from .kernels import (AddedLayer, CompositeLayer, identity_composite,
                       interaction)
 from .solver import _make_added_layer, _surface_layer
-from .types import (SolverConfig, SolverInputs, resolve_device,
-                    stokes_d_vector)
+from .types import (SolverConfig, SolverInputs, kernel_takes_width,
+                    resolve_device, stokes_d_vector)
 
 
 def interaction_prepend(add: AddedLayer, comp: CompositeLayer
@@ -143,9 +146,17 @@ def rt_run_ms(model, sensor_levels, i_band: int = 0, device=None):
     sensor_levels: ints in [0, Nz], the number of layers above each sensor
     (0 = TOA, Nz = BOA). Returns (uwJ, dwJ) numpy arrays, each (n_sensors,
     nVZA, n_stokes, nSpec). Runs on CUDA unless ``device`` is given; an f32
-    model on CUDA takes the kernel route (K5 for each moment's layers)."""
+    model on CUDA takes the kernel route (K5 for each moment's layers). A
+    scene that K1 takes but K5 does not (N > ``ops.fused_rt.KERNEL_MAX_N``)
+    runs the LU ladder instead, with one warning, when
+    ``model.params.fused`` was left at None (an explicit True still
+    launches, and K5 refuses)."""
     dev = resolve_device(device)
     inputs, config = model.build_band(i_band, device=dev)
+    if config.fused and model.params.fused is None and not \
+            kernel_takes_width("K5 (csrc/fused_rt.cu)",
+                               fused_rt.KERNEL_MAX_N, config.N):
+        config = dc_replace(config, fused=False)
     levels = tuple(int(v) for v in sensor_levels)
     for v in levels:
         if not 0 <= v <= config.nz:

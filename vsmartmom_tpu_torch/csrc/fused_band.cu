@@ -39,12 +39,22 @@
 // is computed as D (D t-- D + t-- (D Ru)), the same products up to sign).
 // Tensor cores (3xTF32, after a solver-level parity run), wgmma and TMA
 // are later work.
+//
+// Wide operators. The single block holds the chain while its shared memory
+// fits the opt-in (N <= 74 at K = 2, N <= 75 at K = 1); a wider scene (up
+// to N = 128) runs cluster_band::cluster_kernel<K, false>
+// (csrc/cluster_band.cuh): the chain's operators cut by rows across a
+// thread-block cluster of 2, 4 or 8 blocks, one cluster a spectral point.
+// vsm_band_cluster_plan gives the plan (cluster, rows of a band, threads,
+// shared bytes); ops/fused_band.py::band_cluster_plan computes the same on
+// the host, and the card tests hold the two against each other.
 
 #include <cuda_runtime.h>
 
+#include "cluster_band.cuh"
 #include "fp32_tile.cuh"
 
-#define VSM_MAX_N 64
+#define VSM_MAX_N VSM_CB_MAX_N
 #define VSM_MAX_K 2
 #define VSM_MAX_DOUBL 32
 #define VSM_NMAT 10
@@ -210,6 +220,33 @@ size_t smem_floats(int N, int K) {
          static_cast<size_t>(VSM_NVEC) * VS + LD;
 }
 
+// The launch plan of (N, K): one block a point (cluster 1) while its
+// shared memory fits, else the smallest cluster of 2, 4 or 8 blocks whose
+// row bands fit. False for N or K out of range.
+struct BandPlan {
+  int cluster, band, threads;
+  size_t smem;
+};
+
+bool band_plan(int N, int K, BandPlan* p) {
+  if (N < 1 || N > VSM_MAX_N || K < 1 || K > VSM_MAX_K) return false;
+  const size_t one = smem_floats(N, K) * sizeof(float);
+  if (one <= VSM_CB_SMEM_BUDGET) {
+    *p = BandPlan{1, N, VSM_THREADS, one};
+    return true;
+  }
+  const int c = cluster_band::cluster_size(N, K, false, 2);
+  if (c == 0) return false;
+  *p = BandPlan{c, cluster_band::band_rows(N, c), VSM_CB_THREADS,
+                cluster_band::smem_bytes(N, K, c, false)};
+  return true;
+}
+
+bool single_block(int N, int K) {
+  BandPlan p;
+  return band_plan(N, K, &p) && p.cluster == 1;
+}
+
 template <int K>
 int launch(const Args& a, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -242,25 +279,51 @@ size_t vsm_fused_moment_smem_bytes(int N, int K) {
   return smem_floats(N, K) * sizeof(float);
 }
 
-// Threads of a block of the launch (the same at every N and K).
+// Threads of a block of the single-block launch (the same at every N, K).
 int vsm_fused_moment_threads() { return VSM_THREADS; }
 
-// Blocks of the launch at (N, K) resident on one SM
+// Blocks of the single-block launch at (N, K) resident on one SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a CUDA error
-// code.
+// code (cudaErrorInvalidValue where (N, K) takes a cluster).
 int vsm_fused_moment_blocks_per_sm(int N, int K) {
-  if (N < 1 || N > VSM_MAX_N || K < 1 || K > VSM_MAX_K)
-    return -static_cast<int>(cudaErrorInvalidValue);
+  if (!single_block(N, K)) return -static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = vsm_fused_moment_smem_bytes(N, K);
   return K == 1 ? resident<1>(smem) : resident<2>(smem);
 }
 
 const char* vsm_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return cluster_band::error_string(code);
 }
 
-// Launches the band kernel on `stream` and returns cudaGetLastError() (0 on
-// success). All pointers are device pointers except `sched` (host, ndoubl
+// The plan of (N, K): info = {cluster, rows of a band, threads, dynamic
+// shared bytes, and what is resident at once: blocks an SM for the single
+// block, clusters on the card (cudaOccupancyMaxActiveClusters) for a
+// cluster}. Returns a CUDA error code.
+int vsm_band_cluster_plan(int N, int K, int* info) {
+  BandPlan p;
+  if (!band_plan(N, K, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  info[0] = p.cluster;
+  info[1] = p.band;
+  info[2] = p.threads;
+  info[3] = static_cast<int>(p.smem);
+  if (p.cluster == 1) {
+    info[4] = vsm_fused_moment_blocks_per_sm(N, K);
+    return info[4] < 0 ? -info[4] : 0;
+  }
+  cluster_band::Args a = {};
+  a.s = 1;
+  a.P = 1;
+  a.N = N;
+  a.cluster = p.cluster;
+  a.band = p.band;
+  return K == 1
+             ? cluster_band::max_clusters<1, false>(a, p.smem, &info[4])
+             : cluster_band::max_clusters<2, false>(a, p.smem, &info[4]);
+}
+
+// Launches the single-block band kernel on `stream` and returns
+// cudaGetLastError() (0 on success); refuses an (N, K) whose plan is a
+// cluster. All pointers are device pointers except `sched` (host, ndoubl
 // entries).
 int vsm_fused_moment_f32(const float* Zpp, const float* Zmp, const float* geom,
                          const float* dvec, const float* w, const float* Em1,
@@ -269,8 +332,8 @@ int vsm_fused_moment_f32(const float* Zpp, const float* Zmp, const float* geom,
                          float* Tmm, float* Jp, float* Jm, int s, int N,
                          int C, int K, int nz, int ndoubl, const int* sched,
                          int ns_inter, void* stream) {
-  if (N < 1 || N > VSM_MAX_N || K < 1 || K > VSM_MAX_K || C < 1 || s < 0 ||
-      nz < 0 || ndoubl < 0 || ndoubl > VSM_MAX_DOUBL || ns_inter < 0)
+  if (!single_block(N, K) || C < 1 || s < 0 || nz < 0 || ndoubl < 0 ||
+      ndoubl > VSM_MAX_DOUBL || ns_inter < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.Zpp = Zpp;
@@ -299,6 +362,52 @@ int vsm_fused_moment_f32(const float* Zpp, const float* Zmp, const float* geom,
   const size_t smem = vsm_fused_moment_smem_bytes(N, K);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return K == 1 ? launch<1>(a, smem, st) : launch<2>(a, smem, st);
+}
+
+// Launches the cluster band kernel (cluster_band::cluster_kernel<K, false>)
+// on `stream` on band_plan's plan for (N, K), which must be a cluster of 2
+// or more: 0, a CUDA error code, or VSM_CB_NO_CLUSTER.
+int vsm_fused_moment_cluster_f32(
+    const float* Zpp, const float* Zmp, const float* geom, const float* dvec,
+    const float* w, const float* Em1, const float* dt, const float* jp,
+    const float* jms, const float* ek, float* Rmp, float* Rpm, float* Tpp,
+    float* Tmm, float* Jp, float* Jm, int s, int N, int C, int K, int nz,
+    int ndoubl, const int* sched, int ns_inter, void* stream) {
+  BandPlan p;
+  if (!band_plan(N, K, &p) || p.cluster < 2 || C < 1 || s < 0 || nz < 0 ||
+      ndoubl < 0 || ndoubl > VSM_MAX_DOUBL || ns_inter < 0 ||
+      static_cast<long long>(s) * p.cluster > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cluster_band::Args a = {};
+  a.Zpp = Zpp;
+  a.Zmp = Zmp;
+  a.geom = geom;
+  a.dvec = dvec;
+  a.w = w;
+  a.Em1 = Em1;
+  a.dt = dt;
+  a.jp = jp;
+  a.jms = jms;
+  a.ek = ek;
+  a.Rmp = Rmp;
+  a.Rpm = Rpm;
+  a.Tpp = Tpp;
+  a.Tmm = Tmm;
+  a.Jp = Jp;
+  a.Jm = Jm;
+  a.s = s;
+  a.N = N;
+  a.C = C;
+  a.nz = nz;
+  a.P = 1;
+  a.ndoubl = ndoubl;
+  a.ns_inter = ns_inter;
+  a.cluster = p.cluster;
+  a.band = p.band;
+  for (int i = 0; i < VSM_MAX_DOUBL; ++i) a.sched[i] = i < ndoubl ? sched[i] : 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return K == 1 ? cluster_band::launch<1, false>(a, p.smem, st)
+                : cluster_band::launch<2, false>(a, p.smem, st);
 }
 
 }  // extern "C"

@@ -94,9 +94,22 @@
 // tangent of the same step reads before it) rides in the next phase that
 // touches neither jp nor its operands: the next step's S = r r, or the first
 // adding phase.
+//
+// Wide operators (53 <= N <= 128). Twenty operators no longer fit a block,
+// so the plan changes: one cluster per (spectral point, tangent), each of
+// c = 2, 4 or 8 blocks (the smallest whose row bands fit), runs
+// cluster_band::cluster_kernel<K, true> (csrc/cluster_band.cuh): the
+// primal chain and that one tangent chain, both cut by rows across the
+// cluster, the same algebra as below on K1's banded phases. The primal is
+// recomputed once per tangent: 3P primal moments of work a point, against
+// G + 2P here. make_plan gives that plan for N > VSM_MAX_N, and the launch
+// runs it as it stands (ops/fused_lin.py, mt_plan, computes the same on
+// the host).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "cluster_band.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -160,6 +173,8 @@ struct Plan {
   int threads;
   int tiles;     // 4 x 8 tiles of one N x N product
   size_t smem;   // dynamic shared memory of a block (bytes)
+  bool wide;     // the cluster_band kernel: one cluster a tangent
+  int band;      // rows of a rank's band (wide)
 };
 
 __host__ __device__ constexpr int ceil_div(int a, int b) {
@@ -180,13 +195,25 @@ size_t smem_floats(int N, int K) {
 
 // The plan of (N, K, P).
 bool make_plan(int N, int K, int P, Plan* p) {
-  if (N < 1 || N > VSM_MAX_N || K < 1 || K > VSM_MAX_K || P < 1)
+  if (N < 1 || N > VSM_CB_MAX_N || K < 1 || K > VSM_MAX_K || P < 1)
     return false;
+  p->tiles = ceil_div(N, 4) * col_tiles(N);
+  if (N > VSM_MAX_N) {
+    p->cluster = cluster_band::cluster_size(N, K, true, 1);
+    if (p->cluster == 0) return false;
+    p->groups = P;
+    p->threads = VSM_CB_THREADS;
+    p->smem = cluster_band::smem_bytes(N, K, p->cluster, true);
+    p->wide = true;
+    p->band = cluster_band::band_rows(N, p->cluster);
+    return true;
+  }
   p->groups = ceil_div(P, VSM_CLUSTER);
   p->cluster = ceil_div(P, p->groups);
   p->threads = VSM_THREADS;
-  p->tiles = ceil_div(N, 4) * col_tiles(N);
   p->smem = smem_floats(N, K) * sizeof(float);
+  p->wide = false;
+  p->band = N;
   return true;
 }
 
@@ -965,7 +992,7 @@ size_t vsm_fused_moment_mt_smem_bytes(int N, int K) {
 }
 
 const char* vsm_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return cluster_band::error_string(code);
 }
 
 // The launch plan of (N, K, P): info = {cluster, groups, threads, dynamic
@@ -980,6 +1007,16 @@ int vsm_fused_moment_mt_info(int N, int K, int P, int* info) {
   info[2] = p.threads;
   info[3] = static_cast<int>(p.smem);
   info[4] = p.tiles;
+  if (p.wide) {
+    cluster_band::Args a = {};
+    a.s = 1;
+    a.P = 1;
+    a.N = N;
+    a.cluster = p.cluster;
+    a.band = p.band;
+    return K == 1 ? cluster_band::max_clusters<1, true>(a, p.smem, &info[5])
+                  : cluster_band::max_clusters<2, true>(a, p.smem, &info[5]);
+  }
   const Kernel kernel = kernel_of(K);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -993,12 +1030,14 @@ int vsm_fused_moment_mt_info(int N, int K, int P, int* info) {
   return static_cast<int>(err);
 }
 
-// Launches K2 on `stream` and returns cudaGetLastError() (0 on success).
-// All pointers are device pointers except `sched` (host, ndoubl entries)
-// and `plan` (host: the caller's {cluster c, groups, dynamic shared bytes},
-// which must be make_plan's, then its c + 1 tile, c + 1 source-element and
-// c + 1 row bounds of the ranks' primal slabs, each running from 0 up to
-// the tiles of a product, N K and N, never down).
+// Launches K2 on `stream` and returns cudaGetLastError() (0 on success),
+// or for a wide plan cluster_band::launch's code. All pointers are device
+// pointers except `sched` (host, ndoubl entries) and `plan` (host, read
+// only for a narrow plan: the caller's {cluster c, groups, dynamic shared
+// bytes}, which must be make_plan's, then its c + 1 tile, c + 1
+// source-element and c + 1 row bounds of the ranks' primal slabs, each
+// running from 0 up to the tiles of a product, N K and N, never down; a
+// wide plan runs make_plan's own, and `plan` may be null).
 int vsm_fused_moment_mt_f32(
     const float* Zpp, const float* Zmp, const float* geom, const float* dvec,
     const float* w, const float* Em1, const float* dt, const float* jp,
@@ -1011,9 +1050,59 @@ int vsm_fused_moment_mt_f32(
     void* stream) {
   Plan p;
   if (!make_plan(N, K, P, &p) || C < 1 || s < 0 || nz < 0 || ndoubl < 0 ||
-      ndoubl > VSM_MAX_DOUBL || ns_inter < 0 || plan[0] != p.cluster ||
-      plan[1] != p.groups || plan[2] != static_cast<int>(p.smem) ||
+      ndoubl > VSM_MAX_DOUBL || ns_inter < 0 ||
       static_cast<long long>(s) * p.cluster * p.groups > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p.wide) {
+    const int c = p.cluster;
+    cluster_band::Args b = {};
+    b.Zpp = Zpp;
+    b.Zmp = Zmp;
+    b.geom = geom;
+    b.dvec = dvec;
+    b.w = w;
+    b.Em1 = Em1;
+    b.dt = dt;
+    b.jp = jp;
+    b.jms = jms;
+    b.ek = ek;
+    b.dZpp = dZpp;
+    b.dZmp = dZmp;
+    b.dw = dw;
+    b.dEm1 = dEm1;
+    b.ddt = ddt;
+    b.djp = djp;
+    b.djms = djms;
+    b.dek = dek;
+    b.Rmp = Rmp;
+    b.Rpm = Rpm;
+    b.Tpp = Tpp;
+    b.Tmm = Tmm;
+    b.Jp = Jp;
+    b.Jm = Jm;
+    b.tRmp = tRmp;
+    b.tRpm = tRpm;
+    b.tTpp = tTpp;
+    b.tTmm = tTmm;
+    b.tJp = tJp;
+    b.tJm = tJm;
+    b.s = s;
+    b.N = N;
+    b.C = C;
+    b.nz = nz;
+    b.P = P;
+    b.ndoubl = ndoubl;
+    b.ns_inter = ns_inter;
+    b.cluster = c;
+    b.band = p.band;
+    for (int i = 0; i < VSM_MAX_DOUBL; ++i)
+      b.sched[i] = i < ndoubl ? sched[i] : 0;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return K == 1 ? cluster_band::launch<1, true>(b, p.smem, st)
+                  : cluster_band::launch<2, true>(b, p.smem, st);
+  }
+  if (plan[0] != p.cluster || plan[1] != p.groups ||
+      plan[2] != static_cast<int>(p.smem))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   const int c = p.cluster;

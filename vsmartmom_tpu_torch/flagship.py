@@ -48,7 +48,7 @@ import numpy as np
 from .core.model import (AbsorptionParams, Parameters, RTAerosol,
                          ScatteringParams, SurfaceDescriptor,
                          model_from_parameters)
-from .scattering.stokes import STOKES_IQU, STOKES_IQUV
+from .scattering.stokes import STOKES_I, STOKES_IQU, STOKES_IQUV
 from .solar import add_thermal_emission
 
 # ocean_coxmunk profile: layer temperatures [K] and half-level pressures [hPa]
@@ -102,12 +102,15 @@ def _flagship_aerosol(nu0):
 
 
 def flagship_model(n_spec=256, dtype=np.float32, nstreams=8,
-                   surface="coxmunk", nz=None, fused=None, aerosol=False):
+                   surface="coxmunk", nz=None, fused=None, aerosol=False,
+                   polarization=STOKES_IQUV):
     """RTModel of the flagship scene (``surface="lambertian"`` swaps the
     ocean for a 0.05-albedo Lambertian floor). ``fused`` overrides the
     execution strategy (None = the band kernel for f32 on CUDA).
     ``aerosol=True`` adds ``FLAGSHIP_AEROSOL``: 7 aerosol and 1 wind
-    Jacobian parameters."""
+    Jacobian parameters. Its width is N = n_stokes (nstreams + 5): the
+    sun's node and four distinct view cosines join the streams (N = 52 at
+    nstreams 8, IQUV; the wide flagship, nstreams 16, N = 84)."""
     if surface == "coxmunk":
         surf = SurfaceDescriptor("CoxMunkSurface", [], {"wind_speed": 5.0})
     else:
@@ -115,8 +118,46 @@ def flagship_model(n_spec=256, dtype=np.float32, nstreams=8,
     return model_from_parameters(Parameters(
         scattering_params=_flagship_aerosol(FLAGSHIP_NU0) if aerosol
         else None,
-        surfaces=[surf], polarization=STOKES_IQUV,
+        surfaces=[surf], polarization=polarization,
         **flagship_params(n_spec, dtype, nstreams, nz, fused)))
+
+
+#: Widths of the wide kernels' launch checks: N -> (Stokes vector,
+#: nstreams, views). Gauss streams come in pairs, so the flagship's nine
+#: views (the sun's node and four distinct view cosines join the streams:
+#: N = n_stokes (2 floor(nstreams / 2) + 5)) give odd node counts; the
+#: widths with an even count take one nadir view (two nodes join).
+WIDE_CHECK_STREAMS = {52: (STOKES_IQUV, 8, "flagship"),
+                      53: (STOKES_I, 48, "flagship"),
+                      64: (STOKES_IQUV, 14, "nadir"),
+                      65: (STOKES_I, 60, "flagship"),
+                      68: (STOKES_IQUV, 12, "flagship"),
+                      84: (STOKES_IQUV, 16, "flagship"),
+                      104: (STOKES_IQUV, 24, "nadir"),
+                      128: (STOKES_IQUV, 30, "nadir")}
+
+
+def wide_check_model(N, n_spec=64, nz=3, aerosol=False, thermal=False,
+                     dtype=np.float32):
+    """RTModel of the flagship's column and ocean cut to ``nz`` layers and
+    ``n_spec`` points at width N (``WIDE_CHECK_STREAMS``): the operands of
+    one kernel launch check. ``aerosol`` gives K2 its 8 parameters;
+    ``thermal`` adds each layer's Planck source (K = 2, uniform 0.1..1
+    from a seed, as the narrow K = 2 checks)."""
+    pol, nstreams, views = WIDE_CHECK_STREAMS[N]
+    kw = flagship_params(n_spec, dtype, nstreams, nz)
+    if views == "nadir":
+        kw.update(vza=[0.0], vaz=[0.0])
+    model = model_from_parameters(Parameters(
+        scattering_params=_flagship_aerosol(FLAGSHIP_NU0) if aerosol
+        else None,
+        surfaces=[SurfaceDescriptor("CoxMunkSurface", [],
+                                    {"wind_speed": 5.0})],
+        polarization=pol, **kw))
+    if thermal:
+        model.bands[0].thermal_b = np.random.default_rng(0).uniform(
+            0.1, 1.0, (model.profile.nz, n_spec))
+    return model
 
 
 def thermal_lin_model(n_spec=1024, dtype=np.float32, thermal=True):
@@ -362,7 +403,6 @@ def stellar_ref_model(mode="sol_RRS"):
     Stokes I, over a black Lambertian floor, the scattering depth
     ``STELLAR_REF_TAU`` split evenly over the layers (the H2 column); for
     sol_RRS the stellar spectrum ``stellar_f0_dip`` as ``f0_spec``."""
-    from .scattering.stokes import STOKES_I
     model = model_from_parameters(Parameters(
         surfaces=[SurfaceDescriptor("LambertianSurfaceScalar", [0.0])],
         polarization=STOKES_I, **stellar_ref_params(mode)))
@@ -993,20 +1033,23 @@ SURF_REF_N_SPEC, SURF_REF_NZ, SURF_REF_NSTREAMS = 8, 6, 3
 
 
 def radau_params(n_spec=1024, dtype=np.float32, nstreams=8,
-                 nz=None) -> Parameters:
+                 nz=None, polarization=STOKES_IQU) -> Parameters:
     """``Parameters`` of the flagship over Cox-Munk (wind 5) on Gauss-Radau
-    streams (``quadrature="RadauQuad"``: the solar cosine a weighted node),
-    IQU: at nstreams 8 Radau gives 14 nodes and the view angles three more,
-    17 nodes, N = 51 (68 at IQUV, above K1's 64)."""
+    streams (``quadrature="RadauQuad"``: the solar cosine a weighted node):
+    at nstreams 8 Radau gives 14 nodes and the view angles three more, 17
+    nodes, N = 51 at IQU and N = 68 at IQUV (the IQUV Radau flagship, a
+    wide scene that K1 still takes in one block a point)."""
     kw = flagship_params(n_spec, dtype, nstreams, nz)
     return Parameters(
         surfaces=[SurfaceDescriptor("CoxMunkSurface", [], {"wind_speed": 5.0})],
-        polarization=STOKES_IQU, quadrature="RadauQuad", **kw)
+        polarization=polarization, quadrature="RadauQuad", **kw)
 
 
-def radau_model(n_spec=1024, dtype=np.float32, nstreams=8, nz=None):
+def radau_model(n_spec=1024, dtype=np.float32, nstreams=8, nz=None,
+                polarization=STOKES_IQU):
     """RTModel of ``radau_params`` (a host build)."""
-    return model_from_parameters(radau_params(n_spec, dtype, nstreams, nz))
+    return model_from_parameters(radau_params(n_spec, dtype, nstreams, nz,
+                                              polarization))
 
 
 #: The exact single-scatter scenes: the flagship's geometry, a Rayleigh

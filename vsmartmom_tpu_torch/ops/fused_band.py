@@ -12,6 +12,11 @@ CUDA kernel ``csrc/fused_band.cu`` on CUDA tensors and runs
 CPU tensors. ``moment_reference`` is that plain version behind the
 wrapper's own signature.
 
+Widths: one block holds a point's chain while its shared memory fits the
+opt-in (N <= 74 at K = 2, 75 at K = 1); wider scenes, up to N = 128, run
+the cluster kernel of ``csrc/cluster_band.cuh``, each operator cut by rows
+across a cluster of 2, 4 or 8 blocks (``band_cluster_plan``).
+
 Left behind from the TPU kernel: the zflag operand and output-ref
 accumulator (the Pallas auto-JVP contract), the K = 1 squeezed HBM layout,
 vacuum-point padding to the sublane rule, pre-broadcast row tables and the
@@ -28,9 +33,97 @@ from ..core.kernels import _e_expm1, _expm1
 from .fused_rt import doubling_math, interaction_math, norm_sched
 
 #: Largest stream count N and source count K the CUDA kernel takes.
-KERNEL_MAX_N = 64
+KERNEL_MAX_N = 128
 KERNEL_MAX_K = 2
 KERNEL_MAX_DOUBL = 32
+#: Threads of a block: the single-block launch's and the cluster launch's
+#: (``VSM_THREADS`` of csrc/fused_band.cu, ``VSM_CB_THREADS`` of
+#: csrc/cluster_band.cuh).
+KERNEL_THREADS = 192
+CLUSTER_THREADS = 256
+#: Shared memory one block may opt in to on an H100 (bytes), and what a
+#: plan gives a block's dynamic shared memory: 1 KB less, room for the
+#: kernels' static shared tables (``VSM_CB_SMEM_BUDGET``).
+SMEM_OPT_IN = 232448
+SMEM_BUDGET = SMEM_OPT_IN - 1024
+
+
+def _ceil4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def single_smem_bytes(N: int, K: int) -> int:
+    """Dynamic shared bytes of the single-block launch: ten N x N operators
+    with rows padded to a float4, eight (N, K) vectors and the D diagonal
+    (csrc/fused_band.cu, smem_floats)."""
+    return 4 * (10 * N * _ceil4(N) + 8 * _ceil4(N * K) + _ceil4(N))
+
+
+def band_rows(N: int, c: int) -> int:
+    """Rows of a rank's band in a c-block cluster: a multiple of 4, so the
+    bands cut the row tiles whole (the last band may be short or empty)."""
+    return 4 * -(-N // (4 * c))
+
+
+def cluster_smem_bytes(N: int, K: int, c: int, tangents: bool = False) -> int:
+    """Dynamic shared bytes of a block of a c-block cluster
+    (csrc/cluster_band.cuh, smem_bytes): its band of ten operators (twenty
+    with a tangent chain), seven (fourteen) whole (N, K) vectors and two
+    (three) rows."""
+    return 4 * ((20 if tangents else 10) * band_rows(N, c) * _ceil4(N)
+                + (14 if tangents else 7) * _ceil4(N * K)
+                + (3 if tangents else 2) * _ceil4(N))
+
+
+def cluster_size(N: int, K: int, tangents: bool, first: int = 2) -> int:
+    """The smallest cluster in first, .., 8 (powers of 2) whose block fits
+    ``SMEM_BUDGET``, or 0."""
+    c = first
+    while c <= 8:
+        if cluster_smem_bytes(N, K, c, tangents) <= SMEM_BUDGET:
+            return c
+        c *= 2
+    return 0
+
+
+def band_cluster_plan(N: int, K: int) -> dict:
+    """K1's launch plan at width N and K source columns: ``cluster`` 1 (one
+    block a point, ``KERNEL_THREADS``) while the single block's shared
+    memory fits ``SMEM_BUDGET``, else the smallest cluster of 2, 4 or 8
+    blocks whose row bands fit (``CLUSTER_THREADS`` each); ``band`` rows a
+    rank, ``row_slab`` the bounds of each rank's rows, ``smem`` dynamic
+    bytes a block. csrc/fused_band.cu's ``band_plan`` makes the same
+    (``band_cluster_info``, which the card tests hold against this), and
+    the launch runs that one. Raises ValueError outside N 1..128, K
+    1..2."""
+    if not (1 <= N <= KERNEL_MAX_N and 1 <= K <= KERNEL_MAX_K):
+        raise ValueError(f"the kernel takes N <= {KERNEL_MAX_N} and "
+                         f"K <= {KERNEL_MAX_K}, got N={N}, K={K}")
+    one = single_smem_bytes(N, K)
+    if one <= SMEM_BUDGET:
+        c, band, threads, smem = 1, N, KERNEL_THREADS, one
+    else:
+        c = cluster_size(N, K, False)
+        band, threads = band_rows(N, c), CLUSTER_THREADS
+        smem = cluster_smem_bytes(N, K, c)
+    return {"cluster": c, "band": band, "threads": threads, "smem": smem,
+            "row_slab": [min(r * band, N) for r in range(c + 1)]}
+
+
+def band_cluster_info(N: int, K: int) -> dict:
+    """The C side's plan of (N, K) on the current card (builds the kernel):
+    cluster, band, threads, smem and ``resident``: blocks an SM for the
+    single block, clusters on the card at once
+    (``cudaOccupancyMaxActiveClusters``) for a cluster."""
+    from .cuda_build import load
+    lib = _bind(load("fused_band"))
+    info = (ctypes.c_int * 5)()
+    rc = lib.vsm_band_cluster_plan(N, K, info)
+    if rc != 0:
+        raise RuntimeError("fused_band plan query failed: "
+                           + lib.vsm_error_string(rc).decode())
+    return dict(zip(("cluster", "band", "threads", "smem", "resident"),
+                    info))
 
 
 class BandOperands(NamedTuple):
@@ -193,42 +286,72 @@ def _check_kernel_operands(ops: BandOperands, ns_sched):
         if x.device.type != "cuda" or x.device != ops.Em1.device:
             raise ValueError(f"{name}: the kernel takes tensors on one CUDA "
                              f"device, got {x.device}")
-    if N > KERNEL_MAX_N or K > KERNEL_MAX_K:
-        raise ValueError(f"the kernel takes N <= {KERNEL_MAX_N} and "
-                         f"K <= {KERNEL_MAX_K}, got N={N}, K={K}")
+    band_cluster_plan(N, K)
     if len(ns_sched) > KERNEL_MAX_DOUBL:
         raise ValueError(f"the kernel takes at most {KERNEL_MAX_DOUBL} "
                          f"doubling steps, got {len(ns_sched)}")
 
 
+def _bind(lib):
+    """The C interface of csrc/fused_band.cu, typed."""
+    common = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + \
+        [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    lib.vsm_fused_moment_f32.argtypes = common + [ctypes.c_void_p]
+    lib.vsm_fused_moment_cluster_f32.argtypes = common + [ctypes.c_void_p]
+    lib.vsm_band_cluster_plan.argtypes = [ctypes.c_int, ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.vsm_fused_moment_f32, lib.vsm_fused_moment_cluster_f32,
+               lib.vsm_band_cluster_plan):
+        fn.restype = ctypes.c_int
+    lib.vsm_error_string.argtypes = [ctypes.c_int]
+    lib.vsm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _launch_kernel(ops: BandOperands, ns_sched, ns_inter: int):
-    """One launch of csrc/fused_band.cu on the current stream."""
+    """One launch of csrc/fused_band.cu on the current stream: the
+    single-block kernel, or the cluster kernel where ``band_cluster_plan``
+    gives a cluster (``_launch_cluster``). A launch that fails raises with
+    the CUDA error named."""
     from .cuda_build import load
     _check_kernel_operands(ops, ns_sched)
     s, N = ops.Em1.shape[1], ops.Em1.shape[2]
     nz, C, K = ops.Em1.shape[0], ops.Z_pp.shape[0], ops.j0_p.shape[-1]
-    lib = load("fused_band")
-    fn = lib.vsm_fused_moment_f32
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + \
-        [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.vsm_error_string.argtypes = [ctypes.c_int]
-    lib.vsm_error_string.restype = ctypes.c_char_p
+    plan = band_cluster_plan(N, K)
+    lib = _bind(load("fused_band"))
     dev = ops.Em1.device
     mat = [torch.empty((s, N, N), dtype=torch.float32, device=dev)
            for _ in range(4)]
     vec = [torch.empty((s, N, K), dtype=torch.float32, device=dev)
            for _ in range(2)]
     sched = (ctypes.c_int * max(len(ns_sched), 1))(*ns_sched)
+    args = [*(x.data_ptr() for x in ops), *(x.data_ptr() for x in mat),
+            *(x.data_ptr() for x in vec), s, N, C, K, nz, len(ns_sched),
+            sched, int(ns_inter)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(x.data_ptr() for x in ops), *(x.data_ptr() for x in mat),
-                *(x.data_ptr() for x in vec), s, N, C, K, nz, len(ns_sched),
-                sched, int(ns_inter), stream)
+        if plan["cluster"] == 1:
+            rc = lib.vsm_fused_moment_f32(*args, stream)
+        else:
+            rc = _launch_cluster(lib, args, stream)
     if rc != 0:
         raise RuntimeError("fused_band kernel launch failed: "
                            + lib.vsm_error_string(rc).decode())
     return (*mat, *vec)
+
+
+def _launch_cluster(lib, args, stream) -> int:
+    """The cluster launch (``cluster_band::cluster_kernel<K, false>``, a
+    cluster of 2 or more blocks a point, on the C side's plan): the C
+    side's return code. Counted in ``_launch_cluster.launches`` when it
+    launched."""
+    rc = lib.vsm_fused_moment_cluster_f32(*args, stream)
+    if rc == 0:
+        _launch_cluster.launches += 1
+    return rc
+
+
+_launch_cluster.launches = 0
 
 
 def fused_moment(Z_pp_m, Z_mp_m, tau, scat_w, Em1, Em1_0, att, ek_sol,
@@ -250,7 +373,10 @@ def fused_moment(Z_pp_m, Z_mp_m, tau, scat_w, Em1, Em1_0, att, ek_sol,
     against O(N K) bytes of row tables; its design keeps the composite and
     the ladder temporaries in shared memory for the whole moment, one block
     per spectral point, and runs the products on the register-tiled FP32
-    loops of ``csrc/fp32_tile.cuh`` (shared with K5). CPU tensors run
+    loops of ``csrc/fp32_tile.cuh`` (shared with K5). Past the single
+    block's shared memory (N > 74 or 75) a cluster of blocks holds the
+    chain cut by rows (``band_cluster_plan``; those launches also count in
+    ``_launch_cluster.launches``). CPU tensors run
     ``moment_body_reference``.
     """
     if pack != 1:

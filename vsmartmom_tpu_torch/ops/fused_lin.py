@@ -9,8 +9,11 @@ it once per parameter). The JAX package gets both tangent kernels from AD
 of the forward body traced inside the Pallas kernel; here the tangent
 algebra is written out by hand in ``csrc/fused_lin.cu`` (kernel K2, one
 cluster launch per moment for all P parameters and K <= 2 source columns:
-each cluster of up to 4 blocks computes one spectral point's primal once
-and one tangent per block, laid out by ``mt_plan``) and its plain version is
+at N <= 52 each cluster of up to 4 blocks computes one spectral point's
+primal once and one tangent per block; at 53 <= N <= 128 each cluster of
+2, 4 or 8 blocks computes one point's primal and one tangent, every
+operator cut by rows across it (``csrc/cluster_band.cuh``); laid out by
+``mt_plan``) and its plain version is
 forward-mode AD
 (``torch.func.jvp``) of ``fused_band.moment_body_reference`` on the same
 operands, so the two can never describe different derivatives:
@@ -53,15 +56,19 @@ from ..core.kernels import CompositeLayer, interaction
 from ..core.linearization import jvp_over, live_fields, refuse_empty
 from ..core.solver import _surface_layer, beer_moment, moment_args
 from ..core.types import SolverConfig, SolverInputs, resolve_device
-from .fused_band import BandOperands, band_operands, moment_body_reference
+from .fused_band import (CLUSTER_THREADS, BandOperands, band_operands,
+                         band_rows, cluster_size, cluster_smem_bytes,
+                         moment_body_reference)
 from .fused_rt import norm_sched
 
-#: Largest stream count N and source count K the CUDA kernel takes: each
-#: block of a cluster holds a copy of the primal chain and its own tangent
-#: chain, twenty N x N f32 operators and fourteen (N, K) vectors in shared
-#: memory (222,768 B at N = 52, K = 2, inside the 232,448 B a block may opt
-#: in to).
-KERNEL_MAX_N = 52
+#: Largest stream count N and source count K the CUDA kernel takes.
+KERNEL_MAX_N = 128
+#: Widest N of the narrow plan: each block of a cluster holds a copy of the
+#: primal chain and its own tangent chain, twenty N x N f32 operators and
+#: fourteen (N, K) vectors in shared memory (222,768 B at N = 52, K = 2,
+#: inside the 232,448 B a block may opt in to). Wider scenes take the wide
+#: plan, their chains cut by rows across a cluster.
+NARROW_MAX_N = 52
 KERNEL_MAX_K = 2
 KERNEL_MAX_DOUBL = 32
 #: Blocks of one cluster at most: ``VSM_CLUSTER`` of csrc/fused_lin.cu,
@@ -88,7 +95,8 @@ def _slabs(total: int, parts: int):
 
 
 def mt_plan(N: int, K: int, P: int) -> dict:
-    """The launch plan of K2 for width N, K source columns and P tangents:
+    """The launch plan of K2 for width N, K source columns and P tangents.
+    At N <= ``NARROW_MAX_N`` (``wide`` False):
 
     * ``groups`` = ceil(P / KERNEL_CLUSTER) clusters per spectral point,
       each of ``cluster`` = ceil(P / groups) blocks; the kernel gives block
@@ -103,19 +111,38 @@ def mt_plan(N: int, K: int, P: int) -> dict:
     * ``work``: primal moments of work per point, groups + 2P (the primal
       once per group, two products per tangent product).
 
-    The launch refuses a cluster, group count or shared-memory size that
-    ``csrc/fused_lin.cu``'s own plan does not give, and runs these slabs.
-    Raises ValueError for N > 52, K outside 1..2 or P < 1."""
+    At 53 <= N <= 128 (``wide`` True) twenty operators outgrow a block:
+
+    * ``groups`` = P clusters per spectral point, one a tangent, each of
+      ``cluster`` = the smallest of 2, 4, 8 blocks whose row bands fit
+      (``fused_band.cluster_size``); each computes the primal and its
+      tangent, rank r the rows ``row_slab[r]:row_slab[r + 1]`` (bands of
+      ``band`` rows) of every operator;
+    * ``work``: 3P primal moments a point (the primal once per tangent).
+
+    A narrow launch refuses a cluster, group count or shared-memory size
+    that ``csrc/fused_lin.cu``'s own plan does not give, and runs these
+    slabs; a wide launch runs the C side's own plan, which the card tests
+    hold against this one (``mt_launch_info``). Raises ValueError for
+    N > 128, K outside 1..2 or P < 1."""
     if not (1 <= N <= KERNEL_MAX_N and 1 <= K <= KERNEL_MAX_K and P >= 1):
         raise ValueError(f"the multitangent kernel takes N <= {KERNEL_MAX_N},"
                          f" K <= {KERNEL_MAX_K} and P >= 1, got N={N}, K={K},"
                          f" P={P}")
+    tiles = -(-N // 4) * -(-N // 8)
+    if N > NARROW_MAX_N:
+        c = cluster_size(N, K, True, 1)
+        band = band_rows(N, c)
+        rows = [min(r * band, N) for r in range(c + 1)]
+        return {"cluster": c, "groups": P, "threads": CLUSTER_THREADS,
+                "smem": cluster_smem_bytes(N, K, c, True), "tiles": tiles,
+                "work": 3 * P, "wide": True, "band": band,
+                "row_slab": rows}
     groups = -(-P // KERNEL_CLUSTER)
     cluster = -(-P // groups)
-    tiles = -(-N // 4) * -(-N // 8)
     return {"cluster": cluster, "groups": groups, "threads": KERNEL_THREADS,
             "smem": smem_bytes(N, K), "tiles": tiles,
-            "work": groups + 2 * P,
+            "work": groups + 2 * P, "wide": False,
             "tile_slab": _slabs(tiles, cluster),
             "vec_slab": _slabs(N * K, cluster),
             "row_slab": _slabs(N, cluster)}
@@ -217,9 +244,10 @@ def _check_kernel_operands(ops: BandOperands, dops: TangentOperands,
 
 def _launch_kernel(ops: BandOperands, dops: TangentOperands, ns_sched,
                    ns_inter: int):
-    """One cluster launch of csrc/fused_lin.cu on the current stream, on
-    the plan ``mt_plan`` makes (its cluster, groups, shared memory and
-    primal slabs)."""
+    """One cluster launch of csrc/fused_lin.cu on the current stream: a
+    narrow plan on the words ``mt_plan`` makes (its cluster, groups,
+    shared memory and primal slabs), which the C side checks against its
+    own; a wide plan on the C side's own plan."""
     _check_kernel_operands(ops, dops, ns_sched)
     from .cuda_build import load
     s, N = ops.Em1.shape[1], ops.Em1.shape[2]
@@ -243,19 +271,35 @@ def _launch_kernel(ops: BandOperands, dops: TangentOperands, ns_sched,
     tvec = [torch.empty((P, s, N, K), dtype=f32, device=dev)
             for _ in range(2)]
     sched = (ctypes.c_int * max(len(ns_sched), 1))(*ns_sched)
-    words = [plan["cluster"], plan["groups"], plan["smem"],
-             *plan["tile_slab"], *plan["vec_slab"], *plan["row_slab"]]
-    c_plan = (ctypes.c_int * len(words))(*words)
+    c_plan = None
+    if not plan["wide"]:
+        words = [plan["cluster"], plan["groups"], plan["smem"],
+                 *plan["tile_slab"], *plan["vec_slab"], *plan["row_slab"]]
+        c_plan = (ctypes.c_int * len(words))(*words)
+    args = [*(x.data_ptr() for x in ops), *(x.data_ptr() for x in dops),
+            *(x.data_ptr() for x in (*mat, *vec, *tmat, *tvec)),
+            s, N, C, K, nz, P, len(ns_sched), sched, int(ns_inter), c_plan]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(x.data_ptr() for x in ops), *(x.data_ptr() for x in dops),
-                *(x.data_ptr() for x in (*mat, *vec, *tmat, *tvec)),
-                s, N, C, K, nz, P, len(ns_sched), sched, int(ns_inter),
-                c_plan, stream)
+        rc = _launch_wide(fn, args, stream) if plan["wide"] \
+            else fn(*args, stream)
     if rc != 0:
         raise RuntimeError("fused_lin kernel launch failed: "
                            + lib.vsm_error_string(rc).decode())
     return (*mat, *vec), (*tmat, *tvec)
+
+
+def _launch_wide(fn, args, stream) -> int:
+    """The launch of a wide plan (``cluster_band::cluster_kernel<K,
+    true>``, one cluster a (point, tangent)): the C side's return code.
+    Counted in ``_launch_wide.launches`` when it launched."""
+    rc = fn(*args, stream)
+    if rc == 0:
+        _launch_wide.launches += 1
+    return rc
+
+
+_launch_wide.launches = 0
 
 
 def fused_moment_multitangent(ops: BandOperands, dops: TangentOperands,
@@ -274,7 +318,10 @@ def fused_moment_multitangent(ops: BandOperands, dops: TangentOperands,
     cluster computes each primal product once, every block a slab of it
     stored into all the copies through distributed shared memory, so a
     point costs groups + 2P primal moments of work (18 at P = 8, against
-    the least 1 + 2P = 17). It is bound by FP32 operations. CPU tensors
+    the least 1 + 2P = 17). Above N = 52 the plan is wide: a cluster per
+    (point, tangent) holds the primal and that tangent chain cut by rows
+    (3P primal moments a point; those launches also count in
+    ``_launch_wide.launches``). It is bound by FP32 operations. CPU tensors
     run the plain version."""
     ns_sched = tuple(ns_sched)
     if ops.Em1.device.type == "cpu":
